@@ -1,0 +1,224 @@
+"""HWGATE — Hierarchical Windowed Graph Attention Transformer Encoder.
+
+PyTorch counterpart of ``sl_hwgat_tpu/models/hwgate.py`` on the token-major
+(B, F, K, D) stream (reference `hwgat/models/HWGATE.py:8-360`):
+
+- window partition/reverse and the temporal merge are index maps
+  (``ops/window.py``);
+- every block's adjacency-masked MSA is one ``window_attention`` call, the
+  CUDA kernel on a card: units of 32 tokens (2 frames × 16 joints) × head dim
+  ordered (b, f, nW, h);
+- shifted blocks roll the frames by -1 before attention and back after; the
+  last temporal group of every clip attends under ``adj ∧ shift_tail_mask``
+  (the kernel's dual-mask mode, with ``units_per_group = nW·h`` and
+  ``groups = f``);
+- train-time pruning draws one uniform scalar per MSA call on the device;
+- the zero-score quirk is always on.
+
+The state_dict uses the reference's key layout (``B``, ``pos_encoder.pe``,
+``layers.{i}.blocks.{j}.{norm1,attn.qkv,attn.proj,norm2,ff.fc1,ff.fc2}``,
+``norm``, ``head``), so a reference ``.pt`` loads as it is.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from sl_hwgat_tpu_torch.graphs.adjacency import windowed_block_adj
+from sl_hwgat_tpu_torch.models.common import (
+    LN_EPS,
+    Dense,
+    FeedForward,
+    PositionalEncoding,
+    fourier_embed,
+    fourier_matrix,
+    layer_norm,
+)
+from sl_hwgat_tpu_torch.ops.window import temporal_merge, window_partition, window_reverse
+from sl_hwgat_tpu_torch.ops.window_attention import window_attention
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _supertile_stack(tokens: int) -> tuple[int, int | None]:
+    """(stack, pad_tokens) so that stack·pad ≈ 128 rows (the JAX kernel's
+    supertile; the CUDA kernel works per unit, the plain version stacks)."""
+    if tokens >= 128:
+        return 1, None
+    pad = tokens
+    if tokens % 8 != 0:
+        pad = ((tokens + 7) // 8) * 8
+    stack = max(1, 128 // pad)
+    return stack, (pad if pad != tokens else None)
+
+
+def shift_tail_mask(tokens_per_frame: int, temporal_patch: int, shift: int) -> np.ndarray:
+    """Shift mask of the LAST temporal group of a shifted block: the first
+    ``(TP-shift)·tokens_per_frame`` tokens are ordinary frames, the rest are
+    wrapped frames, and attention across the two is blocked."""
+    n = temporal_patch * tokens_per_frame
+    split = (temporal_patch - shift) * tokens_per_frame
+    m = np.zeros((n, n), dtype=np.float32)
+    m[:split, :split] = 1.0
+    m[split:, split:] = 1.0
+    return m
+
+
+class WindowedMSA(nn.Module):
+    """Multi-head self-attention over token windows under one shared
+    multiplicative adjacency mask. ≡ `HWGATE.py:65-118`."""
+
+    def __init__(self, dim: int, num_heads: int, adj: np.ndarray, *,
+                 tail_adj: np.ndarray | None = None, proj_drop: float = 0.0,
+                 compute_dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.adj = adj
+        self.tail_adj = tail_adj
+        # One fused (d, 3d) projection with output rows [q | k | v], as the
+        # reference stores it.
+        self.qkv = Dense(dim, 3 * dim, compute_dtype, generator)
+        self.proj = Dense(dim, dim, compute_dtype, generator)
+        self.proj_drop = nn.Dropout(proj_drop)
+
+    def forward(self, x: torch.Tensor, windows_per_frame: int, temporal_groups: int):
+        g, n, d = x.shape
+        h = self.num_heads
+        dh = d // h
+        cdt = self.proj.compute_dtype
+        qkv = self.qkv(x).reshape(g, n, 3, h, dh).permute(2, 0, 3, 1, 4)
+        # units in (b, f, nW, h) order, each (n, dh)
+        q, k, v = (t.reshape(g * h, n, dh).contiguous() for t in qkv)
+
+        # train-time pruning: one uniform scalar per call, drawn on the device
+        prune_u = torch.rand((1,), device=x.device) if self.training else None
+        stack, pad = _supertile_stack(n)
+        tail_kw = {}
+        if self.tail_adj is not None:
+            tail_kw = dict(tail_adj=self.tail_adj, units_per_group=windows_per_frame * h,
+                           groups=temporal_groups)
+        out = window_attention(q, k, v, self.adj, scale=dh**-0.5, stack=stack,
+                               pad_tokens=pad, prune_u=prune_u,
+                               out_dtype=cdt, **tail_kw)
+        out = out.reshape(g, h, n, dh).permute(0, 2, 1, 3).reshape(g, n, d)
+        return self.proj_drop(self.proj(out))
+
+
+class PartAttentionBlock(nn.Module):
+    """LN → windowed MSA (with the temporal roll in shifted blocks) →
+    residual → LN → FFN → residual. ≡ `HWGATE.py:138-221`."""
+
+    def __init__(self, dim: int, num_heads: int, window_size: int, temporal_patch: int,
+                 shift_size: int, adj: np.ndarray, *, drop: float = 0.0,
+                 ff_ratio: float = 2.0, compute_dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.window_size = window_size
+        self.temporal_patch = temporal_patch
+        self.shift_size = shift_size
+        self.compute_dtype = compute_dtype
+        tail_adj = None
+        if shift_size > 0:
+            tail_adj = adj * shift_tail_mask(window_size, temporal_patch, shift_size)
+        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.attn = WindowedMSA(dim, num_heads, adj, tail_adj=tail_adj, proj_drop=drop,
+                                compute_dtype=compute_dtype, generator=generator)
+        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.ff = FeedForward(dim, int(dim * ff_ratio), drop, compute_dtype, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # the residual stream, attention and FFN all run in the compute dtype;
+        # LayerNorm returns f32
+        cdt = self.compute_dtype
+        _, f_total, k, _ = x.shape
+        shortcut = x
+        if self.shift_size > 0:
+            x = torch.roll(x, -self.shift_size, dims=1)
+        xw = window_partition(x, self.window_size, self.temporal_patch)
+        xw = self.attn(layer_norm(self.norm1, xw).to(cdt), k // self.window_size,
+                       f_total // self.temporal_patch)
+        x = window_reverse(xw, self.window_size, self.temporal_patch, f_total, k)
+        if self.shift_size > 0:
+            x = torch.roll(x, self.shift_size, dims=1)
+        x = shortcut + x
+        return x + self.ff(layer_norm(self.norm2, x).to(cdt))
+
+
+class _Stage(nn.Module):
+    def __init__(self, blocks: list[PartAttentionBlock]):
+        super().__init__()
+        self.blocks = nn.ModuleList(blocks)
+
+
+class HWGATE(nn.Module):
+    """Hierarchical windowed graph-attention classifier:
+    (B, F, K=64, kp_dim) → logits (B, num_classes).
+
+    ``compute_dtype``: 'float32', or 'bfloat16' to run every projection, the
+    FFN, the attention kernel and the residual stream in bf16 (parameters,
+    LayerNorm statistics, the pooling and the head stay f32) — the JAX
+    model's ``stream_dtype='auto'``.
+    """
+
+    def __init__(self, kp_dim: int = 2, temporal_dim: int = 192,
+                 num_classes: int = 2002, embed_dim: int = 128, temporal_patch: int = 2,
+                 depths: Sequence[int] = (2, 2, 4), num_heads: Sequence[int] = (2, 4, 8),
+                 window_size: int = 16, drop_rate: float = 0.1, ff_ratio: float = 2.0,
+                 compute_dtype: str = "float32", generator: torch.Generator | None = None):
+        super().__init__()
+        cdt = _DTYPES[compute_dtype]
+        self.compute_dtype = cdt
+        self.temporal_patch = temporal_patch
+        # One (TP·W, TP·W) mask serves every (window, head) unit: the four
+        # windows share one topology (`model_params.py:261-369`).
+        adj = windowed_block_adj(temporal_patch, window_size, 1)[0]
+
+        self.register_buffer("B", fourier_matrix(embed_dim, kp_dim, generator))
+        self.pos_encoder = PositionalEncoding(embed_dim, temporal_dim, drop_rate)
+        self.layers = nn.ModuleList()
+        for i, depth in enumerate(depths):
+            dim = int(embed_dim * 2**i)
+            self.layers.append(_Stage([
+                PartAttentionBlock(
+                    dim, num_heads[i], window_size, temporal_patch,
+                    0 if j % 2 == 0 else temporal_patch // 2, adj,
+                    drop=drop_rate, ff_ratio=ff_ratio, compute_dtype=cdt,
+                    generator=generator)
+                for j in range(depth)]))
+        last = int(embed_dim * 2 ** (len(depths) - 1))
+        self.norm = nn.LayerNorm(last, eps=LN_EPS)
+        self.head = Dense(last, num_classes, torch.float32, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.pos_encoder(fourier_embed(x.float(), self.B)).to(self.compute_dtype)
+        for i, stage in enumerate(self.layers):
+            for block in stage.blocks:
+                x = block(x)
+            if i < len(self.layers) - 1:
+                x = temporal_merge(x, self.temporal_patch)
+        x = layer_norm(self.norm, x)
+        x = x.mean(dim=(1, 2))  # AvgPool1d over f·K tokens, `HWGATE.py:328,354`
+        return self.head(x)
+
+
+def hwgate_from_dataset(dataset_params: dict, input_dim: int, **overrides) -> HWGATE:
+    """≡ ``HWGATEParams`` defaults (`model_params.py:243-259`)."""
+    kw = dict(
+        kp_dim=input_dim,
+        temporal_dim=dataset_params["src_len"],
+        num_classes=dataset_params["num_class"],
+        embed_dim=128,
+        temporal_patch=2,
+        depths=(2, 2, 4),
+        num_heads=(2, 4, 8),
+        window_size=16,
+        drop_rate=0.1,
+        ff_ratio=2.0,
+    )
+    kw.update(overrides)
+    return HWGATE(**kw)

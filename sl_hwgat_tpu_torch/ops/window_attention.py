@@ -1,0 +1,183 @@
+"""Fused adjacency-masked window attention: the wrapper of the CUDA kernel.
+
+``window_attention`` keeps the contract of the JAX package's
+``pallas_window_attention`` (`sl_hwgat_tpu/ops/pallas_attention.py`) for the
+token-major (U, N, dh) layout. On CUDA tensors it launches
+``csrc/window_attention_fwd.cu`` on the current stream, or raises; on CPU
+tensors it runs the plain version, ``plain_window_attention`` (which calls
+``ops/attention.py::stacked_window_attention``). There is no fallback from
+one to the other.
+
+``window_attention.launches`` counts kernel launches (a plain integer that a
+run may reset), so a caller can show that a path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import numpy as np
+import torch
+
+from sl_hwgat_tpu_torch.ops import _build
+from sl_hwgat_tpu_torch.ops.attention import stacked_window_attention
+
+KERNEL = "window_attention_fwd"
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_TOKENS = 32
+_KERNEL_HEAD_DIMS = (32, 64)
+_MASKS: dict = {}
+_LOCK = threading.Lock()
+
+
+def make_sel(tiles: int, stack: int, units_per_group: int, groups: int,
+             unit_offset: int = 0, device=None) -> torch.Tensor:
+    """(tiles,) int32 selector, 1 where a supertile belongs to the last of
+    every ``groups`` temporal groups (≡ ``_make_sel`` of the JAX package)."""
+    starts = torch.arange(tiles, dtype=torch.int64, device=device) * stack
+    group = (starts + unit_offset) // units_per_group
+    return (group % groups == groups - 1).to(torch.int32)
+
+
+def _row_bits(adj) -> np.ndarray:
+    """(N, N) {0,1} mask → (N,) uint32, bit j of word i set where adj[i, j]."""
+    a = np.asarray(adj, dtype=np.float32) != 0
+    return (a.astype(np.uint64) << np.arange(a.shape[1], dtype=np.uint64)).sum(1).astype(np.uint32)
+
+
+def _device_masks(adj, tail_adj, device) -> torch.Tensor:
+    """(2, N) row bitmasks on ``device``: plane 0 ``adj``, plane 1 ``tail_adj``
+    (or ``adj`` again in single-mask mode); cached per mask pair and device."""
+    a = np.asarray(adj, dtype=np.float32)
+    t = a if tail_adj is None else np.asarray(tail_adj, dtype=np.float32)
+    key = (a.tobytes(), t.tobytes(), str(device))
+    with _LOCK:
+        m = _MASKS.get(key)
+        if m is None:
+            bits = np.stack([_row_bits(a), _row_bits(t)]).view(np.int32)
+            m = _MASKS[key] = torch.from_numpy(bits).to(device)
+        return m
+
+
+def _kernel(q, k, v, adj, *, scale, stack, pad_tokens, zero_quirk, prune_u,
+            tail_adj, units_per_group, groups, unit_offset, sel, out_dtype):
+    u, n, dh = q.shape
+    if n != _KERNEL_TOKENS or pad_tokens not in (None, n):
+        raise ValueError(f"the CUDA kernel takes unpadded {_KERNEL_TOKENS}-token units, "
+                         f"got N={n}, pad_tokens={pad_tokens}")
+    if dh not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes head dims {_KERNEL_HEAD_DIMS}, got {dh}")
+    if q.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
+        raise TypeError(f"the CUDA kernel takes float32/bfloat16, got {q.dtype} → {out_dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    dev = q.device
+    masks = _device_masks(adj, tail_adj, dev)
+    if prune_u is not None and not torch.is_tensor(prune_u):
+        prune_u = torch.full((1,), float(prune_u), dtype=torch.float32, device=dev)
+    if prune_u is not None and (prune_u.device != dev or prune_u.dtype != torch.float32
+                                or prune_u.numel() != 1):
+        raise ValueError("prune_u must be a one-element float32 tensor on q's device")
+    if sel is not None:
+        sel = torch.as_tensor(sel, dtype=torch.int32, device=dev).contiguous()
+        if sel.shape != (u // stack,):
+            raise ValueError(f"sel must have shape ({u // stack},), got {tuple(sel.shape)}")
+    out = torch.empty((u, n, dh), dtype=out_dtype, device=dev)
+    if u == 0:
+        return out
+    dual = tail_adj is not None
+    with torch.cuda.device(dev):
+        err = _library().window_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), masks.data_ptr(),
+            sel.data_ptr() if sel is not None else None,
+            prune_u.data_ptr() if prune_u is not None else None,
+            u, dh, _DTYPE_CODE[q.dtype], _DTYPE_CODE[out_dtype], float(scale),
+            int(zero_quirk), int(dual), int(stack),
+            int(units_per_group) if dual else 0, int(groups) if dual else 0,
+            int(unit_offset), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{KERNEL} launch failed: cudaError {err}")
+    with _LOCK:
+        window_attention.launches += 1
+    return out
+
+
+def _library() -> ctypes.CDLL:
+    """The kernel's library, built at first use, with its C signature bound."""
+    lib = _build.load(KERNEL)
+    fn = lib.window_attention_fwd
+    with _LOCK:
+        if fn.argtypes is None:
+            p = ctypes.c_void_p
+            fn.argtypes = [p, p, p, p, p, p, p, ctypes.c_longlong, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_longlong, p]
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def window_attention(q, k, v, adj, *, scale: float, stack: int = 4,
+                     pad_tokens: int | None = None, zero_quirk: bool = True,
+                     prune_u=None, tail_adj=None, units_per_group: int | None = None,
+                     groups: int | None = None, unit_offset: int = 0, sel=None,
+                     out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Fused masked window attention over (U, N, dh) units.
+
+    ``adj``: static (N, N) {0,1} numpy mask shared by every unit. Shifted
+    blocks (``tail_adj`` given): units are ordered (…, group, unit-in-group)
+    with ``groups`` temporal groups of ``units_per_group`` units, and the last
+    group of each period attends under ``tail_adj``; ``unit_offset`` shifts
+    the phase of unit 0, and ``sel`` ((U/stack,) ints, 1 = tail plane per
+    supertile of ``stack`` units) overrides the selector. ``prune_u``: None, a
+    float, or a one-element float32 tensor on q's device (the kernel reads it
+    there, without a host sync). Returns (U, N, dh) in ``out_dtype``
+    (default float32).
+    """
+    if not (q.shape == k.shape == v.shape and q.ndim == 3):
+        raise ValueError(f"q, k, v must share one (U, N, dh) shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if not (q.dtype == k.dtype == v.dtype) or not (q.device == k.device == v.device):
+        raise ValueError("q, k, v must share one dtype and one device")
+    u, n, _ = q.shape
+    if np.shape(adj) != (n, n):
+        raise ValueError(f"adj must be ({n}, {n}), got {np.shape(adj)}")
+    if u % stack:
+        raise ValueError(f"units ({u}) must be a multiple of the stack ({stack})")
+    if tail_adj is not None:
+        if units_per_group is None or groups is None:
+            raise ValueError("tail_adj needs units_per_group and groups")
+        if units_per_group % stack:
+            raise ValueError(
+                f"units per temporal group ({units_per_group}) must be a multiple of "
+                f"the supertile stack ({stack}) so no supertile mixes mask planes")
+    out_dtype = torch.float32 if out_dtype is None else out_dtype
+    kw = dict(scale=scale, stack=stack, pad_tokens=pad_tokens, zero_quirk=zero_quirk,
+              prune_u=prune_u, tail_adj=tail_adj, units_per_group=units_per_group,
+              groups=groups, unit_offset=unit_offset, sel=sel, out_dtype=out_dtype)
+    if q.device.type == "cuda":
+        return _kernel(q, k, v, adj, **kw)
+    if q.device.type != "cpu":
+        raise ValueError(f"window_attention runs on cuda or cpu, got {q.device}")
+    return plain_window_attention(q, k, v, adj, **kw)
+
+
+def plain_window_attention(q, k, v, adj, *, scale, stack=4, pad_tokens=None,
+                           zero_quirk=True, prune_u=None, tail_adj=None,
+                           units_per_group=None, groups=None, unit_offset=0, sel=None,
+                           out_dtype=None) -> torch.Tensor:
+    """The plain PyTorch version of the kernel, with ``window_attention``'s
+    arguments, on any device: what ``window_attention`` runs on the CPU, and
+    what the kernel is held against on a card."""
+    if tail_adj is not None and sel is None:
+        sel = make_sel(q.shape[0] // stack, stack, units_per_group, groups, unit_offset,
+                       device=q.device)
+    return stacked_window_attention(
+        q, k, v, adj, scale=scale, stack=stack, pad_tokens=pad_tokens,
+        zero_quirk=zero_quirk, prune_u=prune_u, tail_adj=tail_adj, sel=sel,
+        out_dtype=out_dtype)
+
+
+window_attention.launches = 0
