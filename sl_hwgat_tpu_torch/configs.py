@@ -1,5 +1,5 @@
-"""Eval-time transform pipelines, ≡ ``sl_hwgat_tpu/configs.py``
-(reference `hwgat/configs.py:41-42, 105-109`)."""
+"""Transform pipelines, ≡ ``sl_hwgat_tpu/configs.py``
+(reference `hwgat/configs.py:14-26, 41-42, 93-109`)."""
 
 from __future__ import annotations
 
@@ -12,6 +12,30 @@ from sl_hwgat_tpu_torch.constants import (
     RIGHT_HAND_SLICE,
 )
 from sl_hwgat_tpu_torch.data import transforms as T
+
+# Augmentation knobs ≡ `configs.py:14-26`
+FRAME_AUGMENTATION = (0.5, 1.5)
+SAMPLING_PROB = 0.2
+SHEAR_STD = 0.1
+ROTATION_STD = 0.1
+
+
+def build_train_transform(src_len: int, feature_type: str = "keypoints") -> T.Compose:
+    """Canonical 29-joint clip → (src_len, 64, C) augmented model input.
+    ≡ `configs.py:93-103`."""
+    return T.Compose(
+        [
+            T.KeypointMasking(SAMPLING_PROB, LEFT_HAND_SLICE[0], RIGHT_HAND_SLICE[1]),
+            T.HandCorrection(LEFT_HAND_SLICE, RIGHT_HAND_SLICE),
+            T.NormalizeKeypoints(ORIGIN_IDX, ANCHOR_POINTS),
+            T.ShearTransform(SHEAR_STD),
+            T.RotationTransform(ROTATION_STD),
+            T.TemporalAugmentation(FRAME_AUGMENTATION, uniform_sample=True, random_sample=True),
+            T.TemporalSample(src_len, random_shift=True),
+            T.RandomFlip(feature_type),
+            T.WindowCreate(src_len),
+        ]
+    )
 
 
 def build_eval_transform(src_len: int) -> T.Compose:

@@ -32,48 +32,16 @@
 // Work split: one warp per unit, kWarps units per block, no block-wide
 // barriers. Lane i owns query row i for the scores and both softmaxes; for
 // A V lane d owns output columns d (and d + 32), so the stores coalesce.
+// The score/prune/mask/softmax code is in window_attention_common.cuh, shared
+// with the backward kernel, which recomputes A from it bit for bit.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "window_attention_common.cuh"
 
 namespace {
 
-constexpr int kN = 32;
+using namespace wattn;
+
 constexpr int kWarps = 4;
-constexpr float kNeg = -10000.0f;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// The value a T-typed store of x would keep.
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_float(from_float<T>(x));
-}
-
-// 16 bytes of T at a 16-byte aligned p -> 16 / sizeof(T) floats.
-__device__ __forceinline__ void load16(const float* p, float* out) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
-}
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
-  const uint4 x = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    __nv_bfloat162 h;
-    *reinterpret_cast<uint32_t*>(&h) = w[i];
-    const float2 f = __bfloat1622float2(h);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
 
 template <typename T, typename TO, int DH>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -84,7 +52,6 @@ window_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const float* __restrict__ prune_u, long long units,
                             float scale, int zero_quirk, int dual, int stack,
                             int per_group, int groups, long long unit_offset) {
-  constexpr int kEpv = 16 / sizeof(T);     // elements per 16-byte load
   constexpr int kCols = DH / 32;           // output columns per lane
   constexpr int kPStride = kN + 1;         // padded row of the probability tile
   constexpr int kScratch = kN * DH > kN * kPStride ? kN * DH : kN * kPStride;
@@ -98,87 +65,17 @@ window_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long base = unit * kN * DH;
   float* ks = scratch[warp];
 
-  // K -> shared memory, coalesced 16-byte loads, 16-byte stores.
-  for (int e = lane; e < kN * DH / kEpv; e += 32) {
-    float t[kEpv];
-    load16(k + base + static_cast<long long>(e) * kEpv, t);
-    float4* dst = reinterpret_cast<float4*>(ks + e * kEpv);
-#pragma unroll
-    for (int i = 0; i < kEpv / 4; ++i)
-      dst[i] = make_float4(t[4 * i], t[4 * i + 1], t[4 * i + 2], t[4 * i + 3]);
-  }
-
-  // Query row `lane` into registers, scaled in q's type (q * T(scale)).
-  const float sc = round_to<T>(scale);
+  stage_rows<T, DH>(k + base, ks, lane);
   float qr[DH];
-#pragma unroll
-  for (int c = 0; c < DH / kEpv; ++c)
-    load16(q + base + static_cast<long long>(lane) * DH + c * kEpv, qr + c * kEpv);
-#pragma unroll
-  for (int d = 0; d < DH; ++d) qr[d] = round_to<T>(qr[d] * sc);
+  load_scaled_row<T, DH>(q + base + static_cast<long long>(lane) * DH, scale, qr);
   __syncwarp();
 
-  // Scores of row `lane`; K rows are broadcast reads.
-  float s[kN];
-#pragma unroll
-  for (int j = 0; j < kN; ++j) {
-    const float4* kr = reinterpret_cast<const float4*>(ks + j * DH);
-    float acc = 0.f;
-#pragma unroll
-    for (int d4 = 0; d4 < DH / 4; ++d4) {
-      const float4 kk = kr[d4];
-      acc = fmaf(qr[4 * d4], kk.x, acc);
-      acc = fmaf(qr[4 * d4 + 1], kk.y, acc);
-      acc = fmaf(qr[4 * d4 + 2], kk.z, acc);
-      acc = fmaf(qr[4 * d4 + 3], kk.w, acc);
-    }
-    s[j] = acc;
-  }
-
-  // Train-time pruning over the raw scores of the unit.
-  if (prune_u != nullptr) {
-    const float u = __ldg(prune_u);
-    float m = s[0];
-#pragma unroll
-    for (int j = 1; j < kN; ++j) m = fmaxf(m, s[j]);
-    float e[kN];
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kN; ++j) {
-      e[j] = expf(s[j] - m);
-      sum += e[j];
-    }
-#pragma unroll
-    for (int j = 0; j < kN; ++j)
-      if (e[j] / sum > u) s[j] = 0.f;
-  }
-
-  // Mask plane of this unit, then multiplicative adjacency + zero quirk.
-  int plane = 0;
-  if (dual) {
-    const long long tile = unit / stack;
-    if (sel != nullptr)
-      plane = sel[tile] != 0;
-    else
-      plane = ((tile * stack + unit_offset) / per_group) % groups == groups - 1;
-  }
-  const uint32_t allowed = masks[plane * kN + lane];
-#pragma unroll
-  for (int j = 0; j < kN; ++j) {
-    const bool keep = ((allowed >> j) & 1u) && (!zero_quirk || s[j] != 0.f);
-    s[j] = keep ? s[j] : kNeg;
-  }
-
-  // Row softmax.
-  float m = s[0];
-#pragma unroll
-  for (int j = 1; j < kN; ++j) m = fmaxf(m, s[j]);
-  float sum = 0.f;
-#pragma unroll
-  for (int j = 0; j < kN; ++j) {
-    s[j] = expf(s[j] - m);
-    sum += s[j];
-  }
+  // Scores, prune, mask and softmax of row `lane`; K rows are broadcast reads.
+  float e[kN], sum;
+  const auto allowed_row = [&] {
+    return masks[mask_plane(unit, dual, sel, stack, per_group, groups, unit_offset) * kN + lane];
+  };
+  attention_row<DH>(qr, ks, prune_u, allowed_row, zero_quirk, e, sum);
 
   // V column(s) of lane into registers (coalesced).
   float vr[kN][kCols];
@@ -192,7 +89,7 @@ window_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncwarp();
   float* ps = scratch[warp];
 #pragma unroll
-  for (int j = 0; j < kN; ++j) ps[lane * kPStride + j] = round_to<T>(s[j] / sum);
+  for (int j = 0; j < kN; ++j) ps[lane * kPStride + j] = round_to<T>(e[j] / sum);
   __syncwarp();
 
   // O = A V: lane owns columns lane + 32c; probability rows are broadcasts.

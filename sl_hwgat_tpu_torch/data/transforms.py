@@ -1,8 +1,11 @@
-"""Keypoint transforms of the eval pipeline — NumPy/SciPy, host side.
+"""Keypoint transforms of the train and eval pipelines — NumPy/SciPy, host side.
 
-The port's own copy of the eval subset of ``sl_hwgat_tpu/data/transforms.py``
-(reference `hwgat/dataTransform.py`): every callable takes and returns
-(T, V, C) float arrays and must give exactly the JAX package's output.
+The port's own copy of ``sl_hwgat_tpu/data/transforms.py`` (reference
+`hwgat/dataTransform.py`), less the transforms no pipeline of the port uses
+yet (``Rectifier3Dto2D``, ``ShearTransform3D``, ``ValidFrames``): every
+callable takes and returns (T, V, C) float arrays and must give exactly the
+JAX package's output. The stochastic ones draw from the
+``np.random.Generator`` they are handed, in the JAX package's order.
 """
 
 from __future__ import annotations
@@ -103,6 +106,104 @@ class NormalizeKeypoints:
             "(the reference would crash with UnboundLocalError here; degenerate "
             "clips are filtered in preprocessing, data_preprocess.py:81-82)"
         )
+
+
+class RandomFlip:
+    """p=0.5 horizontal flip: x ← 1 − x. ≡ `dataTransform.py:111-121`."""
+
+    stochastic = True
+
+    def __init__(self, feature_type="keypoints"):
+        self.feature_type = feature_type
+
+    def __call__(self, data, rng):
+        if rng.uniform() <= 0.5:
+            if self.feature_type == "rgb":
+                data = np.flip(data, axis=2)
+            else:
+                data[:, :, 0] = -data[:, :, 0] + 1
+        return data
+
+
+class ShearTransform:
+    """Random 2D shear about a random origin. ≡ `dataTransform.py:132-160`."""
+
+    stochastic = True
+
+    def __init__(self, shear_std=0.2):
+        self.shear_std = shear_std
+
+    def __call__(self, data, rng):
+        origin = np.clip(rng.normal(0.5, 0.1, size=data.shape[2]), 0, 1)
+        x = data - origin
+        shear = np.eye(2)
+        shear[0][1] = rng.normal(0, self.shear_std)
+        x[:, :, :2] = x[:, :, :2] @ shear
+        return x + origin
+
+
+class RotationTransform:
+    """Random 2D rotation (3D Euler path for C=3). ≡ `dataTransform.py:200-234`."""
+
+    stochastic = True
+
+    def __init__(self, rotation_std=0.2):
+        self.rotation_std = rotation_std
+
+    def __call__(self, data, rng):
+        origin = np.clip(rng.normal(0.5, 0.1, size=data.shape[2]), 0, 1)
+        x = data - origin
+        if x.shape[2] == 2:
+            a = rng.normal(0, self.rotation_std)
+            c, s = np.cos(a), np.sin(a)
+            res = x @ np.array([[c, -s], [s, c]])
+        else:
+            from scipy.spatial.transform import Rotation as R
+
+            thetas = rng.normal(0, self.rotation_std, size=3) * 90
+            res = x @ R.from_euler("xyz", thetas, degrees=True).as_matrix()
+        return res + origin
+
+
+class KeypointMasking:
+    """Zero hand joints in a random fraction of frames. ≡ `dataTransform.py:236-253`."""
+
+    stochastic = True
+
+    def __init__(self, sampling_prob=0.2, start_kp=9, end_kp=29):
+        self.sampling_prob = sampling_prob
+        self.start_kp = start_kp
+        self.end_kp = end_kp
+
+    def __call__(self, data, rng):
+        n = int(self.sampling_prob * data.shape[0])
+        choices = np.sort(rng.choice(data.shape[0], size=n, replace=False))
+        data[choices, self.start_kp : self.end_kp] = 0.0
+        return data
+
+
+class TemporalAugmentation:
+    """Resample clip length by ratio U(a, b). ≡ `dataTransform.py:255-289`."""
+
+    stochastic = True
+
+    def __init__(self, frame_augmentation=(0.5, 1.5), uniform_sample=True, random_sample=False):
+        self.frame_augmentation = frame_augmentation
+        self.uniform_sample = uniform_sample
+        self.random_sample = random_sample
+
+    def __call__(self, data, rng):
+        a, b = self.frame_augmentation
+        ratio = (b - a) * rng.uniform() + a
+        n = int(data.shape[0] * ratio)
+        if rng.uniform() < 0.5 and self.random_sample:
+            if ratio <= 1:
+                choices = np.sort(rng.choice(data.shape[0], size=n, replace=False))
+            else:
+                choices = np.sort(rng.choice(data.shape[0], size=n, replace=True))
+            return data[choices]
+        choices = np.linspace(0, data.shape[0] - 1, num=n).astype(int)
+        return data[choices]
 
 
 class TemporalSample:

@@ -11,6 +11,10 @@ reference's torch defaults):
 Mixed precision is written out, with no autocast: ``Dense`` with a
 ``compute_dtype`` casts its input, weight and bias to it (flax
 ``nn.Dense(dtype=...)``), while parameters stay float32.
+
+Train-time randomness (dropout here, attention pruning in the models) draws
+from a ``torch.Generator`` that the caller passes down, so a train step is
+reproducible from its seed.
 """
 
 from __future__ import annotations
@@ -53,6 +57,16 @@ class Dense(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """Inverted dropout (exact ``nn.Dropout`` semantics) with its mask drawn
+    from ``generator`` (a generator on x's device; None = torch's default)."""
+    if not training or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
 def layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     """LayerNorm with float32 statistics and a float32 result, whatever the
     stream's dtype (bf16 → f32 is exact)."""
@@ -90,10 +104,10 @@ class PositionalEncoding(nn.Module):
     def __init__(self, d_model: int, max_len: int, drop_rate: float = 0.0):
         super().__init__()
         self.register_buffer("pe", torch.from_numpy(sinusoid_table(max_len, d_model))[None, :, None])
-        self.dropout = nn.Dropout(drop_rate)
+        self.drop_rate = drop_rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.dropout(x + self.pe[:, : x.shape[1]])
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        return dropout(x + self.pe[:, : x.shape[1]], self.drop_rate, self.training, generator)
 
 
 class FeedForward(nn.Module):
@@ -105,7 +119,8 @@ class FeedForward(nn.Module):
         super().__init__()
         self.fc1 = Dense(dim, hidden, compute_dtype, generator)
         self.fc2 = Dense(hidden, dim, compute_dtype, generator)
-        self.drop = nn.Dropout(drop_rate)
+        self.drop_rate = drop_rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.drop(self.fc2(self.drop(gelu_exact(self.fc1(x)))))
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        x = dropout(gelu_exact(self.fc1(x)), self.drop_rate, self.training, generator)
+        return dropout(self.fc2(x), self.drop_rate, self.training, generator)

@@ -12,7 +12,9 @@ PyTorch counterpart of ``sl_hwgat_tpu/models/hwgate.py`` on the token-major
   last temporal group of every clip attends under ``adj ∧ shift_tail_mask``
   (the kernel's dual-mask mode, with ``units_per_group = nW·h`` and
   ``groups = f``);
-- train-time pruning draws one uniform scalar per MSA call on the device;
+- train-time pruning (``prune_attn``) draws one uniform scalar per MSA call
+  on the device, and dropout its masks, from the generator passed to
+  ``forward`` (the train step seeds one per step);
 - the zero-score quirk is always on.
 
 The state_dict uses the reference's key layout (``B``, ``pos_encoder.pe``,
@@ -34,6 +36,7 @@ from sl_hwgat_tpu_torch.models.common import (
     Dense,
     FeedForward,
     PositionalEncoding,
+    dropout,
     fourier_embed,
     fourier_matrix,
     layer_norm,
@@ -74,19 +77,21 @@ class WindowedMSA(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, adj: np.ndarray, *,
                  tail_adj: np.ndarray | None = None, proj_drop: float = 0.0,
-                 compute_dtype: torch.dtype = torch.float32,
+                 prune: bool = True, compute_dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.num_heads = num_heads
         self.adj = adj
         self.tail_adj = tail_adj
+        self.prune = prune
         # One fused (d, 3d) projection with output rows [q | k | v], as the
         # reference stores it.
         self.qkv = Dense(dim, 3 * dim, compute_dtype, generator)
         self.proj = Dense(dim, dim, compute_dtype, generator)
-        self.proj_drop = nn.Dropout(proj_drop)
+        self.proj_drop = proj_drop
 
-    def forward(self, x: torch.Tensor, windows_per_frame: int, temporal_groups: int):
+    def forward(self, x: torch.Tensor, windows_per_frame: int, temporal_groups: int,
+                generator: torch.Generator | None = None):
         g, n, d = x.shape
         h = self.num_heads
         dh = d // h
@@ -96,7 +101,9 @@ class WindowedMSA(nn.Module):
         q, k, v = (t.reshape(g * h, n, dh).contiguous() for t in qkv)
 
         # train-time pruning: one uniform scalar per call, drawn on the device
-        prune_u = torch.rand((1,), device=x.device) if self.training else None
+        prune_u = None
+        if self.prune and self.training:
+            prune_u = torch.rand((1,), generator=generator, device=x.device)
         stack, pad = _supertile_stack(n)
         tail_kw = {}
         if self.tail_adj is not None:
@@ -106,7 +113,7 @@ class WindowedMSA(nn.Module):
                                pad_tokens=pad, prune_u=prune_u,
                                out_dtype=cdt, **tail_kw)
         out = out.reshape(g, h, n, dh).permute(0, 2, 1, 3).reshape(g, n, d)
-        return self.proj_drop(self.proj(out))
+        return dropout(self.proj(out), self.proj_drop, self.training, generator)
 
 
 class PartAttentionBlock(nn.Module):
@@ -115,7 +122,8 @@ class PartAttentionBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, window_size: int, temporal_patch: int,
                  shift_size: int, adj: np.ndarray, *, drop: float = 0.0,
-                 ff_ratio: float = 2.0, compute_dtype: torch.dtype = torch.float32,
+                 ff_ratio: float = 2.0, prune: bool = True,
+                 compute_dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.window_size = window_size
@@ -127,11 +135,11 @@ class PartAttentionBlock(nn.Module):
             tail_adj = adj * shift_tail_mask(window_size, temporal_patch, shift_size)
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.attn = WindowedMSA(dim, num_heads, adj, tail_adj=tail_adj, proj_drop=drop,
-                                compute_dtype=compute_dtype, generator=generator)
+                                prune=prune, compute_dtype=compute_dtype, generator=generator)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.ff = FeedForward(dim, int(dim * ff_ratio), drop, compute_dtype, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         # the residual stream, attention and FFN all run in the compute dtype;
         # LayerNorm returns f32
         cdt = self.compute_dtype
@@ -141,12 +149,12 @@ class PartAttentionBlock(nn.Module):
             x = torch.roll(x, -self.shift_size, dims=1)
         xw = window_partition(x, self.window_size, self.temporal_patch)
         xw = self.attn(layer_norm(self.norm1, xw).to(cdt), k // self.window_size,
-                       f_total // self.temporal_patch)
+                       f_total // self.temporal_patch, generator)
         x = window_reverse(xw, self.window_size, self.temporal_patch, f_total, k)
         if self.shift_size > 0:
             x = torch.roll(x, self.shift_size, dims=1)
         x = shortcut + x
-        return x + self.ff(layer_norm(self.norm2, x).to(cdt))
+        return x + self.ff(layer_norm(self.norm2, x).to(cdt), generator)
 
 
 class _Stage(nn.Module):
@@ -162,14 +170,16 @@ class HWGATE(nn.Module):
     ``compute_dtype``: 'float32', or 'bfloat16' to run every projection, the
     FFN, the attention kernel and the residual stream in bf16 (parameters,
     LayerNorm statistics, the pooling and the head stay f32) — the JAX
-    model's ``stream_dtype='auto'``.
+    model's ``stream_dtype='auto'``. ``prune_attn``: train-time attention
+    pruning, the JAX model's option of the same name.
     """
 
     def __init__(self, kp_dim: int = 2, temporal_dim: int = 192,
                  num_classes: int = 2002, embed_dim: int = 128, temporal_patch: int = 2,
                  depths: Sequence[int] = (2, 2, 4), num_heads: Sequence[int] = (2, 4, 8),
                  window_size: int = 16, drop_rate: float = 0.1, ff_ratio: float = 2.0,
-                 compute_dtype: str = "float32", generator: torch.Generator | None = None):
+                 prune_attn: bool = True, compute_dtype: str = "float32",
+                 generator: torch.Generator | None = None):
         super().__init__()
         cdt = _DTYPES[compute_dtype]
         self.compute_dtype = cdt
@@ -187,18 +197,21 @@ class HWGATE(nn.Module):
                 PartAttentionBlock(
                     dim, num_heads[i], window_size, temporal_patch,
                     0 if j % 2 == 0 else temporal_patch // 2, adj,
-                    drop=drop_rate, ff_ratio=ff_ratio, compute_dtype=cdt,
-                    generator=generator)
+                    drop=drop_rate, ff_ratio=ff_ratio, prune=prune_attn,
+                    compute_dtype=cdt, generator=generator)
                 for j in range(depth)]))
         last = int(embed_dim * 2 ** (len(depths) - 1))
         self.norm = nn.LayerNorm(last, eps=LN_EPS)
         self.head = Dense(last, num_classes, torch.float32, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.pos_encoder(fourier_embed(x.float(), self.B)).to(self.compute_dtype)
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        """Logits of a (B, F, K, kp_dim) batch. In train mode, the prune
+        scalars and dropout masks come from ``generator`` (on x's device;
+        None = torch's default generator)."""
+        x = self.pos_encoder(fourier_embed(x.float(), self.B), generator).to(self.compute_dtype)
         for i, stage in enumerate(self.layers):
             for block in stage.blocks:
-                x = block(x)
+                x = block(x, generator)
             if i < len(self.layers) - 1:
                 x = temporal_merge(x, self.temporal_patch)
         x = layer_norm(self.norm, x)

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exports plain C functions and compiles, for
 ``sm_90a``, into ``build/kernels/lib<name>-<hash>.so`` at the repository root
-(the hash covers the source and the flags, so an edited source rebuilds).
+(the hash covers the source, the local headers it includes and the flags, so
+an edited source or header rebuilds).
 Building happens at first use, never at import: ``build()`` starts one
 ``nvcc`` per source, all at once, and waits for them; ``load()`` builds what
 is missing and returns the loaded library.
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -22,7 +24,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
-SOURCES = ("window_attention_fwd",)
+SOURCES = ("window_attention_fwd", "window_attention_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -47,10 +49,28 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every local header it includes, transitively."""
+    files, todo = [], [CSRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in files:
+            continue
+        files.append(path)
+        todo += [path.parent / inc.decode() for inc in _LOCAL_INCLUDE.findall(path.read_bytes())]
+    return files
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path; its hash covers the source, its local headers and
+    the flags, so an edit to any of them builds anew."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names=SOURCES) -> dict[str, dict]:

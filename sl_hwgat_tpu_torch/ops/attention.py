@@ -9,6 +9,8 @@ Counterpart of ``sl_hwgat_tpu/ops/attention.py``:
    are stacked into supertiles of S·N rows exactly as the JAX function does;
    cross-unit and padded scores go to 2·NEG, so after the f32 softmax they
    are exactly 0 and the result equals a per-unit softmax.
+3. ``stacked_window_attention_bwd``: the plain version of the backward
+   kernel (``csrc/window_attention_bwd.cu``), on the same supertiles.
 
 The reference's quirks are kept under the same flags:
 
@@ -80,6 +82,44 @@ def tile_planes(adj, n: int, np_: int, stack: int) -> tuple[np.ndarray, np.ndarr
     return allowed, unit
 
 
+def _stack(x: torch.Tensor, np_: int, stack: int) -> torch.Tensor:
+    """(U, N, dh) → (U/stack, stack·Np, dh) supertiles, tokens padded to Np."""
+    u, n, dh = x.shape
+    if np_ != n:
+        x = torch.nn.functional.pad(x, (0, 0, 0, np_ - n))
+    return x.reshape(u // stack, stack * np_, dh)
+
+
+def _unstack(x: torch.Tensor, n: int, np_: int) -> torch.Tensor:
+    """Inverse of ``_stack``: (T, stack·Np, dh) → (U, N, dh)."""
+    return x.reshape(-1, np_, x.shape[-1])[:, :n]
+
+
+def _tile_scores(qs, ks, adj, *, n, np_, stack, scale, zero_quirk, prune_u, tail_adj, sel):
+    """(raw, masked) f32 scores of the supertiles: the raw scores of the
+    scaled q, and the scores after pruning, adjacency masking and unit
+    isolation (the softmax input)."""
+    dev = qs.device
+    allowed_np, unit_np = tile_planes(adj, n, np_, stack)
+    allowed = torch.from_numpy(allowed_np != 0).to(dev)
+    if tail_adj is not None:
+        tail = torch.from_numpy(tile_planes(tail_adj, n, np_, stack)[0] != 0).to(dev)
+        allowed = torch.where(sel.to(dev).bool()[:, None, None], tail, allowed)
+    unit = torch.from_numpy(unit_np != 0).to(dev)
+
+    scaled = qs * torch.tensor(scale, dtype=qs.dtype, device=dev)
+    raw = torch.matmul(scaled.float(), ks.float().transpose(1, 2))
+    s = raw
+    if prune_u is not None:
+        s_iso = torch.where(unit, s, UNIT_NEG)
+        s = torch.where(_softmax(s_iso) > prune_u, 0.0, s)
+    keep = allowed & (s != 0) if zero_quirk else allowed
+    s = torch.where(keep, s, NEG)
+    # Cross-unit / padded entries sit below the -1e4 mask level, so a fully
+    # masked row still softmaxes uniformly over its own unit's tokens.
+    return raw, torch.where(unit, s, 2 * NEG)
+
+
 def stacked_window_attention(q, k, v, adj, *, scale: float, stack: int = 4,
                              pad_tokens: int | None = None, zero_quirk: bool = True,
                              prune_u=None, tail_adj=None, sel=None,
@@ -98,34 +138,43 @@ def stacked_window_attention(q, k, v, adj, *, scale: float, stack: int = 4,
     ``out_dtype`` (default float32). For float32 inputs this is the JAX
     package's ``stacked_window_attention``.
     """
-    u, n, dh = q.shape
+    n = q.shape[1]
     np_ = n if pad_tokens is None else pad_tokens
-    if np_ != n:
-        pad = (0, 0, 0, np_ - n)
-        q, k, v = (torch.nn.functional.pad(t, pad) for t in (q, k, v))
-    t = u // stack
-    qs, ks, vs = (x.reshape(t, stack * np_, dh) for x in (q, k, v))
-    dev = q.device
-
-    allowed_np, unit_np = tile_planes(adj, n, np_, stack)
-    allowed = torch.from_numpy(allowed_np != 0).to(dev)
-    if tail_adj is not None:
-        tail = torch.from_numpy(tile_planes(tail_adj, n, np_, stack)[0] != 0).to(dev)
-        allowed = torch.where(sel.to(dev).bool()[:, None, None], tail, allowed)
-    unit = torch.from_numpy(unit_np != 0).to(dev)
-
-    scaled = qs * torch.tensor(scale, dtype=q.dtype, device=dev)
-    s = torch.matmul(scaled.float(), ks.float().transpose(1, 2))
-    if prune_u is not None:
-        s_iso = torch.where(unit, s, UNIT_NEG)
-        s = torch.where(_softmax(s_iso) > prune_u, 0.0, s)
-    keep = allowed & (s != 0) if zero_quirk else allowed
-    s = torch.where(keep, s, NEG)
-    # Cross-unit / padded entries sit below the -1e4 mask level, so a fully
-    # masked row still softmaxes uniformly over its own unit's tokens.
-    s = torch.where(unit, s, 2 * NEG)
+    qs, ks, vs = (_stack(x, np_, stack) for x in (q, k, v))
+    _, s = _tile_scores(qs, ks, adj, n=n, np_=np_, stack=stack, scale=scale,
+                        zero_quirk=zero_quirk, prune_u=prune_u, tail_adj=tail_adj, sel=sel)
     a = _softmax(s).to(v.dtype)
-    out = torch.matmul(a.float(), vs.float()).reshape(u, np_, dh)
-    if np_ != n:
-        out = out[:, :n]
+    out = _unstack(torch.matmul(a.float(), vs.float()), n, np_)
     return out.to(out_dtype or torch.float32)
+
+
+def stacked_window_attention_bwd(q, k, v, do, adj, *, scale: float, stack: int = 4,
+                                 pad_tokens: int | None = None, zero_quirk: bool = True,
+                                 prune_u=None, tail_adj=None, sel=None):
+    """(dq, dk, dv) of ``stacked_window_attention`` for the output gradient
+    ``do``: the plain version of the backward kernel
+    (``csrc/window_attention_bwd.cu``), written out as the JAX package's
+    ``_bwd_kernel`` computes it (`sl_hwgat_tpu/ops/pallas_attention.py:295-353`).
+
+    With dt = q's dtype: dO is cast to dt; A is recomputed exactly as the
+    forward does; dV = dt(A)ᵀ·dO; dA = dO·Vᵀ; dS = A∘(dA − rowsum(dA∘A)),
+    kept only where the masked score still equals the raw one (masked,
+    zero-quirk and pruned entries pass no gradient; the prune mask itself is
+    not differentiated), then rounded to dt; dQ = (dS·K)·scale and
+    dK = (dSᵀ·Q)·scale. Products sum in f32; every gradient is stored in dt.
+    """
+    dt = q.dtype
+    n = q.shape[1]
+    np_ = n if pad_tokens is None else pad_tokens
+    qs, ks, vs, dos = (_stack(x, np_, stack) for x in (q, k, v, do.to(dt)))
+    raw, s = _tile_scores(qs, ks, adj, n=n, np_=np_, stack=stack, scale=scale,
+                          zero_quirk=zero_quirk, prune_u=prune_u, tail_adj=tail_adj, sel=sel)
+    a = _softmax(s)
+    dof = dos.float()
+    dv = torch.matmul(a.to(dt).float().transpose(1, 2), dof).to(dt)
+    da = torch.matmul(dof, vs.float().transpose(1, 2))
+    ds = a * (da - (da * a).sum(dim=-1, keepdim=True))
+    ds = (ds * (s == raw)).to(dt).float()
+    dq = (torch.matmul(ds, ks.float()) * scale).to(dt)
+    dk = (torch.matmul(ds.transpose(1, 2), qs.float()) * scale).to(dt)
+    return tuple(_unstack(x, n, np_) for x in (dq, dk, dv))

@@ -1,15 +1,18 @@
-"""Fused adjacency-masked window attention: the wrapper of the CUDA kernel.
+"""Fused adjacency-masked window attention: the wrappers of the CUDA kernels.
 
 ``window_attention`` keeps the contract of the JAX package's
 ``pallas_window_attention`` (`sl_hwgat_tpu/ops/pallas_attention.py`) for the
-token-major (U, N, dh) layout. On CUDA tensors it launches
-``csrc/window_attention_fwd.cu`` on the current stream, or raises; on CPU
-tensors it runs the plain version, ``plain_window_attention`` (which calls
-``ops/attention.py::stacked_window_attention``). There is no fallback from
-one to the other.
+token-major (U, N, dh) layout, gradient included. On CUDA tensors it is a
+``torch.autograd.Function`` whose forward launches
+``csrc/window_attention_fwd.cu`` and whose backward launches
+``csrc/window_attention_bwd.cu`` (through ``window_attention_bwd``), on the
+current stream, or raises. On CPU tensors it runs the plain version,
+``plain_window_attention`` (``ops/attention.py::stacked_window_attention``),
+which torch differentiates. There is no fallback from one to the other.
 
-``window_attention.launches`` counts kernel launches (a plain integer that a
-run may reset), so a caller can show that a path went through the kernel.
+``window_attention.launches`` and ``window_attention_bwd.launches`` count the
+two kernels' launches (plain integers that a run may reset), so a caller can
+show that a path went through the kernels.
 """
 
 from __future__ import annotations
@@ -21,9 +24,13 @@ import numpy as np
 import torch
 
 from sl_hwgat_tpu_torch.ops import _build
-from sl_hwgat_tpu_torch.ops.attention import stacked_window_attention
+from sl_hwgat_tpu_torch.ops.attention import (
+    stacked_window_attention,
+    stacked_window_attention_bwd,
+)
 
 KERNEL = "window_attention_fwd"
+KERNEL_BWD = "window_attention_bwd"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_TOKENS = 32
 _KERNEL_HEAD_DIMS = (32, 64)
@@ -60,17 +67,15 @@ def _device_masks(adj, tail_adj, device) -> torch.Tensor:
         return m
 
 
-def _kernel(q, k, v, adj, *, scale, stack, pad_tokens, zero_quirk, prune_u,
-            tail_adj, units_per_group, groups, unit_offset, sel, out_dtype):
+def _kernel_args(q, adj, *, stack, pad_tokens, prune_u, tail_adj, sel, tensors):
+    """Check what the kernels take; return the device (masks, prune_u, sel)."""
     u, n, dh = q.shape
     if n != _KERNEL_TOKENS or pad_tokens not in (None, n):
-        raise ValueError(f"the CUDA kernel takes unpadded {_KERNEL_TOKENS}-token units, "
+        raise ValueError(f"the CUDA kernels take unpadded {_KERNEL_TOKENS}-token units, "
                          f"got N={n}, pad_tokens={pad_tokens}")
     if dh not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel takes head dims {_KERNEL_HEAD_DIMS}, got {dh}")
-    if q.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
-        raise TypeError(f"the CUDA kernel takes float32/bfloat16, got {q.dtype} → {out_dtype}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+        raise ValueError(f"the CUDA kernels take head dims {_KERNEL_HEAD_DIMS}, got {dh}")
+    for name, t in tensors.items():
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     dev = q.device
@@ -84,19 +89,39 @@ def _kernel(q, k, v, adj, *, scale, stack, pad_tokens, zero_quirk, prune_u,
         sel = torch.as_tensor(sel, dtype=torch.int32, device=dev).contiguous()
         if sel.shape != (u // stack,):
             raise ValueError(f"sel must have shape ({u // stack},), got {tuple(sel.shape)}")
+    return masks, prune_u, sel
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+def _mask_mode(tail_adj, stack, units_per_group, groups, unit_offset):
+    """(dual, stack, per_group, groups, unit_offset) of the C interfaces."""
+    dual = tail_adj is not None
+    return (int(dual), int(stack), int(units_per_group) if dual else 0,
+            int(groups) if dual else 0, int(unit_offset))
+
+
+def _kernel(q, k, v, adj, *, scale, stack, pad_tokens, zero_quirk, prune_u,
+            tail_adj, units_per_group, groups, unit_offset, sel, out_dtype):
+    if q.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
+        raise TypeError(f"the CUDA kernel takes float32/bfloat16, got {q.dtype} → {out_dtype}")
+    masks, prune_u, sel = _kernel_args(q, adj, stack=stack, pad_tokens=pad_tokens,
+                                       prune_u=prune_u, tail_adj=tail_adj, sel=sel,
+                                       tensors={"q": q, "k": k, "v": v})
+    u, n, dh = q.shape
+    dev = q.device
     out = torch.empty((u, n, dh), dtype=out_dtype, device=dev)
     if u == 0:
         return out
-    dual = tail_adj is not None
     with torch.cuda.device(dev):
-        err = _library().window_attention_fwd(
+        err = _library(KERNEL).window_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), masks.data_ptr(),
-            sel.data_ptr() if sel is not None else None,
-            prune_u.data_ptr() if prune_u is not None else None,
-            u, dh, _DTYPE_CODE[q.dtype], _DTYPE_CODE[out_dtype], float(scale),
-            int(zero_quirk), int(dual), int(stack),
-            int(units_per_group) if dual else 0, int(groups) if dual else 0,
-            int(unit_offset), torch.cuda.current_stream(dev).cuda_stream)
+            _ptr(sel), _ptr(prune_u), u, dh, _DTYPE_CODE[q.dtype], _DTYPE_CODE[out_dtype],
+            float(scale), int(zero_quirk),
+            *_mask_mode(tail_adj, stack, units_per_group, groups, unit_offset),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL} launch failed: cudaError {err}")
     with _LOCK:
@@ -104,19 +129,74 @@ def _kernel(q, k, v, adj, *, scale, stack, pad_tokens, zero_quirk, prune_u,
     return out
 
 
-def _library() -> ctypes.CDLL:
+def _kernel_bwd(q, k, v, do, adj, *, scale, stack, pad_tokens, zero_quirk, prune_u,
+                tail_adj, units_per_group, groups, unit_offset, sel):
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"the CUDA kernel takes float32/bfloat16, got {q.dtype}")
+    do = do.to(q.dtype).contiguous()
+    masks, prune_u, sel = _kernel_args(q, adj, stack=stack, pad_tokens=pad_tokens,
+                                       prune_u=prune_u, tail_adj=tail_adj, sel=sel,
+                                       tensors={"q": q, "k": k, "v": v, "do": do})
+    u, _, dh = q.shape
+    dev = q.device
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    if u == 0:
+        return dq, dk, dv
+    with torch.cuda.device(dev):
+        err = _library(KERNEL_BWD).window_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), masks.data_ptr(), _ptr(sel), _ptr(prune_u),
+            u, dh, _DTYPE_CODE[q.dtype], float(scale), int(zero_quirk),
+            *_mask_mode(tail_adj, stack, units_per_group, groups, unit_offset),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{KERNEL_BWD} launch failed: cudaError {err}")
+    with _LOCK:
+        window_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+_ARGTYPES = {
+    # q, k, v, o, masks, sel, prune_u, units, dh, in_dtype, out_dtype, scale,
+    # zero_quirk, dual, stack, per_group, groups, unit_offset, stream
+    KERNEL: ["p"] * 7 + ["ll", "i", "i", "i", "f", "i", "i", "i", "i", "i", "ll", "p"],
+    # q, k, v, do, dq, dk, dv, masks, sel, prune_u, units, dh, dtype, scale,
+    # zero_quirk, dual, stack, per_group, groups, unit_offset, stream
+    KERNEL_BWD: ["p"] * 10 + ["ll", "i", "i", "f", "i", "i", "i", "i", "i", "ll", "p"],
+}
+_CTYPES = {"p": ctypes.c_void_p, "ll": ctypes.c_longlong, "i": ctypes.c_int,
+           "f": ctypes.c_float}
+
+
+def _library(name: str) -> ctypes.CDLL:
     """The kernel's library, built at first use, with its C signature bound."""
-    lib = _build.load(KERNEL)
-    fn = lib.window_attention_fwd
+    lib = _build.load(name)
+    fn = getattr(lib, name)
     with _LOCK:
         if fn.argtypes is None:
-            p = ctypes.c_void_p
-            fn.argtypes = [p, p, p, p, p, p, p, ctypes.c_longlong, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_longlong, p]
+            fn.argtypes = [_CTYPES[t] for t in _ARGTYPES[name]]
             fn.restype = ctypes.c_int
     return lib
+
+
+class _WindowAttention(torch.autograd.Function):
+    """The forward kernel with the backward kernel as its gradient. q, k, v
+    get gradients (in q's dtype); ``prune_u`` and ``sel`` get none."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, prune_u, sel, adj, kw):
+        out = _kernel(q, k, v, adj, prune_u=prune_u, sel=sel, **kw)
+        ctx.save_for_backward(q, k, v, prune_u, sel)
+        ctx.adj = adj
+        ctx.kw = {name: val for name, val in kw.items() if name != "out_dtype"}
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, prune_u, sel = ctx.saved_tensors
+        dq, dk, dv = _kernel_bwd(q, k, v, do.contiguous(), ctx.adj, prune_u=prune_u,
+                                 sel=sel, **ctx.kw)
+        return dq, dk, dv, None, None, None, None
 
 
 def window_attention(q, k, v, adj, *, scale: float, stack: int = 4,
@@ -155,13 +235,38 @@ def window_attention(q, k, v, adj, *, scale: float, stack: int = 4,
                 f"the supertile stack ({stack}) so no supertile mixes mask planes")
     out_dtype = torch.float32 if out_dtype is None else out_dtype
     kw = dict(scale=scale, stack=stack, pad_tokens=pad_tokens, zero_quirk=zero_quirk,
-              prune_u=prune_u, tail_adj=tail_adj, units_per_group=units_per_group,
-              groups=groups, unit_offset=unit_offset, sel=sel, out_dtype=out_dtype)
+              tail_adj=tail_adj, units_per_group=units_per_group, groups=groups,
+              unit_offset=unit_offset, out_dtype=out_dtype)
     if q.device.type == "cuda":
-        return _kernel(q, k, v, adj, **kw)
+        if prune_u is not None and not torch.is_tensor(prune_u):
+            prune_u = torch.full((1,), float(prune_u), dtype=torch.float32, device=q.device)
+        if sel is not None:
+            sel = torch.as_tensor(sel, dtype=torch.int32, device=q.device).contiguous()
+        return _WindowAttention.apply(q, k, v, prune_u, sel, adj, kw)
     if q.device.type != "cpu":
         raise ValueError(f"window_attention runs on cuda or cpu, got {q.device}")
-    return plain_window_attention(q, k, v, adj, **kw)
+    return plain_window_attention(q, k, v, adj, prune_u=prune_u, sel=sel, **kw)
+
+
+def window_attention_bwd(q, k, v, do, adj, *, scale: float, stack: int = 4,
+                         pad_tokens: int | None = None, zero_quirk: bool = True,
+                         prune_u=None, tail_adj=None, units_per_group: int | None = None,
+                         groups: int | None = None, unit_offset: int = 0, sel=None,
+                         out_dtype: torch.dtype | None = None):
+    """(dq, dk, dv) of ``window_attention`` for the output gradient ``do``,
+    with ``window_attention``'s arguments (``out_dtype`` names the forward's
+    output type; the gradients are in q's dtype). On CUDA tensors it launches
+    ``csrc/window_attention_bwd.cu`` or raises; on CPU tensors it runs
+    ``plain_window_attention_bwd``. This is what the gradient of
+    ``window_attention`` launches on a card."""
+    kw = dict(scale=scale, stack=stack, pad_tokens=pad_tokens, zero_quirk=zero_quirk,
+              prune_u=prune_u, tail_adj=tail_adj, units_per_group=units_per_group,
+              groups=groups, unit_offset=unit_offset, sel=sel)
+    if q.device.type == "cuda":
+        return _kernel_bwd(q, k, v, do, adj, **kw)
+    if q.device.type != "cpu":
+        raise ValueError(f"window_attention_bwd runs on cuda or cpu, got {q.device}")
+    return plain_window_attention_bwd(q, k, v, do, adj, **kw)
 
 
 def plain_window_attention(q, k, v, adj, *, scale, stack=4, pad_tokens=None,
@@ -180,4 +285,19 @@ def plain_window_attention(q, k, v, adj, *, scale, stack=4, pad_tokens=None,
         out_dtype=out_dtype)
 
 
+def plain_window_attention_bwd(q, k, v, do, adj, *, scale, stack=4, pad_tokens=None,
+                               zero_quirk=True, prune_u=None, tail_adj=None,
+                               units_per_group=None, groups=None, unit_offset=0, sel=None,
+                               out_dtype=None):
+    """The plain PyTorch version of the backward kernel, with
+    ``window_attention_bwd``'s arguments, on any device."""
+    if tail_adj is not None and sel is None:
+        sel = make_sel(q.shape[0] // stack, stack, units_per_group, groups, unit_offset,
+                       device=q.device)
+    return stacked_window_attention_bwd(
+        q, k, v, do, adj, scale=scale, stack=stack, pad_tokens=pad_tokens,
+        zero_quirk=zero_quirk, prune_u=prune_u, tail_adj=tail_adj, sel=sel)
+
+
 window_attention.launches = 0
+window_attention_bwd.launches = 0

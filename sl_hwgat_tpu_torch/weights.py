@@ -22,11 +22,12 @@ import torch
 _REBUILT = ("adj_mask", "attn_mask")
 
 
-def state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
-    """JAX HWGATE ``{'params': ..., 'buffers': ...}`` (numpy leaves) → the
-    port's state_dict. flax kernels (in, out) become torch weights (out, in);
-    the separate q/k/v projections are stacked into ``attn.qkv``."""
-    params, buffers = variables["params"], variables["buffers"]
+def params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """A JAX HWGATE ``params`` tree (numpy leaves: the parameters, their
+    gradients or any tree of that structure; no buffers) → a dict under the
+    port's parameter names (``model.named_parameters()``). flax kernels
+    (in, out) become torch weights (out, in); the separate q/k/v projections
+    are stacked into ``attn.qkv``."""
     sd: dict[str, np.ndarray] = {}
 
     def dense(prefix: str, p: Mapping):
@@ -37,8 +38,6 @@ def state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
         sd[f"{prefix}.weight"] = np.asarray(p["scale"])
         sd[f"{prefix}.bias"] = np.asarray(p["bias"])
 
-    sd["B"] = np.asarray(buffers["fourier"]["B"])
-    sd["pos_encoder.pe"] = np.asarray(buffers["pos_encoder"]["pe"])[None, :, None, :]
     blk = re.compile(r"layers_(\d+)_blocks_(\d+)$")
     for name, p in params.items():
         m = blk.match(name)
@@ -58,6 +57,19 @@ def state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
     norm("norm", params["norm"])
     dense("head", params["head"])
     return {k: torch.tensor(np.asarray(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """JAX HWGATE ``{'params': ..., 'buffers': ...}`` (numpy leaves) → the
+    port's state_dict: ``params_from_jax`` plus the two buffers."""
+    buffers = variables["buffers"]
+    sd = {
+        "B": torch.tensor(np.asarray(buffers["fourier"]["B"], dtype=np.float32)),
+        "pos_encoder.pe": torch.tensor(
+            np.asarray(buffers["pos_encoder"]["pe"], dtype=np.float32)[None, :, None, :]),
+    }
+    sd.update(params_from_jax(variables["params"]))
+    return sd
 
 
 def strip_model_prefix(state_dict: Mapping) -> dict:
