@@ -32,10 +32,32 @@ Phases, each printing one JSON line (any failure ends the run non-zero):
               train transforms (batch 16) → 2 × train_epoch → evaluate, at
               full width. Launch counts are reset just before and read just
               after this phase: 8 backward launches per train step.
-9. timings  — CUDA-event medians of both kernels, their plain versions and
-              the masked scaled_dot_product_attention yardsticks (timed, never
-              called by the port), of the eval forward and of the train step;
-              a torch.profiler table of one eval forward and one train step.
+9. banded   — the banded forward and backward kernels against their plain
+              versions at WGATE's (512 planes × 192 frames × 16 joints) and
+              GATE's (128 × 192 × 29) batch-16 shapes, dh 16, f32 and bf16,
+              under the models' identity ±1-frame band and under a
+              non-diagonal band (the spatial plane as prev/next); the
+              autograd Function's gradients equal a direct backward call.
+10. banded forward — WGATE and GATE at FDMSE-ISL (192 frames, 2002 classes,
+              embed 128, 8 blocks, 8 heads), batch 16, f32 and bf16: logits
+              through the kernel against the plain attention, 8 launches per
+              forward.
+11. banded serve — main path 3: for each of WGATE and GATE, a checkpoint →
+              Predictor.from_checkpoint → a 24-clip burst from 4 threads
+              through BatchingQueue (GATE through the 29-joint transform);
+              every row equals predict_logits; counts reset just before and
+              read just after each burst.
+12. banded train — WGATE and GATE at FDMSE-ISL, batch 16, f32 and bf16: one
+              step's gradients through the kernels against the plain
+              attention (dropout 0), all nonzero, 8 + 8 launches per step,
+              the step repeating bit for bit from its seed; main path 4: ten
+              AdamW steps through make_steps lower the loss, with the counts
+              reset just before and read just after.
+13. timings  — CUDA-event medians of every kernel, its plain version and its
+              masked scaled_dot_product_attention yardstick (timed, never
+              called by the port), of the eval forward and of the train step
+              of each model; a torch.profiler table of one eval forward and
+              one train step of each model.
 
 The last lines are the kernels line, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -52,7 +74,7 @@ import sys
 import tempfile
 import threading
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 SEED = 0
@@ -472,6 +494,331 @@ def phase_synth(workdir: Path):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The banded models, WGATE and GATE (phases 9-12).
+
+BANDED_MODELS = ("WGATE", "GATE")
+# (planes, frames, joints) of one attention call at batch 16: WGATE's 16·4
+# windows × 8 heads over 192 frames of 16 joints; GATE's 16 clips × 8 heads
+# over 192 frames of 29 joints. dh = 128 / 8 = 16.
+BANDED_SHAPE = {"WGATE": (512, 192, 16), "GATE": (128, 192, 29)}
+BANDED_DH = 16
+BANDED_SCALE = BANDED_DH**-0.5
+NUM_KPS = {"WGATE": 64, "GATE": 29}
+
+
+def banded_bands() -> dict:
+    """{model: {"identity": the model's band (K8's case), "spatial": the
+    spatial plane as prev/next too (K9's general case)}}."""
+    import numpy as np
+
+    from sl_hwgat_tpu_torch.graphs.adjacency import additive_mask, window_adj
+    from sl_hwgat_tpu_torch.graphs.skeleton import BODY29_EDGES, edges_to_dense
+    from sl_hwgat_tpu_torch.models.wgate import make_band
+
+    spatial = {"WGATE": window_adj(window_size=16),
+               "GATE": edges_to_dense(BODY29_EDGES, 29, self_loops=False)}
+    return {m: {"identity": make_band(a), "spatial": np.stack([additive_mask(a)] * 3)}
+            for m, a in spatial.items()}
+
+
+def banded_inputs(model: str, dtype):
+    """Seeded q, k, v, dO of one attention call of ``model`` on the card. v
+    and dO at 0.2 scale: a probability that rounds to the other side of a
+    bf16 step in the kernel and in the plain version (their f32 scores sum
+    in different orders) moves dV by one step of A times dO, 2^-8·|dO|,
+    which stays inside the 4e-3 bar only for |dO| < 1."""
+    import torch
+
+    planes, frames, joints = BANDED_SHAPE[model]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    q, k, v, do = (torch.randn(planes, frames * joints, BANDED_DH, generator=g, device="cuda")
+                   for _ in range(4))
+    return q.to(dtype), k.to(dtype), (v * 0.2).to(dtype), (do * 0.2).to(dtype)
+
+
+def phase_banded():
+    import torch
+
+    from sl_hwgat_tpu_torch.ops.banded_attention import (
+        banded_attention,
+        banded_attention_bwd,
+        plain_banded_attention,
+        plain_banded_attention_bwd,
+    )
+
+    bands = banded_bands()
+    fwd_errors, bwd_errors = {}, {}
+    for model in BANDED_MODELS:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = dtype_name(dtype)
+            q, k, v, do = banded_inputs(model, dtype)
+            for kind, band in bands[model].items():
+                case = f"{model}/{kind}/{name}"
+                got = banded_attention(q, k, v, band, scale=BANDED_SCALE)
+                want = plain_banded_attention(q, k, v, band, scale=BANDED_SCALE)
+                torch.cuda.synchronize()
+                fwd_errors[case] = (got - want).abs().max().item()
+                if not (got.dtype == torch.float32 and fwd_errors[case] <= TOL[name]):
+                    raise AssertionError(f"banded kernel vs plain {case}: max abs err "
+                                         f"{fwd_errors[case]} > {TOL[name]}")
+                tol = BWD_TOL[name]
+                bwd_errors[case] = {}
+                got = banded_attention_bwd(q, k, v, do, band, scale=BANDED_SCALE)
+                want = plain_banded_attention_bwd(q, k, v, do, band, scale=BANDED_SCALE)
+                torch.cuda.synchronize()
+                for grad, g_, w in zip(("dq", "dk", "dv"), got, want):
+                    diff = (g_.float() - w.float()).abs()
+                    excess = diff - tol["atol"] - tol["rtol"] * w.float().abs()
+                    bwd_errors[case][grad] = diff.max().item()
+                    if g_.dtype != dtype or not excess.max().item() <= 0:
+                        at = int(excess.argmax())
+                        raise AssertionError(
+                            f"banded backward vs plain {case} {grad}: max abs err "
+                            f"{bwd_errors[case][grad]}, worst excess at {at}: got "
+                            f"{g_.flatten()[at].item()}, want {w.flatten()[at].item()}, "
+                            f"{int((excess > 0).sum())} entries over {tol}")
+                del got, want
+            del q, k, v, do
+            torch.cuda.empty_cache()
+    # the autograd Function's gradients are the backward kernel's
+    band = bands["GATE"]["identity"]
+    q, k, v, do = banded_inputs("GATE", torch.float32)
+    leaves = tuple(t.detach().requires_grad_() for t in (q, k, v))
+    banded_attention(*leaves, band, scale=BANDED_SCALE).backward(do)
+    direct = banded_attention_bwd(q, k, v, do, band, scale=BANDED_SCALE)
+    if not all(torch.equal(t.grad, d) for t, d in zip(leaves, direct)):
+        raise AssertionError("banded autograd gradients differ from a direct backward call")
+    emit("banded", shapes={m: [*BANDED_SHAPE[m], BANDED_DH] for m in BANDED_MODELS},
+         tolerance={"fwd": TOL, "bwd": BWD_TOL}, fwd_max_abs_err=fwd_errors,
+         bwd_max_abs_err=bwd_errors, autograd_equals_kernel=True)
+    return fwd_errors, {c: max(e.values()) for c, e in bwd_errors.items()}
+
+
+@contextmanager
+def plain_banded_in_models():
+    """Run WGATE's and GATE's attention through the plain versions of both
+    kernels: the plain forward, and as its gradient the plain backward, which
+    rounds where the backward kernel rounds (torch autograd of the plain
+    forward would not round dS to bf16)."""
+    import torch
+
+    from sl_hwgat_tpu_torch.models import wgate
+    from sl_hwgat_tpu_torch.ops.banded_attention import (
+        plain_banded_attention,
+        plain_banded_attention_bwd,
+    )
+
+    class Plain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, band, scale, out_dtype):
+            ctx.save_for_backward(q, k, v)
+            ctx.band, ctx.scale = band, scale
+            return plain_banded_attention(q, k, v, band, scale=scale, out_dtype=out_dtype)
+
+        @staticmethod
+        def backward(ctx, do):
+            grads = plain_banded_attention_bwd(*ctx.saved_tensors, do, ctx.band, scale=ctx.scale)
+            return (*grads, None, None, None)
+
+    kernel = wgate.banded_attention
+    wgate.banded_attention = lambda q, k, v, band, *, scale, out_dtype=None: Plain.apply(
+        q, k, v, band, scale, out_dtype)
+    try:
+        yield
+    finally:
+        wgate.banded_attention = kernel
+
+
+def banded_model(name: str, compute_dtype: str, **overrides):
+    from sl_hwgat_tpu_torch.constants import DATASET_PARAMS
+    from sl_hwgat_tpu_torch.models import build_model
+
+    return build_model(name, DATASET_PARAMS["FDMSE-ISL"], 2, device="cuda", seed=SEED,
+                       compute_dtype=compute_dtype, **overrides)
+
+
+def banded_batch(name: str, batch: int = 16, train: bool = False):
+    """A seeded FDMSE-ISL batch of ``name``'s joints: x, or (x, y, valid)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + (3 if train else 1))
+    x = torch.rand(batch, 192, NUM_KPS[name], 2, generator=g, device="cuda")
+    if not train:
+        return x
+    y = torch.randint(0, 2002, (batch,), generator=g, device="cuda")
+    return x, y, torch.ones(batch, device="cuda")
+
+
+def phase_banded_forward():
+    import torch
+
+    from sl_hwgat_tpu_torch.ops.banded_attention import banded_attention
+
+    out = {}
+    for name in BANDED_MODELS:
+        x = banded_batch(name)
+        for cdt in ("float32", "bfloat16"):
+            model = banded_model(name, cdt)
+            with torch.inference_mode():
+                before = banded_attention.launches
+                got = model(x)
+                torch.cuda.synchronize()
+                launches = banded_attention.launches - before
+                with plain_banded_in_models():
+                    want = model(x)
+                torch.cuda.synchronize()
+            if launches != 8:
+                raise AssertionError(f"{name} {cdt} forward launched {launches} times, not 8")
+            if got.shape != (16, 2002) or not torch.isfinite(got).all():
+                raise AssertionError(f"{name} {cdt} logits: shape {tuple(got.shape)} or "
+                                     "non-finite values")
+            torch.testing.assert_close(got, want, **LOGIT_TOL[cdt])
+            out[f"{name}/{cdt}"] = {"max_abs_diff": (got - want).abs().max().item(),
+                                    "launches_per_forward": launches}
+            del model
+    emit("banded_forward", batch=16, frames=192, classes=2002, tolerance=LOGIT_TOL,
+         results=out)
+
+
+def phase_banded_serve(workdir: Path) -> int:
+    """Main path 3: serving WGATE and GATE; returns the forward launches."""
+    import numpy as np
+    import torch
+
+    from sl_hwgat_tpu_torch.ops.banded_attention import banded_attention
+    from sl_hwgat_tpu_torch.serve import BatchingQueue, Predictor
+    from sl_hwgat_tpu_torch.weights import save_state_dict
+
+    rng = np.random.default_rng(SEED + 1)
+    clips = [rng.random((int(f), 543, 4)).astype(np.float32)
+             for f in rng.integers(96, 385, size=24)]
+    out, total = {}, 0
+    for name in BANDED_MODELS:
+        ckpt = workdir / f"{name.lower()}_fdmse_isl.pt"
+        save_state_dict(str(ckpt), banded_model(name, "float32"))
+        t0 = time.perf_counter()
+        pred = Predictor.from_checkpoint(str(ckpt), model_type=name, dataset="FDMSE-ISL")
+        pred.warmup(clips[0])
+        setup_s = time.perf_counter() - t0
+
+        banded_attention.launches = 0
+        t0 = time.perf_counter()
+        q = BatchingQueue(pred, max_batch=16, max_wait_ms=5.0)
+        futures: list = [None] * len(clips)
+
+        def client(ids):
+            for i in ids:
+                futures[i] = q.submit(clips[i])
+
+        threads = [threading.Thread(target=client, args=(range(c, len(clips), 4),))
+                   for c in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+            if t.is_alive():
+                raise AssertionError(f"{name}: a client thread did not finish")
+        rows = [f.result(timeout=600) for f in futures]
+        q.close()
+        serve_s = time.perf_counter() - t0
+        launches = banded_attention.launches
+
+        if launches != 8 * q.stats["batches"]:
+            raise AssertionError(f"{name}: {launches} launches for {q.stats['batches']} batches")
+        errs = []
+        for clip, row in zip(clips, rows):
+            want = pred.predict_logits([clip])[0]
+            errs.append(float(np.abs(row - want).max()))
+            if not (row.shape == (2002,) and np.isfinite(row).all() and errs[-1] <= 2e-4):
+                raise AssertionError(f"{name}: served row differs from predict_logits by "
+                                     f"{errs[-1]}")
+        kps = pred.preprocess(clips[0]).shape[1]
+        if kps != NUM_KPS[name]:
+            raise AssertionError(f"{name} served {kps}-joint clips")
+        pred.close()
+        out[name] = {"requests": q.stats["requests"], "batches": q.stats["batches"],
+                     "batch_sizes": q.stats["batch_sizes"], "launches": launches,
+                     "joints": kps, "max_abs_err": max(errs), "setup_s": setup_s,
+                     "serve_s": serve_s, "clips_per_s": len(clips) / serve_s}
+        total += launches
+        del pred
+        torch.cuda.empty_cache()
+    emit("banded_serve", results=out)
+    return total
+
+
+def phase_banded_train() -> dict:
+    """Gradients against the plain attention, then main path 4: ten AdamW
+    steps per model and type. Returns the launches of the AdamW runs."""
+    import torch
+
+    from sl_hwgat_tpu_torch.ops.banded_attention import banded_attention, banded_attention_bwd
+    from sl_hwgat_tpu_torch.train.loop import make_steps
+    from sl_hwgat_tpu_torch.train.state import make_optimizer
+
+    out, total = {}, {"fwd": 0, "bwd": 0}
+    for name in BANDED_MODELS:
+        x, y, valid = banded_batch(name, train=True)
+        for cdt in ("float32", "bfloat16"):
+            model = banded_model(name, cdt, drop_rate=0.0)
+            fwd0, bwd0 = banded_attention.launches, banded_attention_bwd.launches
+            loss, grads = one_step_grads(model, x, y, valid, seed=SEED)
+            torch.cuda.synchronize()
+            launches = (banded_attention.launches - fwd0, banded_attention_bwd.launches - bwd0)
+            if launches != (8, 8):
+                raise AssertionError(f"{name} {cdt} step launched (fwd, bwd) = {launches}")
+            loss2, grads2 = one_step_grads(model, x, y, valid, seed=SEED)
+            if loss2 != loss or not all(torch.equal(grads[k], grads2[k]) for k in grads):
+                raise AssertionError(f"{name} {cdt}: a step does not repeat bit for bit")
+            del grads2
+            with plain_banded_in_models():
+                plain_loss, plain = one_step_grads(model, x, y, valid, seed=SEED)
+            zero = [k for k, g in grads.items() if not (g.abs().max().item() > 0)]
+            if zero:
+                raise AssertionError(f"{name} {cdt}: zero gradients through the kernels: {zero}")
+            worst = {}
+            for k, g in grads.items():
+                w = plain[k]
+                if cdt == "float32":
+                    worst[k] = (g - w).abs().max().item()
+                    ok = worst[k] <= GRAD_ATOL_F32
+                else:
+                    worst[k] = ((g - w).norm() / w.norm()).item()
+                    ok = worst[k] <= GRAD_REL_BF16
+                if not ok:
+                    raise AssertionError(f"{name} {cdt} gradient of {k}: kernels vs plain "
+                                         f"{worst[k]}")
+            del grads, plain, model
+
+            model = banded_model(name, cdt)
+            opt = make_optimizer("adamw", LR, model.parameters())
+            train_step, _ = make_steps(model, opt)
+            banded_attention.launches = banded_attention_bwd.launches = 0
+            losses = [train_step(x, y, valid, SEED, 0, step)[0].item() for step in range(10)]
+            torch.cuda.synchronize()
+            run = {"fwd": banded_attention.launches, "bwd": banded_attention_bwd.launches}
+            if run != {"fwd": 80, "bwd": 80}:
+                raise AssertionError(f"{name} {cdt}: ten steps launched {run}")
+            if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+                raise AssertionError(f"{name} {cdt} AdamW losses: {losses}")
+            for kind in total:
+                total[kind] += run[kind]
+            out[f"{name}/{cdt}"] = {
+                "loss_kernels": loss, "loss_plain": plain_loss,
+                "launches_per_step": {"fwd": launches[0], "bwd": launches[1]},
+                "step_repeats_bit_for_bit": True,
+                "grad_err_worst": max(worst.values()),
+                "grad_err_worst_param": max(worst, key=worst.get),
+                "grad_err_metric": "max abs" if cdt == "float32" else "rel norm",
+                "params_with_grad": len(worst), "adamw_losses": losses, "adamw_launches": run}
+            del model, opt, train_step
+            torch.cuda.empty_cache()
+    emit("banded_train", batch=16, frames=192, classes=2002, lr=LR,
+         tolerance={"float32": GRAD_ATOL_F32, "bfloat16": GRAD_REL_BF16}, results=out)
+    return total
+
+
 # Per unit of the flagship shape: tensors of TOKENS × HEAD_DIM that a call
 # reads and writes once, and TOKENS × TOKENS × HEAD_DIM products it does.
 # forward: q, k, v → o; S = QKᵀ, O = AV. backward: q, k, v, dO → dq, dk, dv;
@@ -491,36 +838,39 @@ def bound(kind: str, dtype_name: str) -> tuple[float, str]:
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
-def sdpa_ms(q, k, v, do, mask):
+def sdpa_ms(q, k, v, do, mask, scale: float = HEAD_DIM**-0.5, runs: int = 30,
+            backends=None):
     """(forward ms, backward ms) of masked scaled_dot_product_attention on the
-    same units, the backward as (forward + backward) − forward. Timed only."""
+    same units, the backward as (forward + backward) − forward. Timed only.
+    ``backends``: the SDPA backends it may use (default: PyTorch's choice)."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
 
     qg, kg, vg = (t[:, None].detach().requires_grad_() for t in (q, k, v))
     do4 = do[:, None]
 
     def fwd():
-        return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, scale=HEAD_DIM**-0.5)
+        return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, scale=scale)
 
-    with torch.no_grad():
-        fwd_ms = cuda_ms(fwd)
-    grad_fwd_ms = cuda_ms(fwd)
-    both_ms = cuda_ms(lambda: torch.autograd.grad(fwd(), (qg, kg, vg), do4), runs=20)
+    with sdpa_kernel(backends) if backends else nullcontext():
+        with torch.no_grad():
+            fwd_ms = cuda_ms(fwd, runs=runs)
+        grad_fwd_ms = cuda_ms(fwd, runs=runs)
+        both_ms = cuda_ms(lambda: torch.autograd.grad(fwd(), (qg, kg, vg), do4),
+                          runs=max(runs * 2 // 3, 5))
     return fwd_ms, both_ms - grad_fwd_ms
 
 
-def train_step_ms(cdt: str, steps: int = 10) -> float:
-    """Median ms of one FDMSE-ISL train step at batch 16 (forward, backward,
-    AdamW), by CUDA events around each step."""
+def train_step_ms(model, x, y, valid, steps: int = 10) -> float:
+    """Median ms of one train step of ``model`` on a batch (forward,
+    backward, AdamW), by CUDA events around each step."""
     import torch
 
     from sl_hwgat_tpu_torch.train.loop import make_steps
     from sl_hwgat_tpu_torch.train.state import make_optimizer
 
-    model = flagship(cdt)
     train_step, _ = make_steps(model, make_optimizer("adamw", LR, model.parameters()))
-    x, y, valid = train_batch()
     for step in range(3):
         train_step(x, y, valid, SEED, 0, step)
     times = []
@@ -574,19 +924,114 @@ def phase_timings():
          note="library_ms: scaled_dot_product_attention with the plain adjacency as an "
               "additive mask (its backward as fwd+bwd minus fwd), timed only")
 
-    x = eval_batch()
     results = {}
-    for cdt in ("float32", "bfloat16"):
-        model = flagship(cdt)
-        with torch.inference_mode():
-            ms = cuda_ms(lambda: model(x), runs=20, inner=1)  # one request's forward
-        del model
-        step_ms = train_step_ms(cdt)
-        results[cdt] = {"forward_ms": ms, "clips_per_s": 16 / ms * 1e3,
-                        "train_step_ms": step_ms, "train_clips_per_s": 16 / step_ms * 1e3}
-        torch.cuda.empty_cache()
+    for name in ("HWGATE", *BANDED_MODELS):
+        for cdt in ("float32", "bfloat16"):
+            model = build(name, cdt)
+            with torch.inference_mode():
+                x = banded_batch(name) if name in BANDED_MODELS else eval_batch()
+                ms = cuda_ms(lambda: model(x), runs=20, inner=1)  # one request's forward
+            batch = banded_batch(name, train=True) if name in BANDED_MODELS else train_batch()
+            step_ms = train_step_ms(model, *batch)
+            key = cdt if name == "HWGATE" else f"{name}/{cdt}"
+            results[key] = {"forward_ms": ms, "clips_per_s": 16 / ms * 1e3,
+                            "train_step_ms": step_ms, "train_clips_per_s": 16 / step_ms * 1e3}
+            del model
+            torch.cuda.empty_cache()
     emit("eval_train", batch=16, frames=192, results=results)
     return kernels
+
+
+def build(name: str, cdt: str):
+    """The FDMSE-ISL model ``name`` on the card, seeded."""
+    return flagship(cdt) if name == "HWGATE" else banded_model(name, cdt)
+
+
+def dense_band_mask(band, frames: int):
+    """The (F·V, F·V) additive block-tridiagonal mask of ``band`` that the
+    reference's dense attention applies (`WGATE.py:94-104`)."""
+    import numpy as np
+
+    nv = band.shape[1]
+    m = np.full((frames * nv, frames * nv), -1e4, np.float32)
+    for f in range(frames):
+        for p, g in ((0, f - 1), (1, f), (2, f + 1)):
+            if 0 <= g < frames:
+                m[f * nv:(f + 1) * nv, g * nv:(g + 1) * nv] = band[p]
+    return m
+
+
+def banded_bound(kind: str, dtype_name: str, model: str, band) -> tuple[float, str]:
+    """(least ms on an H100 SXM, what bounds it) for one banded call at
+    ``model``'s shape: q, k, v (and dO) read once and o (f32) or dq, dk, dv
+    written once, against the operations this band's edges need (per edge
+    two dh-long dots forward, five backward)."""
+    planes, frames, joints = BANDED_SHAPE[model]
+    elems = planes * frames * joints * BANDED_DH
+    elem = 4 if dtype_name == "float32" else 2
+    nbytes = elems * (3 * elem + 4) if kind == "fwd" else 7 * elems * elem
+    e = band == 0
+    edges = planes * (frames * int(e[1].sum()) + (frames - 1) * int(e[0].sum() + e[2].sum()))
+    flops = edges * 2 * BANDED_DH * (2 if kind == "fwd" else 5)
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def phase_banded_timings() -> dict:
+    """Kernel, plain, bound and library ms of the banded kernels at WGATE's
+    and GATE's shapes; the kernels under the non-diagonal band beside."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    from sl_hwgat_tpu_torch.ops.banded_attention import (
+        banded_attention,
+        banded_attention_bwd,
+        plain_banded_attention,
+        plain_banded_attention_bwd,
+    )
+
+    bands = banded_bands()
+    out = {"fwd": {}, "bwd": {}}
+    for model in BANDED_MODELS:
+        band, spatial = bands[model]["identity"], bands[model]["spatial"]
+        dense = torch.from_numpy(dense_band_mask(band, BANDED_SHAPE[model][1])).cuda()
+        for dtype in (torch.float32, torch.bfloat16):
+            name = dtype_name(dtype)
+            q, k, v, do = banded_inputs(model, dtype)
+            kw = dict(scale=BANDED_SCALE)
+            cases = {
+                "fwd": {
+                    "ms": cuda_ms(lambda: banded_attention(q, k, v, band, **kw)),
+                    "nondiagonal_band_ms": cuda_ms(
+                        lambda: banded_attention(q, k, v, spatial, **kw)),
+                    "plain_ms": cuda_ms(lambda: plain_banded_attention(q, k, v, band, **kw),
+                                        runs=10)},
+                "bwd": {
+                    "ms": cuda_ms(lambda: banded_attention_bwd(q, k, v, do, band, **kw)),
+                    "nondiagonal_band_ms": cuda_ms(
+                        lambda: banded_attention_bwd(q, k, v, do, spatial, **kw)),
+                    "plain_ms": cuda_ms(
+                        lambda: plain_banded_attention_bwd(q, k, v, do, band, **kw), runs=5)},
+            }
+            # the reference's dense masked attention over the whole F·V
+            # sequence, through the memory-efficient backend: the dense score
+            # matrix alone would take 15-19 GB
+            library = sdpa_ms(q, k, v, do, dense.to(dtype)[None, None], scale=BANDED_SCALE,
+                              runs=5, backends=[SDPBackend.EFFICIENT_ATTENTION])
+            for kind, lib in zip(("fwd", "bwd"), library):
+                bound_ms, bound_by = banded_bound(kind, name, model, band)
+                out[kind][f"{model}/{name}"] = {**cases[kind], "library_ms": lib,
+                                                "bound_ms": bound_ms, "bound_by": bound_by}
+            del q, k, v, do
+            torch.cuda.empty_cache()
+    emit("banded_timings", shapes={m: [*BANDED_SHAPE[m], BANDED_DH] for m in BANDED_MODELS},
+         kernels=out,
+         note="library_ms: scaled_dot_product_attention (memory-efficient backend) over the "
+              "whole F·V sequence with the dense block-tridiagonal additive mask (its backward "
+              "as fwd+bwd minus fwd), timed only; nondiagonal_band_ms: the kernel under the "
+              "spatial plane as prev/next")
+    return out
 
 
 def device_table(prof, top: int = 12) -> dict:
@@ -617,30 +1062,33 @@ def phase_profile():
     from sl_hwgat_tpu_torch.train.loop import make_steps
     from sl_hwgat_tpu_torch.train.state import make_optimizer
 
-    x = eval_batch()
-    xt, yt, valid = train_batch()
     out = {}
-    for cdt in ("float32", "bfloat16"):
-        model = flagship(cdt)
-        with torch.inference_mode():
-            model(x)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    for name in ("HWGATE", *BANDED_MODELS):
+        banded = name in BANDED_MODELS
+        x = banded_batch(name) if banded else eval_batch()
+        xt, yt, valid = banded_batch(name, train=True) if banded else train_batch()
+        for cdt in ("float32", "bfloat16"):
+            key = cdt if name == "HWGATE" else f"{name}/{cdt}"
+            model = build(name, cdt)
+            with torch.inference_mode():
                 model(x)
                 torch.cuda.synchronize()
-        out[f"eval/{cdt}"] = device_table(prof)
-        train_step, _ = make_steps(model, make_optimizer("adamw", LR, model.parameters()))
-        for step in range(2):
-            train_step(xt, yt, valid, SEED, 0, step)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            train_step(xt, yt, valid, SEED, 0, 2)
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    model(x)
+                    torch.cuda.synchronize()
+            out[f"eval/{key}"] = device_table(prof)
+            train_step, _ = make_steps(model, make_optimizer("adamw", LR, model.parameters()))
+            for step in range(2):
+                train_step(xt, yt, valid, SEED, 0, step)
             torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        out[f"train/{cdt}"] = {**device_table(prof), "wall_ms_profiled": wall_ms}
-        del model, train_step
-        torch.cuda.empty_cache()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                train_step(xt, yt, valid, SEED, 0, 2)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            out[f"train/{key}"] = {**device_table(prof), "wall_ms_profiled": wall_ms}
+            del model, train_step
+            torch.cuda.empty_cache()
     emit("profile", batch=16, results=out)
 
 
@@ -663,6 +1111,28 @@ def kernel_entry(kind: str, name: str, replaces: str, launches: int, timings: di
             entry.update(fields)
         else:
             entry[dt] = fields
+    return entry
+
+
+def banded_entry(kind: str, name: str, replaces: str, launches: int, timings: dict,
+                 errors: dict) -> dict:
+    """One banded entry of the kernels line: WGATE's f32 numbers at the top
+    level (the models' band; the serving path's type), the other cases
+    under "<model>/<dtype>"; max_abs_err over both bands of that case."""
+    entry = {"name": name, "route": "cuda", "source": f"sl_hwgat_tpu_torch/csrc/{name}.cu",
+             "replaces": replaces, "launches": launches}
+    for case, t in timings[kind].items():
+        model, dt = case.split("/")
+        fields = {"ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+                  "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                  "library_ms": t["library_ms"],
+                  "max_abs_err": max(e for c, e in errors.items()
+                                     if c.startswith(model + "/") and c.endswith(dt)),
+                  "nondiagonal_band_ms": t["nondiagonal_band_ms"]}
+        if case == "WGATE/float32":
+            entry.update(fields)
+        else:
+            entry[case] = fields
     return entry
 
 
@@ -704,18 +1174,34 @@ def main() -> int:
     phase_train()
     with tempfile.TemporaryDirectory() as tmp:
         train_launches = phase_synth(Path(tmp))
+    banded_fwd_errors, banded_bwd_errors = phase_banded()
+    phase_banded_forward()
+    with tempfile.TemporaryDirectory() as tmp:
+        banded_serve_launches = phase_banded_serve(Path(tmp))
+    banded_train_launches = phase_banded_train()
     timings = phase_timings()
+    banded_timings = phase_banded_timings()
     phase_profile()
 
-    from sl_hwgat_tpu_torch.ops.window_attention import KERNEL, KERNEL_BWD
+    from sl_hwgat_tpu_torch.ops import banded_attention, window_attention
 
-    fwd = kernel_entry("fwd", KERNEL, "sl_hwgat_tpu/ops/pallas_attention.py:241 (_fwd_kernel)",
+    fwd = kernel_entry("fwd", window_attention.KERNEL,
+                       "sl_hwgat_tpu/ops/pallas_attention.py:241 (_fwd_kernel)",
                        serve_launches, timings, fwd_errors)
     fwd["train_launches"] = train_launches["fwd"]
-    bwd = kernel_entry("bwd", KERNEL_BWD,
+    bwd = kernel_entry("bwd", window_attention.KERNEL_BWD,
                        "sl_hwgat_tpu/ops/pallas_attention.py:295 (_bwd_kernel)",
                        train_launches["bwd"], timings, bwd_errors)
-    print(json.dumps({"kernels": [fwd, bwd]}), flush=True)
+    bfwd = banded_entry("fwd", banded_attention.KERNEL,
+                        "sl_hwgat_tpu/ops/pallas_banded.py:408 (_fwd_kernel_packed); "
+                        ":129 (_fwd_kernel)",
+                        banded_serve_launches, banded_timings, banded_fwd_errors)
+    bfwd["train_launches"] = banded_train_launches["fwd"]
+    bbwd = banded_entry("bwd", banded_attention.KERNEL_BWD,
+                        "sl_hwgat_tpu/ops/pallas_banded.py:427 (_bwd_kernel_packed); "
+                        ":146 (_bwd_kernel)",
+                        banded_train_launches["bwd"], banded_timings, banded_bwd_errors)
+    print(json.dumps({"kernels": [fwd, bwd, bfwd, bbwd]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """PyTorch / CUDA port of ``sl_hwgat_tpu`` for NVIDIA Hopper.
 
-Serves HWGATE (eval forward, ``serve.Predictor`` and ``serve.BatchingQueue``)
-and trains it (``train.loop``), with the windowed graph attention and its
-gradient as hand-written CUDA kernels (``csrc/window_attention_fwd.cu``,
-``csrc/window_attention_bwd.cu``). Module names mirror the JAX package.
+Serves HWGATE, WGATE and GATE (eval forward, ``serve.Predictor`` and
+``serve.BatchingQueue``) and trains them (``train.loop``), with the windowed
+and the banded graph attention and their gradients as hand-written CUDA
+kernels (``csrc/window_attention_{fwd,bwd}.cu``,
+``csrc/banded_attention_{fwd,bwd}.cu``). Module names mirror the JAX package.
 The package imports no JAX and nothing of ``sl_hwgat_tpu``.
 """

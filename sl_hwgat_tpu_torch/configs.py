@@ -50,6 +50,17 @@ def build_eval_transform(src_len: int) -> T.Compose:
     )
 
 
+def build_skeleton_eval_transform(src_len: int) -> T.Compose:
+    """Canonical 29-joint clip → (src_len, 29, C) model input for the
+    29-joint models (GATE): the eval pipeline without WindowCreate."""
+    return T.Compose(build_eval_transform(src_len).transforms[:-1])
+
+
+def build_skeleton_train_transform(src_len: int, feature_type: str = "keypoints") -> T.Compose:
+    """The train pipeline without WindowCreate (29-joint models)."""
+    return T.Compose(build_train_transform(src_len, feature_type).transforms[:-1])
+
+
 def build_static_transform(pose_method: str, input_type: str = "kp2D") -> T.Compose:
     """Extractor output → canonical 29-joint clip (the preprocess-time step)."""
     proc = T.DWPoseDataProcess() if pose_method == "dwpose" else T.MediapipeDataProcess()

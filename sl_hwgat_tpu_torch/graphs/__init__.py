@@ -1,1 +1,1 @@
-"""Skeleton topology and adjacency masks of the windowed models."""
+"""Skeleton topology and attention masks of the graph-attention models."""

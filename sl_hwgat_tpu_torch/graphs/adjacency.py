@@ -1,5 +1,6 @@
-"""Multiplicative {0,1} attention masks of the windowed models
-(reference `hwgat/models/model_params.py:373-400`).
+"""Attention masks of the graph-attention models: the multiplicative {0,1}
+masks of the windowed models (reference `hwgat/models/model_params.py:373-400`)
+and the additive {-1e4, 0} form of the banded ones.
 
 Per spatial window over T temporal blocks of V joints: diagonal blocks are
 the spatial adjacency with self loops, the ±1 off-diagonal blocks are the
@@ -42,3 +43,9 @@ def windowed_block_adj(temporal_blocks: int, window_size: int = 16,
         block_tridiagonal(window_adj(edges_per_window[w], window_size), temporal_blocks)
         for w in range(num_windows)
     ])
+
+
+def additive_mask(adj: np.ndarray, neg: float = -10000.0) -> np.ndarray:
+    """{0,1} adjacency → additive attention mask {neg, 0}
+    (`GATE.py:142` / `WGATE.py:190`: masked_fill(adj==0, -1e4) then (==1, 0))."""
+    return np.where(adj == 0, np.float32(neg), np.float32(0.0))

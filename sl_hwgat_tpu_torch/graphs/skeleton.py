@@ -1,6 +1,7 @@
-"""The 16-joint window graph of HWGATE (reference
-`hwgat/models/model_params.py:261-369`) and the window → canonical-joint
-composition of the data layout (`hwgat/dataTransform.py:426-455`)."""
+"""The 16-joint window graph of HWGATE/WGATE (reference
+`hwgat/models/model_params.py:261-369`), the 29-joint whole-body graph of
+GATE (`model_params.py:21-56`) and the window → canonical-joint composition
+of the data layout (`hwgat/dataTransform.py:426-455`)."""
 
 from __future__ import annotations
 
@@ -13,6 +14,16 @@ WINDOW_EDGES_16: tuple[tuple[int, int], ...] = (
     (6, 7), (6, 8), (8, 9), (8, 10), (6, 10), (10, 11), (10, 12), (6, 12),
     (12, 13), (12, 14), (14, 15), (6, 14), (7, 9), (9, 11), (11, 13),
     (13, 15), (7, 15), (7, 11), (7, 13),
+)
+
+# 34 undirected edges over the 29 canonical joints (22 body/left-hand edges +
+# 12 right-hand edges written with the +10 offset in the reference).
+BODY29_EDGES: tuple[tuple[int, int], ...] = (
+    (2, 0), (1, 0), (0, 3), (0, 4), (3, 5), (4, 6), (5, 7), (6, 8), (7, 9),
+    (9, 10), (9, 11), (11, 12), (11, 13), (13, 14), (9, 13), (13, 15), (9, 15),
+    (15, 16), (15, 17), (9, 17), (17, 18), (8, 19),
+    (19, 27), (19, 20), (19, 21), (19, 23), (19, 25),
+    (21, 22), (21, 23), (23, 24), (23, 25), (25, 26), (25, 27), (27, 28),
 )
 
 # Which canonical joints (0..28) compose each of the 4 windows.

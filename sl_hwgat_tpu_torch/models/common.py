@@ -28,6 +28,8 @@ from torch.nn import functional as F
 
 LN_EPS = 1e-5
 INIT_STD = 0.02
+# the models' ``compute_dtype`` names
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:

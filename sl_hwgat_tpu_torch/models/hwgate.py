@@ -32,6 +32,7 @@ from torch import nn
 
 from sl_hwgat_tpu_torch.graphs.adjacency import windowed_block_adj
 from sl_hwgat_tpu_torch.models.common import (
+    DTYPES,
     LN_EPS,
     Dense,
     FeedForward,
@@ -43,8 +44,6 @@ from sl_hwgat_tpu_torch.models.common import (
 )
 from sl_hwgat_tpu_torch.ops.window import temporal_merge, window_partition, window_reverse
 from sl_hwgat_tpu_torch.ops.window_attention import window_attention
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _supertile_stack(tokens: int) -> tuple[int, int | None]:
@@ -181,7 +180,7 @@ class HWGATE(nn.Module):
                  prune_attn: bool = True, compute_dtype: str = "float32",
                  generator: torch.Generator | None = None):
         super().__init__()
-        cdt = _DTYPES[compute_dtype]
+        cdt = DTYPES[compute_dtype]
         self.compute_dtype = cdt
         self.temporal_patch = temporal_patch
         # One (TP·W, TP·W) mask serves every (window, head) unit: the four

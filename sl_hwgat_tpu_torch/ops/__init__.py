@@ -1,2 +1,3 @@
-"""Attention ops of the port: the CUDA window-attention kernel, its plain
-PyTorch version, and the token-major window layout maps."""
+"""Attention ops of the port: the CUDA window-attention and banded-attention
+kernels, their plain PyTorch versions, and the token-major window layout
+maps."""

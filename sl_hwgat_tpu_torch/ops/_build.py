@@ -6,7 +6,8 @@ Each ``csrc/<name>.cu`` exports plain C functions and compiles, for
 an edited source or header rebuilds).
 Building happens at first use, never at import: ``build()`` starts one
 ``nvcc`` per source, all at once, and waits for them; ``load()`` builds what
-is missing and returns the loaded library.
+is missing and returns the loaded library; ``function()`` returns its C entry
+point with the signature bound.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
-SOURCES = ("window_attention_fwd", "window_attention_bwd")
+SOURCES = ("window_attention_fwd", "window_attention_bwd", "banded_attention_fwd",
+           "banded_attention_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -32,6 +34,8 @@ NVCC_FLAGS = (
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+_CTYPES = {"p": ctypes.c_void_p, "ll": ctypes.c_longlong, "i": ctypes.c_int,
+           "f": ctypes.c_float}
 
 
 def nvcc_path() -> str:
@@ -116,3 +120,16 @@ def load(name: str) -> ctypes.CDLL:
             build((name,))
             lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
         return lib
+
+
+def function(name: str, argtypes):
+    """The C function ``name`` of ``csrc/<name>.cu``, built at first use,
+    with ``argtypes`` bound ("p" pointer, "ll" long long, "i" int, "f"
+    float: ctypes would pass an unbound pointer as a 32-bit int) and an int
+    (cudaError_t) result."""
+    fn = getattr(load(name), name)
+    with _LOCK:
+        if fn.argtypes is None:
+            fn.restype = ctypes.c_int
+            fn.argtypes = [_CTYPES[t] for t in argtypes]
+    return fn

@@ -11,6 +11,11 @@ Counterpart of ``sl_hwgat_tpu/ops/attention.py``:
    are exactly 0 and the result equals a per-unit softmax.
 3. ``stacked_window_attention_bwd``: the plain version of the backward
    kernel (``csrc/window_attention_bwd.cu``), on the same supertiles.
+4. ``banded_frame_attention``: the JAX package's ±1-frame banded attention
+   of GATE/WGATE (without its halo arguments); ``banded_frame_attention_k8``
+   computes the same function with the rounding of the frame-packed TPU
+   kernel, which the banded CUDA kernels follow, and
+   ``banded_frame_attention_bwd`` is its gradient written out.
 
 The reference's quirks are kept under the same flags:
 
@@ -178,3 +183,110 @@ def stacked_window_attention_bwd(q, k, v, do, adj, *, scale: float, stack: int =
     dq = (torch.matmul(ds, ks.float()) * scale).to(dt)
     dk = (torch.matmul(ds.transpose(1, 2), qs.float()) * scale).to(dt)
     return tuple(_unstack(x, n, np_) for x in (dq, dk, dv))
+
+
+def _frame_neighbours(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(G, H, F, V, dh) → (frame f−1, frame f+1) of every frame, zeros past
+    the clip's ends."""
+    zeros = torch.zeros_like(x[:, :, :1])
+    return torch.cat([zeros, x[:, :, :-1]], 2), torch.cat([x[:, :, 1:], zeros], 2)
+
+
+def _shift_frames(x: torch.Tensor, step: int) -> torch.Tensor:
+    """out[:, :, f] = x[:, :, f + step] for step ±1, zeros past the ends."""
+    prev, nxt = _frame_neighbours(x)
+    return nxt if step == 1 else prev
+
+
+def _banded_scores(q, k, band_mask, *, scale, round_q: bool) -> torch.Tensor:
+    """(G, H, F, V, 3V) f32 scores of every query against the keys of frames
+    f−1, f and f+1 plus the additive band, with −1e4 on the prev block of
+    frame 0 and the next block of frame F−1. ``round_q``: q·scale in q's type
+    before the dot (``banded_frame_attention``); else the f32 dot times scale
+    (the frame-packed kernel)."""
+    f, v = q.shape[2], q.shape[3]
+    dev = q.device
+    kp, kn = _frame_neighbours(k)
+    k_band = torch.cat([kp, k, kn], 3).float()
+    if round_q:
+        s = torch.einsum("ghfvd,ghfwd->ghfvw",
+                         (q * torch.tensor(scale, dtype=q.dtype, device=dev)).float(), k_band)
+    else:
+        s = torch.einsum("ghfvd,ghfwd->ghfvw", q.float(), k_band) * scale
+    band = torch.as_tensor(np.asarray(band_mask, dtype=np.float32), device=dev)
+    s = s + torch.cat([band[0], band[1], band[2]], -1)
+    fidx = torch.arange(f, device=dev)
+    left = (fidx == 0).float() * NEG
+    right = (fidx == f - 1).float() * NEG
+    edge = torch.cat([left[:, None].expand(f, v), torch.zeros(f, v, device=dev),
+                      right[:, None].expand(f, v)], -1)
+    return s + edge[:, None, :]
+
+
+def banded_frame_attention(q, k, v, band_mask, *, scale: float) -> torch.Tensor:
+    """Additive-masked attention with block-tridiagonal (±1 frame) structure:
+    the JAX package's ``banded_frame_attention`` without halo
+    (`sl_hwgat_tpu/ops/attention.py:162-231`).
+
+    q, k, v: (G, H, F, V, dh), tokens grouped by frame; ``band_mask``: (3, V, V)
+    additive masks (0 on edges, −1e4 off) for the [prev | self | next] key
+    frames. q·scale is rounded to q's type, scores and softmax are f32, the
+    probabilities are rounded to v's type before the f32-summed product.
+    Returns f32.
+    """
+    s = _banded_scores(q, k, band_mask, scale=scale, round_q=True)
+    vp, vn = _frame_neighbours(v)
+    v_band = torch.cat([vp, v, vn], 3).float()
+    return torch.einsum("ghfvw,ghfwd->ghfvd", _softmax(s).to(v.dtype).float(), v_band)
+
+
+def banded_frame_attention_k8(q, k, v, band_mask, *, scale: float,
+                              out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``banded_frame_attention`` rounded where the frame-packed TPU kernel
+    rounds (`sl_hwgat_tpu/ops/pallas_banded.py:408-424`): scores are the f32
+    dot of q and k times scale; the self block's probabilities are rounded to
+    v's type before A·V, the prev/next blocks' are not; the result is stored
+    as ``out_dtype`` (default f32). For f32 inputs it is
+    ``banded_frame_attention`` up to the order of f32 sums."""
+    nv = q.shape[3]
+    a_prev, a_self, a_next = _softmax(
+        _banded_scores(q, k, band_mask, scale=scale, round_q=False)).split(nv, -1)
+    vp, vn = _frame_neighbours(v.float())
+    out = (torch.einsum("ghfvw,ghfwd->ghfvd", a_self.to(v.dtype).float(), v.float())
+           + torch.einsum("ghfvw,ghfwd->ghfvd", a_prev, vp)
+           + torch.einsum("ghfvw,ghfwd->ghfvd", a_next, vn))
+    return out.to(out_dtype or torch.float32)
+
+
+def banded_frame_attention_bwd(q, k, v, do, band_mask, *, scale: float):
+    """(dq, dk, dv) of ``banded_frame_attention_k8`` for the output gradient
+    ``do``, written out as the frame-packed TPU kernel's backward computes it
+    (`sl_hwgat_tpu/ops/pallas_banded.py:427-481`). With dt = q's dtype: dO is
+    cast to dt; A is recomputed; dP = dO·V_bandᵀ and D = Σ A∘dP over all
+    three blocks (f32); dS = A∘(dP − D); the self block's dS and A are
+    rounded to dt before their products; key frame f gathers from the query
+    frames f+1 (their prev block), f and f−1 (their next block). Products sum
+    in f32; every gradient is stored in dt."""
+    dt = q.dtype
+    nv = q.shape[3]
+    a = _softmax(_banded_scores(q, k, band_mask, scale=scale, round_q=False))
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.to(dt).float()
+    kp, kn = _frame_neighbours(kf)
+    vp, vn = _frame_neighbours(vf)
+    dp = torch.einsum("ghfvd,ghfwd->ghfvw", dof, torch.cat([vp, vf, vn], 3))
+    ds = a * (dp - (a * dp).sum(-1, keepdim=True))
+    ds_prev, ds_self, ds_next = ds.split(nv, -1)
+    ds_self = ds_self.to(dt).float()
+    a_prev, a_self, a_next = a.split(nv, -1)
+
+    def mm(x, y):  # (.., V, W) · (.., V, dh) contracted over the query rows
+        return torch.einsum("ghfvw,ghfvd->ghfwd", x, y)
+
+    dq = (torch.einsum("ghfvw,ghfwd->ghfvd", ds_self, kf) * scale
+          + scale * (torch.einsum("ghfvw,ghfwd->ghfvd", ds_prev, kp)
+                     + torch.einsum("ghfvw,ghfwd->ghfvd", ds_next, kn)))
+    dk = (mm(ds_self, qf) * scale + scale * _shift_frames(mm(ds_prev, qf), 1)
+          + scale * _shift_frames(mm(ds_next, qf), -1))
+    dv = (mm(a_self.to(dt).float(), dof) + _shift_frames(mm(a_prev, dof), 1)
+          + _shift_frames(mm(a_next, dof), -1))
+    return dq.to(dt), dk.to(dt), dv.to(dt)

@@ -3,6 +3,8 @@ element for element to ``sl_hwgat_tpu/ops/window.py``.
 
 - ``window_partition`` (B,F,K,D) → (B·f·nW, TP·W, D)  (`HWGATE.py:30-47`)
 - ``temporal_merge``   (B,F,K,D) → (B, F/TP, K, TP·D) (`HWGATE.py:49-63`)
+- ``spatial_window_partition`` (B,F,K,D) → (B·nW, F·W, D), one spatial window
+  over all frames (WGATE, `WGATE.py:32-66`)
 """
 
 from __future__ import annotations
@@ -27,6 +29,24 @@ def window_reverse(x: torch.Tensor, window_size: int, temporal_patch: int,
     d = x.shape[-1]
     b = x.shape[0] // (f * nw)
     x = x.reshape(b, f, nw, tp, w, d).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, temporal_dim, num_kps, d)
+
+
+def spatial_window_partition(x: torch.Tensor, window_size: int) -> torch.Tensor:
+    """(B, F, K, D) → (B·nW, F·W, D): one spatial window over all frames."""
+    b, f, k, d = x.shape
+    nw = k // window_size
+    x = x.reshape(b, f, nw, window_size, d).permute(0, 2, 1, 3, 4)
+    return x.reshape(b * nw, f * window_size, d)
+
+
+def spatial_window_reverse(x: torch.Tensor, window_size: int, temporal_dim: int,
+                           num_kps: int) -> torch.Tensor:
+    """Inverse of :func:`spatial_window_partition`."""
+    d = x.shape[-1]
+    nw = num_kps // window_size
+    b = x.shape[0] // nw
+    x = x.reshape(b, nw, temporal_dim, window_size, d).permute(0, 2, 1, 3, 4)
     return x.reshape(b, temporal_dim, num_kps, d)
 
 

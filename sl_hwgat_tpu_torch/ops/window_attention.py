@@ -17,7 +17,6 @@ show that a path went through the kernels.
 
 from __future__ import annotations
 
-import ctypes
 import threading
 
 import numpy as np
@@ -116,7 +115,7 @@ def _kernel(q, k, v, adj, *, scale, stack, pad_tokens, zero_quirk, prune_u,
     if u == 0:
         return out
     with torch.cuda.device(dev):
-        err = _library(KERNEL).window_attention_fwd(
+        err = _build.function(KERNEL, _ARGTYPES[KERNEL])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), masks.data_ptr(),
             _ptr(sel), _ptr(prune_u), u, dh, _DTYPE_CODE[q.dtype], _DTYPE_CODE[out_dtype],
             float(scale), int(zero_quirk),
@@ -143,7 +142,7 @@ def _kernel_bwd(q, k, v, do, adj, *, scale, stack, pad_tokens, zero_quirk, prune
     if u == 0:
         return dq, dk, dv
     with torch.cuda.device(dev):
-        err = _library(KERNEL_BWD).window_attention_bwd(
+        err = _build.function(KERNEL_BWD, _ARGTYPES[KERNEL_BWD])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), masks.data_ptr(), _ptr(sel), _ptr(prune_u),
             u, dh, _DTYPE_CODE[q.dtype], float(scale), int(zero_quirk),
@@ -164,19 +163,6 @@ _ARGTYPES = {
     # zero_quirk, dual, stack, per_group, groups, unit_offset, stream
     KERNEL_BWD: ["p"] * 10 + ["ll", "i", "i", "f", "i", "i", "i", "i", "i", "ll", "p"],
 }
-_CTYPES = {"p": ctypes.c_void_p, "ll": ctypes.c_longlong, "i": ctypes.c_int,
-           "f": ctypes.c_float}
-
-
-def _library(name: str) -> ctypes.CDLL:
-    """The kernel's library, built at first use, with its C signature bound."""
-    lib = _build.load(name)
-    fn = getattr(lib, name)
-    with _LOCK:
-        if fn.argtypes is None:
-            fn.argtypes = [_CTYPES[t] for t in _ARGTYPES[name]]
-            fn.restype = ctypes.c_int
-    return lib
 
 
 class _WindowAttention(torch.autograd.Function):

@@ -29,7 +29,7 @@ import torch
 from sl_hwgat_tpu_torch import configs
 from sl_hwgat_tpu_torch.constants import DATASET_PARAMS
 from sl_hwgat_tpu_torch.data import transforms as T
-from sl_hwgat_tpu_torch.models import build_model, resolve_device
+from sl_hwgat_tpu_torch.models import MODEL_NUM_KPS, build_model, resolve_device
 from sl_hwgat_tpu_torch.weights import load_state_dict
 
 
@@ -61,9 +61,12 @@ class Predictor:
         model = build_model(model_type, ds, 2, device=dev, **model_overrides)
         model.load_state_dict(load_state_dict(path))
         # the preprocess-time static transform (extractor layout → selected
-        # joints/coords) chained with the eval transform
+        # joints/coords) chained with the eval transform of the model's joints
         static = configs.build_static_transform(pose_method)
-        ev = configs.build_eval_transform(ds["src_len"])
+        if MODEL_NUM_KPS[model_type] == 64:
+            ev = configs.build_eval_transform(ds["src_len"])
+        else:
+            ev = configs.build_skeleton_eval_transform(ds["src_len"])
         transform = T.Compose([*static.transforms, *ev.transforms])
         return cls(model=model, transform=transform, num_classes=ds["num_class"],
                    device=dev, batch_buckets=tuple(batch_buckets))

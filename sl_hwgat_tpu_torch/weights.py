@@ -1,11 +1,13 @@
 """Weights across frameworks: the reference key layout, JAX trees, ``.pt`` files.
 
-The port's HWGATE ``state_dict`` uses the reference PyTorch key layout
-(`hwgat/models/HWGATE.py:260-331`): ``B``, ``pos_encoder.pe`` (1, T, 1, D),
-``layers.{i}.blocks.{j}.{norm1,norm2}.*``, a fused ``attn.qkv`` with rows
-[q | k | v], ``attn.proj``, ``ff.{fc1,fc2}``, ``norm``, ``head``. So a
-reference checkpoint loads as it is, and ``state_dict_from_jax`` is the exact
-inverse of the JAX package's ``hwgate_from_torch``.
+The port's models use the reference PyTorch key layout
+(`hwgat/models/HWGATE.py:260-331`, `WGATE.py`, `GATE.py`): ``B``,
+``pos_encoder.pe`` (1, T, 1, D), the blocks' ``{norm1,norm2}.*``, a fused
+``attn.qkv`` with rows [q | k | v], ``attn.proj`` and ``ff.{fc1,fc2}`` under
+``layers.{i}.blocks.{j}`` (HWGATE) or ``layers.{i}`` (WGATE, GATE), then
+``norm``, GATE's ``weightedAvg`` and ``head``. So a reference checkpoint
+loads as it is, and ``state_dict_from_jax`` is the exact inverse of the JAX
+package's ``gat_family_from_torch``.
 
 Port checkpoints are ``torch.save({"model_state_dict": state_dict})``.
 """
@@ -23,11 +25,11 @@ _REBUILT = ("adj_mask", "attn_mask")
 
 
 def params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
-    """A JAX HWGATE ``params`` tree (numpy leaves: the parameters, their
-    gradients or any tree of that structure; no buffers) → a dict under the
-    port's parameter names (``model.named_parameters()``). flax kernels
-    (in, out) become torch weights (out, in); the separate q/k/v projections
-    are stacked into ``attn.qkv``."""
+    """A JAX HWGATE, WGATE or GATE ``params`` tree (numpy leaves: the
+    parameters, their gradients or any tree of that structure; no buffers)
+    → a dict under the port's parameter names (``model.named_parameters()``).
+    flax kernels (in, out) become torch weights (out, in); the separate
+    q/k/v projections are stacked into ``attn.qkv``."""
     sd: dict[str, np.ndarray] = {}
 
     def dense(prefix: str, p: Mapping):
@@ -38,12 +40,12 @@ def params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
         sd[f"{prefix}.weight"] = np.asarray(p["scale"])
         sd[f"{prefix}.bias"] = np.asarray(p["bias"])
 
-    blk = re.compile(r"layers_(\d+)_blocks_(\d+)$")
+    blk = re.compile(r"layers_(\d+)(?:_blocks_(\d+))?$")
     for name, p in params.items():
         m = blk.match(name)
         if m is None:
             continue
-        base = f"layers.{m.group(1)}.blocks.{m.group(2)}"
+        base = f"layers.{m.group(1)}" + (f".blocks.{m.group(2)}" if m.group(2) else "")
         norm(f"{base}.norm1", p["norm1"])
         norm(f"{base}.norm2", p["norm2"])
         attn = p["attn"]
@@ -55,13 +57,16 @@ def params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
         dense(f"{base}.ff.fc1", p["ff"]["fc1"])
         dense(f"{base}.ff.fc2", p["ff"]["fc2"])
     norm("norm", params["norm"])
+    if "weightedAvg" in params:
+        dense("weightedAvg", params["weightedAvg"])
     dense("head", params["head"])
     return {k: torch.tensor(np.asarray(v, dtype=np.float32)) for k, v in sd.items()}
 
 
 def state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
-    """JAX HWGATE ``{'params': ..., 'buffers': ...}`` (numpy leaves) → the
-    port's state_dict: ``params_from_jax`` plus the two buffers."""
+    """JAX ``{'params': ..., 'buffers': ...}`` of HWGATE, WGATE or GATE
+    (numpy leaves) → the port's state_dict: ``params_from_jax`` plus the two
+    buffers."""
     buffers = variables["buffers"]
     sd = {
         "B": torch.tensor(np.asarray(buffers["fourier"]["B"], dtype=np.float32)),
