@@ -8,9 +8,11 @@ Phases, each printing one JSON line (any failure ends the run non-zero):
 2. build    — nvcc builds every CUDA source of the port (sm_90a) into build/,
               one process per source, all at once.
 3. kernel   — the forward window-attention kernel against its plain PyTorch
-              version at the flagship shape (12288 units × 32 tokens × dh 64):
-              single and dual mask, prune off and u = 0.3, f32 and bf16.
-4. backward — the backward kernel against its plain version at the same shape
+              version at the flagship shape (12288 units × 32 tokens × dh 64)
+              and at HGATE's (3072 units × 58 tokens × dh 64, two units to a
+              64-token padded supertile): single and dual mask, prune off and
+              u = 0.3, f32 and bf16.
+4. backward — the backward kernel against its plain version at the same shapes
               and cases, with a seeded output gradient; the autograd
               Function's gradients equal a direct call of the kernel.
 5. forward  — HWGATE at the FDMSE-ISL geometry (192 frames, 2002 classes,
@@ -53,11 +55,31 @@ Phases, each printing one JSON line (any failure ends the run non-zero):
               the step repeating bit for bit from its seed; main path 4: ten
               AdamW steps through make_steps lower the loss, with the counts
               reset just before and read just after.
-13. timings  — CUDA-event medians of every kernel, its plain version and its
-              masked scaled_dot_product_attention yardstick (timed, never
-              called by the port), of the eval forward and of the train step
-              of each model; a torch.profiler table of one eval forward and
-              one train step of each model.
+13. masked softmax — the hybrid attention's masked-softmax kernels (K7)
+              against their plain versions at HWGATE's (12288 × 32 × 32) and
+              HGATE's (3072 × 58 × 58) f32 scores: single and dual mask, prune
+              off and 0.3 (HWGATE), P in f32 and bf16; the hybrid attention
+              through K7 against the fused kernel (one function); the
+              autograd Function's gradient equals a direct backward call.
+14. windowed forward — HWGATE with attn_impl="hybrid", and HGATE on its
+              default (K1/K2 at 58 tokens) and hybrid paths, at FDMSE-ISL,
+              batch 16, f32 and bf16: logits against the plain path, 8
+              launches per forward and none of the other path's kernels.
+15. windowed serve — main paths 5-7: each of the three served from a
+              checkpoint through a 24-clip burst (HGATE through the 29-joint
+              transform); rows equal predict_logits; counts reset just before
+              and read just after each burst.
+16. windowed train — the three paths, f32 and bf16: one step's gradients
+              against the plain path, all nonzero, 8 + 8 launches; main paths
+              8-10: ten AdamW steps lower the loss, counts reset just before
+              and read just after.
+17. timings  — CUDA-event medians of every kernel, its plain version and its
+              library yardstick (masked scaled_dot_product_attention, or
+              torch.softmax over masked scores for K7; timed, never called by
+              the port); the hybrid attention against the fused kernels per
+              call; the eval forward and the train step of each model and
+              path; a torch.profiler table of one eval forward and one train
+              step of each.
 
 The last lines are the kernels line, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -79,6 +101,10 @@ from pathlib import Path
 
 SEED = 0
 UNITS, TOKENS, HEAD_DIM = 12288, 32, 64  # 16·96·4·2 = 16·48·4·4 = 16·24·4·8
+# (units, tokens, head dim) of one windowed attention call at batch 16:
+# HWGATE's 32-token windows, HGATE's 58-token whole skeletons (16·96·2 =
+# 16·48·4 = 16·24·8 units of 29 joints × 2 frames)
+WINDOW_SHAPE = {"HWGATE": (UNITS, TOKENS, HEAD_DIM), "HGATE": (3072, 58, HEAD_DIM)}
 PEAK_BYTES_PER_S = 3.35e12               # H100 SXM HBM3
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 CUDA cores; bf16 dense tensor
 TOL = {"float32": 1e-5, "bfloat16": 4e-3}
@@ -122,74 +148,88 @@ def cuda_ms(fn, runs: int = 30, inner: int = 10, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
-def attention_inputs(dtype):
-    """Seeded flagship-shape q, k, v on the card; v at 0.2 scale keeps |o| < 1,
-    where one bf16 ulp (2^-8) sits inside the 4e-3 bar."""
+def attention_inputs(dtype, model: str = "HWGATE"):
+    """Seeded q, k, v of one of ``model``'s attention calls on the card; v at
+    0.2 scale keeps |o| < 1, where one bf16 ulp (2^-8) sits inside the 4e-3
+    bar."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    q, k, v = (torch.randn(UNITS, TOKENS, HEAD_DIM, generator=g, device="cuda") for _ in range(3))
+    q, k, v = (torch.randn(*WINDOW_SHAPE[model], generator=g, device="cuda") for _ in range(3))
     return q.to(dtype), k.to(dtype), (v * 0.2).to(dtype)
 
 
-def output_grad(dtype):
-    """Seeded flagship-shape gradient of the attention output."""
+def output_grad(dtype, model: str = "HWGATE"):
+    """Seeded gradient of the output of one of ``model``'s attention calls."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    return torch.randn(UNITS, TOKENS, HEAD_DIM, generator=g, device="cuda").to(dtype)
+    return torch.randn(*WINDOW_SHAPE[model], generator=g, device="cuda").to(dtype)
 
 
 def dtype_name(dtype) -> str:
     return str(dtype).split(".")[1]
 
 
-def masks():
-    from sl_hwgat_tpu_torch.graphs.adjacency import windowed_block_adj
+def masks(model: str = "HWGATE"):
+    """(adj, tail_adj) of ``model``'s windowed attention."""
+    from sl_hwgat_tpu_torch.graphs.adjacency import hgate_block_adj, windowed_block_adj
     from sl_hwgat_tpu_torch.models.hwgate import shift_tail_mask
 
+    if model == "HGATE":
+        adj = hgate_block_adj()
+        return adj, adj * shift_tail_mask(29, 2, 1)
     adj = windowed_block_adj(2)[0]
     return adj, adj * shift_tail_mask(16, 2, 1)
 
 
-def attention_kwargs(dual: bool, prune_u, tail):
+def attention_kwargs(dual: bool, prune_u, tail, model: str = "HWGATE"):
     import torch
 
-    kw = dict(scale=HEAD_DIM**-0.5, stack=4)
+    if model == "HGATE":  # 58 tokens padded to 64, two units to a supertile
+        kw = dict(scale=HEAD_DIM**-0.5, stack=2, pad_tokens=64)
+    else:
+        kw = dict(scale=HEAD_DIM**-0.5, stack=4)
     if prune_u is not None:
         kw["prune_u"] = torch.full((1,), prune_u, device="cuda")
-    if dual:  # stage 0 at batch 16: 96 temporal groups of nW·h = 8 units
-        kw.update(tail_adj=tail, units_per_group=8, groups=96)
+    if dual:  # stage 0 at batch 16: 96 temporal groups of nW·h = 8 (HGATE: h = 2) units
+        kw.update(tail_adj=tail, units_per_group=8 if model == "HWGATE" else 2, groups=96)
     return kw
 
 
-def phase_kernel():
+def case_prefix(model: str) -> str:
+    """The prefix of ``model``'s cases in the kernel phases' error keys."""
+    return "" if model == "HWGATE" else f"{model}/"
+
+
+def phase_kernel(model: str = "HWGATE"):
     import torch
 
     from sl_hwgat_tpu_torch.ops.window_attention import plain_window_attention, window_attention
 
-    adj, tail = masks()
+    adj, tail = masks(model)
     errors = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = dtype_name(dtype)
-        q, k, v = attention_inputs(dtype)
+        q, k, v = attention_inputs(dtype, model)
         for dual in (False, True):
             for prune_u in (None, 0.3):
-                kw = attention_kwargs(dual, prune_u, tail)
+                kw = attention_kwargs(dual, prune_u, tail, model)
                 got = window_attention(q, k, v, adj, out_dtype=dtype, **kw)
                 want = plain_window_attention(q, k, v, adj, out_dtype=dtype, **kw)
                 torch.cuda.synchronize()
                 err = (got.float() - want.float()).abs().max().item()
-                case = f"{name}/{'dual' if dual else 'single'}/prune={prune_u}"
+                case = f"{case_prefix(model)}{name}/{'dual' if dual else 'single'}/prune={prune_u}"
                 errors[case] = err
                 if not err <= TOL[name]:
                     raise AssertionError(f"kernel vs plain {case}: max abs err {err} > {TOL[name]}")
-    emit("kernel", units=UNITS, tokens=TOKENS, head_dim=HEAD_DIM, tolerance=TOL,
+    units, tokens, head_dim = WINDOW_SHAPE[model]
+    emit("kernel", model=model, units=units, tokens=tokens, head_dim=head_dim, tolerance=TOL,
          max_abs_err=errors)
     return errors
 
 
-def phase_backward():
+def phase_backward(model: str = "HWGATE"):
     import torch
 
     from sl_hwgat_tpu_torch.ops.window_attention import (
@@ -198,20 +238,20 @@ def phase_backward():
         window_attention_bwd,
     )
 
-    adj, tail = masks()
+    adj, tail = masks(model)
     errors, detail = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         name = dtype_name(dtype)
-        q, k, v = attention_inputs(dtype)
-        do = output_grad(dtype)
+        q, k, v = attention_inputs(dtype, model)
+        do = output_grad(dtype, model)
         tol = BWD_TOL[name]
         for dual in (False, True):
             for prune_u in (None, 0.3):
-                kw = attention_kwargs(dual, prune_u, tail)
+                kw = attention_kwargs(dual, prune_u, tail, model)
                 got = window_attention_bwd(q, k, v, do, adj, **kw)
                 want = plain_window_attention_bwd(q, k, v, do, adj, **kw)
                 torch.cuda.synchronize()
-                case = f"{name}/{'dual' if dual else 'single'}/prune={prune_u}"
+                case = f"{case_prefix(model)}{name}/{'dual' if dual else 'single'}/prune={prune_u}"
                 detail[case] = {}
                 for grad, g, w in zip(("dq", "dk", "dv"), got, want):
                     diff = (g.float() - w.float()).abs()
@@ -222,21 +262,23 @@ def phase_backward():
                                              f"err {detail[case][grad]} over {tol}")
                 errors[case] = max(detail[case].values())
     # the autograd Function's gradients are the kernel's
-    q, k, v = (t.detach().requires_grad_() for t in attention_inputs(torch.float32))
-    do = output_grad(torch.float32)
-    kw = attention_kwargs(True, 0.3, tail)
+    q, k, v = (t.detach().requires_grad_() for t in attention_inputs(torch.float32, model))
+    do = output_grad(torch.float32, model)
+    kw = attention_kwargs(True, 0.3, tail, model)
     window_attention(q, k, v, adj, **kw).backward(do)
     direct = window_attention_bwd(q.detach(), k.detach(), v.detach(), do, adj, **kw)
     if not all(torch.equal(t.grad, d) for t, d in zip((q, k, v), direct)):
         raise AssertionError("autograd gradients differ from a direct backward kernel call")
-    emit("backward", units=UNITS, tokens=TOKENS, head_dim=HEAD_DIM, tolerance=BWD_TOL,
-         max_abs_err=detail, autograd_equals_kernel=True)
+    units, tokens, head_dim = WINDOW_SHAPE[model]
+    emit("backward", model=model, units=units, tokens=tokens, head_dim=head_dim,
+         tolerance=BWD_TOL, max_abs_err=detail, autograd_equals_kernel=True)
     return errors
 
 
 @contextmanager
 def plain_attention_in_model():
-    """Run HWGATE's attention through the plain version instead of the kernel."""
+    """Run HWGATE's and HGATE's attention through the plain version of the
+    fused kernel instead of the kernel."""
     from sl_hwgat_tpu_torch.models import hwgate
     from sl_hwgat_tpu_torch.ops.window_attention import plain_window_attention
 
@@ -290,25 +332,11 @@ def phase_forward():
     emit("forward", batch=16, frames=192, classes=2002, tolerance=LOGIT_TOL, results=out)
 
 
-def phase_serve(workdir: Path):
-    import numpy as np
-    import torch
+def burst(pred, clips):
+    """Submit ``clips`` from 4 client threads through a BatchingQueue; returns
+    (rows, queue stats, seconds)."""
+    from sl_hwgat_tpu_torch.serve import BatchingQueue
 
-    from sl_hwgat_tpu_torch.ops.window_attention import window_attention
-    from sl_hwgat_tpu_torch.serve import BatchingQueue, Predictor
-    from sl_hwgat_tpu_torch.weights import save_state_dict
-
-    ckpt = workdir / "hwgate_fdmse_isl.pt"
-    save_state_dict(str(ckpt), flagship("float32"))
-    rng = np.random.default_rng(SEED)
-    clips = [rng.random((int(f), 543, 4)).astype(np.float32)
-             for f in rng.integers(96, 385, size=48)]
-    t0 = time.perf_counter()
-    pred = Predictor.from_checkpoint(str(ckpt), model_type="HWGATE", dataset="FDMSE-ISL")
-    pred.warmup(clips[0])
-    setup_s = time.perf_counter() - t0
-
-    window_attention.launches = 0
     t0 = time.perf_counter()
     q = BatchingQueue(pred, max_batch=16, max_wait_ms=5.0)
     futures: list = [None] * len(clips)
@@ -326,11 +354,33 @@ def phase_serve(workdir: Path):
             raise AssertionError("a client thread did not finish")
     rows = [f.result(timeout=600) for f in futures]
     q.close()
-    serve_s = time.perf_counter() - t0
+    return rows, q.stats, time.perf_counter() - t0
+
+
+def phase_serve(workdir: Path):
+    import numpy as np
+    import torch
+
+    from sl_hwgat_tpu_torch.ops.window_attention import window_attention
+    from sl_hwgat_tpu_torch.serve import Predictor
+    from sl_hwgat_tpu_torch.weights import save_state_dict
+
+    ckpt = workdir / "hwgate_fdmse_isl.pt"
+    save_state_dict(str(ckpt), flagship("float32"))
+    rng = np.random.default_rng(SEED)
+    clips = [rng.random((int(f), 543, 4)).astype(np.float32)
+             for f in rng.integers(96, 385, size=48)]
+    t0 = time.perf_counter()
+    pred = Predictor.from_checkpoint(str(ckpt), model_type="HWGATE", dataset="FDMSE-ISL")
+    pred.warmup(clips[0])
+    setup_s = time.perf_counter() - t0
+
+    window_attention.launches = 0
+    rows, stats, serve_s = burst(pred, clips)
     launches = window_attention.launches
 
-    if launches != 8 * q.stats["batches"]:
-        raise AssertionError(f"{launches} launches for {q.stats['batches']} batches")
+    if launches != 8 * stats["batches"]:
+        raise AssertionError(f"{launches} launches for {stats['batches']} batches")
     errs = []
     for clip, row in zip(clips, rows):
         want = pred.predict_logits([clip])[0]
@@ -338,8 +388,8 @@ def phase_serve(workdir: Path):
         if not (row.shape == (2002,) and np.isfinite(row).all() and errs[-1] <= 2e-4):
             raise AssertionError(f"served row differs from predict_logits by {errs[-1]}")
     pred.close()
-    emit("serve", requests=q.stats["requests"], batches=q.stats["batches"],
-         batch_sizes=q.stats["batch_sizes"], launches=launches, max_abs_err=max(errs),
+    emit("serve", requests=stats["requests"], batches=stats["batches"],
+         batch_sizes=stats["batch_sizes"], launches=launches, max_abs_err=max(errs),
          setup_s=setup_s, serve_s=serve_s, clips_per_s=len(clips) / serve_s)
     torch.cuda.synchronize()
     return launches
@@ -370,6 +420,27 @@ def one_step_grads(model, x, y, valid, seed: int):
     return loss.item(), {k: p.grad.detach().clone() for k, p in model.named_parameters()}
 
 
+def grad_errors(case: str, cdt: str, grads: dict, plain: dict) -> dict:
+    """Per parameter, the gradient through the kernels against the plain
+    path's: max abs error (f32) or ‖g − g′‖/‖g′‖ (bf16), each held to its bar;
+    every gradient through the kernels must be nonzero."""
+    zero = [k for k, g in grads.items() if not (g.abs().max().item() > 0)]
+    if zero:
+        raise AssertionError(f"{case}: zero gradients through the kernels: {zero}")
+    worst = {}
+    for k, g in grads.items():
+        w = plain[k]
+        if cdt == "float32":
+            worst[k] = (g - w).abs().max().item()
+            ok = worst[k] <= GRAD_ATOL_F32
+        else:
+            worst[k] = ((g - w).norm() / w.norm()).item()
+            ok = worst[k] <= GRAD_REL_BF16
+        if not ok:
+            raise AssertionError(f"{case} gradient of {k}: kernels vs plain {worst[k]}")
+    return worst
+
+
 def phase_train():
     import torch
 
@@ -390,21 +461,8 @@ def phase_train():
             raise AssertionError(f"{cdt} step launched (fwd, bwd) = {launches}, not (8, 8)")
         with plain_attention_in_model():
             plain_loss, plain = one_step_grads(model, x, y, valid, seed=SEED)
-        zero = [k for k, g in grads.items() if not (g.abs().max().item() > 0)]
-        if zero:
-            raise AssertionError(f"{cdt}: zero gradients through the kernels: {zero}")
         qkv = [k for k in grads if k.endswith("attn.qkv.weight")]
-        worst = {}
-        for k, g in grads.items():
-            w = plain[k]
-            if cdt == "float32":
-                worst[k] = (g - w).abs().max().item()
-                ok = worst[k] <= GRAD_ATOL_F32
-            else:
-                worst[k] = ((g - w).norm() / w.norm()).item()
-                ok = worst[k] <= GRAD_REL_BF16
-            if not ok:
-                raise AssertionError(f"{cdt} gradient of {k}: kernels vs plain {worst[k]}")
+        worst = grad_errors(cdt, cdt, grads, plain)
         del grads, plain
 
         # ten AdamW steps on one batch, dropout and pruning on
@@ -504,7 +562,7 @@ BANDED_MODELS = ("WGATE", "GATE")
 BANDED_SHAPE = {"WGATE": (512, 192, 16), "GATE": (128, 192, 29)}
 BANDED_DH = 16
 BANDED_SCALE = BANDED_DH**-0.5
-NUM_KPS = {"WGATE": 64, "GATE": 29}
+NUM_KPS = {"WGATE": 64, "GATE": 29, "HWGATE": 64, "HGATE": 29}
 
 
 def banded_bands() -> dict:
@@ -687,7 +745,7 @@ def phase_banded_serve(workdir: Path) -> int:
     import torch
 
     from sl_hwgat_tpu_torch.ops.banded_attention import banded_attention
-    from sl_hwgat_tpu_torch.serve import BatchingQueue, Predictor
+    from sl_hwgat_tpu_torch.serve import Predictor
     from sl_hwgat_tpu_torch.weights import save_state_dict
 
     rng = np.random.default_rng(SEED + 1)
@@ -703,29 +761,11 @@ def phase_banded_serve(workdir: Path) -> int:
         setup_s = time.perf_counter() - t0
 
         banded_attention.launches = 0
-        t0 = time.perf_counter()
-        q = BatchingQueue(pred, max_batch=16, max_wait_ms=5.0)
-        futures: list = [None] * len(clips)
-
-        def client(ids):
-            for i in ids:
-                futures[i] = q.submit(clips[i])
-
-        threads = [threading.Thread(target=client, args=(range(c, len(clips), 4),))
-                   for c in range(4)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-            if t.is_alive():
-                raise AssertionError(f"{name}: a client thread did not finish")
-        rows = [f.result(timeout=600) for f in futures]
-        q.close()
-        serve_s = time.perf_counter() - t0
+        rows, stats, serve_s = burst(pred, clips)
         launches = banded_attention.launches
 
-        if launches != 8 * q.stats["batches"]:
-            raise AssertionError(f"{name}: {launches} launches for {q.stats['batches']} batches")
+        if launches != 8 * stats["batches"]:
+            raise AssertionError(f"{name}: {launches} launches for {stats['batches']} batches")
         errs = []
         for clip, row in zip(clips, rows):
             want = pred.predict_logits([clip])[0]
@@ -737,8 +777,8 @@ def phase_banded_serve(workdir: Path) -> int:
         if kps != NUM_KPS[name]:
             raise AssertionError(f"{name} served {kps}-joint clips")
         pred.close()
-        out[name] = {"requests": q.stats["requests"], "batches": q.stats["batches"],
-                     "batch_sizes": q.stats["batch_sizes"], "launches": launches,
+        out[name] = {"requests": stats["requests"], "batches": stats["batches"],
+                     "batch_sizes": stats["batch_sizes"], "launches": launches,
                      "joints": kps, "max_abs_err": max(errs), "setup_s": setup_s,
                      "serve_s": serve_s, "clips_per_s": len(clips) / serve_s}
         total += launches
@@ -774,21 +814,7 @@ def phase_banded_train() -> dict:
             del grads2
             with plain_banded_in_models():
                 plain_loss, plain = one_step_grads(model, x, y, valid, seed=SEED)
-            zero = [k for k, g in grads.items() if not (g.abs().max().item() > 0)]
-            if zero:
-                raise AssertionError(f"{name} {cdt}: zero gradients through the kernels: {zero}")
-            worst = {}
-            for k, g in grads.items():
-                w = plain[k]
-                if cdt == "float32":
-                    worst[k] = (g - w).abs().max().item()
-                    ok = worst[k] <= GRAD_ATOL_F32
-                else:
-                    worst[k] = ((g - w).norm() / w.norm()).item()
-                    ok = worst[k] <= GRAD_REL_BF16
-                if not ok:
-                    raise AssertionError(f"{name} {cdt} gradient of {k}: kernels vs plain "
-                                         f"{worst[k]}")
+            worst = grad_errors(f"{name} {cdt}", cdt, grads, plain)
             del grads, plain, model
 
             model = banded_model(name, cdt)
@@ -819,21 +845,441 @@ def phase_banded_train() -> dict:
     return total
 
 
-# Per unit of the flagship shape: tensors of TOKENS × HEAD_DIM that a call
-# reads and writes once, and TOKENS × TOKENS × HEAD_DIM products it does.
-# forward: q, k, v → o; S = QKᵀ, O = AV. backward: q, k, v, dO → dq, dk, dv;
-# S, dA = dO Vᵀ, dV = Aᵀ dO, dQ = dS K, dK = dSᵀ Q.
+# ---------------------------------------------------------------------------
+# The hybrid attention (K7) and HGATE (phases 14-17).
+
+# (model, attn_impl) of the windowed paths this section drives: HWGATE's
+# hybrid attention, and HGATE on its default (fused K1/K2 at 58 tokens) and
+# hybrid paths.
+WINDOWED_PATHS = (("HWGATE", "hybrid"), ("HGATE", "auto"), ("HGATE", "hybrid"))
+
+
+def scores_of(q, k, scale: float):
+    """The hybrid path's f32 scores (q·T(scale))·kᵀ of (U, N, dh) units."""
+    import torch
+
+    scaled = q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+    return torch.bmm(scaled.float(), k.float().transpose(1, 2))
+
+
+def softmax_kwargs(kw: dict) -> dict:
+    """The masked softmax's arguments out of the attention's."""
+    return {k: v for k, v in kw.items() if k not in ("scale", "pad_tokens")}
+
+
+def phase_masked_softmax():
+    """K7 forward and backward against their plain versions at HWGATE's
+    (12288 × 32 × 32) and HGATE's (3072 × 58 × 58) scores, and the hybrid
+    attention through K7 against the fused kernel K1 (one function)."""
+    import torch
+
+    from sl_hwgat_tpu_torch.ops.hybrid_attention import (
+        hybrid_window_attention,
+        masked_softmax,
+        masked_softmax_bwd,
+        plain_masked_softmax,
+        plain_masked_softmax_bwd,
+    )
+    from sl_hwgat_tpu_torch.ops.window_attention import window_attention
+
+    fwd_err, bwd_err, hybrid_err = {}, {}, {}
+    for model in ("HWGATE", "HGATE"):
+        adj, tail = masks(model)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = dtype_name(dtype)
+            q, k, v = attention_inputs(dtype, model)
+            g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+            for dual in (False, True):
+                # HGATE trains without pruning
+                for prune_u in ((None, 0.3) if model == "HWGATE" else (None,)):
+                    kw = attention_kwargs(dual, prune_u, tail, model)
+                    skw = softmax_kwargs(kw)
+                    case = f"{model}/{'dual' if dual else 'single'}/prune={prune_u}/{name}"
+                    s = scores_of(q, k, kw["scale"])
+                    got = masked_softmax(s, adj, p_dtype=dtype, **skw)
+                    want = plain_masked_softmax(s, adj, p_dtype=dtype, **skw)
+                    torch.cuda.synchronize()
+                    fwd_err[case] = (got.float() - want.float()).abs().max().item()
+                    if got.dtype != dtype or not fwd_err[case] <= TOL[name]:
+                        raise AssertionError(f"masked softmax vs plain {case}: max abs err "
+                                             f"{fwd_err[case]} > {TOL[name]}")
+                    dp = (torch.randn(s.shape, generator=g, device="cuda") * 0.2).to(dtype)
+                    got = masked_softmax_bwd(s, dp, adj, **skw)
+                    want = plain_masked_softmax_bwd(s, dp, adj, **skw)
+                    torch.cuda.synchronize()
+                    tol = BWD_TOL[name]
+                    diff = (got - want).abs()
+                    bwd_err[case] = diff.max().item()
+                    excess = (diff - tol["atol"] - tol["rtol"] * want.abs()).max().item()
+                    if got.dtype != torch.float32 or not excess <= 0:
+                        raise AssertionError(f"masked softmax backward vs plain {case}: max abs "
+                                             f"err {bwd_err[case]} over {tol}")
+                    got = hybrid_window_attention(q, k, v, adj, **kw)
+                    want = window_attention(q, k, v, adj, **kw)
+                    torch.cuda.synchronize()
+                    hybrid_err[case] = (got - want).abs().max().item()
+                    if not hybrid_err[case] <= TOL[name]:
+                        raise AssertionError(f"hybrid vs fused attention {case}: max abs err "
+                                             f"{hybrid_err[case]} > {TOL[name]}")
+                    del s, dp, got, want
+            del q, k, v
+    # the autograd Function's gradient is the backward kernel's
+    adj, tail = masks("HGATE")
+    q, k, _ = attention_inputs(torch.float32, "HGATE")
+    kw = softmax_kwargs(attention_kwargs(True, None, tail, "HGATE"))
+    s = scores_of(q, k, HEAD_DIM**-0.5).requires_grad_()
+    dp = torch.randn(s.shape, generator=torch.Generator(device="cuda").manual_seed(SEED),
+                     device="cuda")
+    masked_softmax(s, adj, **kw).backward(dp)
+    if not torch.equal(s.grad, masked_softmax_bwd(s.detach(), dp, adj, **kw)):
+        raise AssertionError("masked softmax autograd differs from a direct backward call")
+    emit("masked_softmax", scores={m: [u, n, n] for m, (u, n, _) in WINDOW_SHAPE.items()},
+         tolerance={"fwd": TOL, "bwd": BWD_TOL, "hybrid_vs_fused": TOL},
+         fwd_max_abs_err=fwd_err, bwd_max_abs_err=bwd_err, hybrid_vs_fused_max_abs_err=hybrid_err,
+         autograd_equals_kernel=True)
+    return fwd_err, bwd_err
+
+
+def path_kernels(impl: str):
+    """((forward, backward) counters of the kernels ``impl`` runs, the same
+    pair of the other path), each a function with a ``launches`` count."""
+    from sl_hwgat_tpu_torch.ops.hybrid_attention import masked_softmax, masked_softmax_bwd
+    from sl_hwgat_tpu_torch.ops.window_attention import window_attention, window_attention_bwd
+
+    fused, hybrid = (window_attention, window_attention_bwd), (masked_softmax, masked_softmax_bwd)
+    return (hybrid, fused) if impl == "hybrid" else (fused, hybrid)
+
+
+def reset_launches(*counters) -> None:
+    for c in counters:
+        c.launches = 0
+
+
+@contextmanager
+def plain_path(impl: str):
+    """Run a windowed model's attention through the plain versions: the
+    plain fused attention ("auto"), or the plain masked softmax between the
+    same GEMMs ("hybrid"); torch differentiates both."""
+    from sl_hwgat_tpu_torch.ops import hybrid_attention
+
+    if impl != "hybrid":
+        with plain_attention_in_model():
+            yield
+        return
+    kernel = hybrid_attention.masked_softmax
+    hybrid_attention.masked_softmax = hybrid_attention.plain_masked_softmax
+    try:
+        yield
+    finally:
+        hybrid_attention.masked_softmax = kernel
+
+
+def windowed_model(name: str, impl: str, compute_dtype: str, **overrides):
+    from sl_hwgat_tpu_torch.constants import DATASET_PARAMS
+    from sl_hwgat_tpu_torch.models import build_model
+
+    return build_model(name, DATASET_PARAMS["FDMSE-ISL"], 2, device="cuda", seed=SEED,
+                       attn_impl=impl, compute_dtype=compute_dtype, **overrides)
+
+
+def phase_windowed_forward():
+    import torch
+
+    out = {}
+    for name, impl in WINDOWED_PATHS:
+        x = banded_batch(name)
+        (fwd, _), (other, _) = path_kernels(impl)
+        for cdt in ("float32", "bfloat16"):
+            model = windowed_model(name, impl, cdt)
+            with torch.inference_mode():
+                reset_launches(fwd, other)
+                got = model(x)
+                torch.cuda.synchronize()
+                launches, other_launches = fwd.launches, other.launches
+                with plain_path(impl):
+                    want = model(x)
+                torch.cuda.synchronize()
+            case = f"{name}/{impl}/{cdt}"
+            if launches != 8 or other_launches != 0:
+                raise AssertionError(f"{case} forward launched {launches} times (the other "
+                                     f"path's kernel {other_launches}), not 8 (0)")
+            if got.shape != (16, 2002) or not torch.isfinite(got).all():
+                raise AssertionError(f"{case} logits: shape {tuple(got.shape)} or non-finite")
+            torch.testing.assert_close(got, want, **LOGIT_TOL[cdt])
+            out[case] = {"max_abs_diff": (got - want).abs().max().item(),
+                         "launches_per_forward": launches, "other_path_launches": other_launches}
+            del model
+    emit("windowed_forward", batch=16, frames=192, classes=2002, tolerance=LOGIT_TOL,
+         results=out)
+
+
+def phase_windowed_serve(workdir: Path) -> dict:
+    """Main paths 5-7: serving HWGATE hybrid, HGATE and HGATE hybrid; returns
+    the forward launches by kernel."""
+    import numpy as np
+    import torch
+
+    from sl_hwgat_tpu_torch.serve import Predictor
+    from sl_hwgat_tpu_torch.weights import save_state_dict
+
+    rng = np.random.default_rng(SEED + 2)
+    clips = [rng.random((int(f), 543, 4)).astype(np.float32)
+             for f in rng.integers(96, 385, size=24)]
+    out, total = {}, {}
+    for name, impl in WINDOWED_PATHS:
+        ckpt = workdir / f"{name.lower()}_{impl}_fdmse_isl.pt"
+        save_state_dict(str(ckpt), windowed_model(name, impl, "float32"))
+        t0 = time.perf_counter()
+        pred = Predictor.from_checkpoint(str(ckpt), model_type=name, dataset="FDMSE-ISL",
+                                         attn_impl=impl)
+        pred.warmup(clips[0])
+        setup_s = time.perf_counter() - t0
+        (fwd, _), (other, _) = path_kernels(impl)
+
+        reset_launches(fwd, other)
+        rows, stats, serve_s = burst(pred, clips)
+        launches, other_launches = fwd.launches, other.launches
+
+        case = f"{name}/{impl}"
+        if launches != 8 * stats["batches"] or other_launches != 0:
+            raise AssertionError(f"{case}: {launches} launches ({other_launches} of the other "
+                                 f"path) for {stats['batches']} batches")
+        errs = []
+        for clip, row in zip(clips, rows):
+            want = pred.predict_logits([clip])[0]
+            errs.append(float(np.abs(row - want).max()))
+            if not (row.shape == (2002,) and np.isfinite(row).all() and errs[-1] <= 2e-4):
+                raise AssertionError(f"{case}: served row differs from predict_logits by "
+                                     f"{errs[-1]}")
+        kps = pred.preprocess(clips[0]).shape[1]
+        if kps != NUM_KPS[name]:
+            raise AssertionError(f"{case} served {kps}-joint clips")
+        pred.close()
+        out[case] = {"requests": stats["requests"], "batches": stats["batches"],
+                     "batch_sizes": stats["batch_sizes"], "kernel": fwd.__name__,
+                     "launches": launches, "joints": kps, "max_abs_err": max(errs),
+                     "setup_s": setup_s, "serve_s": serve_s, "clips_per_s": len(clips) / serve_s}
+        total[fwd.__name__] = total.get(fwd.__name__, 0) + launches
+        del pred
+        torch.cuda.empty_cache()
+    emit("windowed_serve", results=out)
+    return total
+
+
+def phase_windowed_train() -> dict:
+    """Gradients against the plain path, then main paths 8-10: ten AdamW
+    steps per path and type. Returns the launches of the AdamW runs by
+    kernel."""
+    import torch
+
+    from sl_hwgat_tpu_torch.train.loop import make_steps
+    from sl_hwgat_tpu_torch.train.state import make_optimizer
+
+    out, total = {}, {}
+    for name, impl in WINDOWED_PATHS:
+        x, y, valid = banded_batch(name, train=True)
+        (fwd, bwd), (ofwd, obwd) = path_kernels(impl)
+        for cdt in ("float32", "bfloat16"):
+            case = f"{name}/{impl}/{cdt}"
+            model = windowed_model(name, impl, cdt, drop_rate=0.0)
+            reset_launches(fwd, bwd, ofwd, obwd)
+            loss, grads = one_step_grads(model, x, y, valid, seed=SEED)
+            torch.cuda.synchronize()
+            launches = (fwd.launches, bwd.launches, ofwd.launches + obwd.launches)
+            if launches != (8, 8, 0):
+                raise AssertionError(f"{case} step launched (fwd, bwd, other path) = {launches}")
+            with plain_path(impl):
+                plain_loss, plain = one_step_grads(model, x, y, valid, seed=SEED)
+            worst = grad_errors(case, cdt, grads, plain)
+            del grads, plain, model
+
+            model = windowed_model(name, impl, cdt)
+            opt = make_optimizer("adamw", LR, model.parameters())
+            train_step, _ = make_steps(model, opt)
+            reset_launches(fwd, bwd, ofwd, obwd)
+            losses = [train_step(x, y, valid, SEED, 0, step)[0].item() for step in range(10)]
+            torch.cuda.synchronize()
+            run = {"fwd": fwd.launches, "bwd": bwd.launches,
+                   "other_path": ofwd.launches + obwd.launches}
+            if run != {"fwd": 80, "bwd": 80, "other_path": 0}:
+                raise AssertionError(f"{case}: ten steps launched {run}")
+            if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+                raise AssertionError(f"{case} AdamW losses: {losses}")
+            for c, n in ((fwd, run["fwd"]), (bwd, run["bwd"])):
+                total[c.__name__] = total.get(c.__name__, 0) + n
+            out[case] = {"loss_kernels": loss, "loss_plain": plain_loss,
+                         "launches_per_step": {"fwd": launches[0], "bwd": launches[1]},
+                         "grad_err_worst": max(worst.values()),
+                         "grad_err_worst_param": max(worst, key=worst.get),
+                         "grad_err_metric": "max abs" if cdt == "float32" else "rel norm",
+                         "params_with_grad": len(worst), "adamw_losses": losses,
+                         "adamw_launches": run}
+            del model, opt, train_step
+            torch.cuda.empty_cache()
+    emit("windowed_train", batch=16, frames=192, classes=2002, lr=LR,
+         tolerance={"float32": GRAD_ATOL_F32, "bfloat16": GRAD_REL_BF16}, results=out)
+    return total
+
+
+# Operations per score entry of the masked softmax (f32, CUDA cores):
+# forward the prune softmax (max, subtract, exp, sum, divide, compare), the
+# mask (select, compare) and the softmax (max, subtract, exp, sum, divide);
+# backward the same plus the product, the row sum, the difference, the
+# product and the gate.
+SOFTMAX_OPS = {"fwd": 13, "bwd": 18}
+
+
+def softmax_bound(kind: str, dtype_name: str, model: str) -> tuple[float, str]:
+    """(least ms on an H100 SXM, what bounds it) for one masked-softmax call
+    at ``model``'s scores: S (f32) read and P (v's type) written once; the
+    backward reads S and dP (P's type) and writes dS (f32) once."""
+    units, tokens, _ = WINDOW_SHAPE[model]
+    entries = units * tokens * tokens
+    elem = 4 if dtype_name == "float32" else 2
+    nbytes = entries * (4 + elem if kind == "fwd" else 4 + elem + 4)
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = entries * SOFTMAX_OPS[kind] / PEAK_FLOPS["float32"] * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def phase_windowed_timings() -> dict:
+    """K1/K2 at HGATE's 58-token units and K7 at both models' scores: kernel,
+    plain, bound and library ms; the hybrid attention against the fused
+    kernels per call; eval forward and train step of every windowed path."""
+    import torch
+
+    from sl_hwgat_tpu_torch.ops.attention import masked_scores, unit_allowed
+    from sl_hwgat_tpu_torch.ops.hybrid_attention import (
+        hybrid_window_attention,
+        masked_softmax,
+        masked_softmax_bwd,
+        plain_masked_softmax,
+        plain_masked_softmax_bwd,
+    )
+    from sl_hwgat_tpu_torch.ops.window_attention import (
+        plain_window_attention,
+        plain_window_attention_bwd,
+        window_attention,
+        window_attention_bwd,
+    )
+
+    wide = {"fwd": {}, "bwd": {}}
+    softmax = {"fwd": {}, "bwd": {}}
+    versus = {}
+    for model in ("HWGATE", "HGATE"):
+        adj, tail = masks(model)
+        additive = torch.where(torch.from_numpy(adj) != 0, 0.0, -1e4).cuda()
+        for dtype in (torch.float32, torch.bfloat16):
+            name = dtype_name(dtype)
+            key = f"{model}/{name}"
+            q, k, v = attention_inputs(dtype, model)
+            do = output_grad(dtype, model)
+            kw = attention_kwargs(False, None, tail, model)
+            skw = softmax_kwargs(kw)
+            if model == "HGATE":  # K1/K2 at 58-token units
+                fwd, bwd = {}, {}
+                for dual in (False, True):
+                    dkw = attention_kwargs(dual, None, tail, model)
+                    case = "dual" if dual else "single"
+                    fwd[case] = {
+                        "ms": cuda_ms(lambda: window_attention(q, k, v, adj, out_dtype=dtype,
+                                                               **dkw)),
+                        "plain_ms": cuda_ms(lambda: plain_window_attention(
+                            q, k, v, adj, out_dtype=dtype, **dkw), runs=10)}
+                    bwd[case] = {
+                        "ms": cuda_ms(lambda: window_attention_bwd(q, k, v, do, adj, **dkw)),
+                        "plain_ms": cuda_ms(lambda: plain_window_attention_bwd(
+                            q, k, v, do, adj, **dkw), runs=5)}
+                library = sdpa_ms(q, k, v, do, additive.to(dtype)[None, None])
+                for kind, cases, lib in (("fwd", fwd, library[0]), ("bwd", bwd, library[1])):
+                    bound_ms, bound_by = bound(kind, name, model)
+                    wide[kind][key] = {"cases": cases, "library_ms": lib, "bound_ms": bound_ms,
+                                       "bound_by": bound_by}
+            # K7, single mask (the library call's function), with the library
+            # yardstick: one softmax call over the already-masked scores, and
+            # the softmax backward of its output
+            s = scores_of(q, k, kw["scale"])
+            dp = (torch.randn(s.shape, generator=torch.Generator(device="cuda").manual_seed(SEED),
+                              device="cuda") * 0.2).to(dtype)
+            masked = masked_scores(s, unit_allowed(adj, None, None, s.shape[0], kw["stack"],
+                                                   s.device), zero_quirk=True, prune_u=None)
+            p32 = torch.softmax(masked, -1)
+            dp32 = dp.float()
+            library = {
+                "fwd": cuda_ms(lambda: torch.softmax(masked, -1)),
+                "bwd": cuda_ms(lambda: torch.ops.aten._softmax_backward_data(
+                    dp32, p32, -1, torch.float32))}
+            cases = {
+                "fwd": {"ms": cuda_ms(lambda: masked_softmax(s, adj, p_dtype=dtype, **skw)),
+                        "plain_ms": cuda_ms(lambda: plain_masked_softmax(
+                            s, adj, p_dtype=dtype, **skw), runs=10)},
+                "bwd": {"ms": cuda_ms(lambda: masked_softmax_bwd(s, dp, adj, **skw)),
+                        "plain_ms": cuda_ms(lambda: plain_masked_softmax_bwd(s, dp, adj, **skw),
+                                            runs=10)},
+            }
+            for kind in ("fwd", "bwd"):
+                bound_ms, bound_by = softmax_bound(kind, name, model)
+                softmax[kind][key] = {**cases[kind], "library_ms": library[kind],
+                                      "bound_ms": bound_ms, "bound_by": bound_by}
+            del s, dp, masked, p32, dp32
+            # the whole hybrid attention against the fused kernels, per call,
+            # shifted blocks' dual mask (the models' larger share)
+            dkw = attention_kwargs(True, None, tail, model)
+            leaves = tuple(t.detach().requires_grad_() for t in (q, k, v))
+
+            def both(fn):
+                return lambda: torch.autograd.grad(fn(*leaves, adj, **dkw), leaves, do)
+
+            with torch.no_grad():
+                versus[key] = {
+                    "hybrid_fwd_ms": cuda_ms(lambda: hybrid_window_attention(q, k, v, adj, **dkw)),
+                    "fused_fwd_ms": cuda_ms(lambda: window_attention(q, k, v, adj, **dkw))}
+            versus[key]["hybrid_fwd_bwd_ms"] = cuda_ms(both(hybrid_window_attention), runs=20)
+            versus[key]["fused_fwd_bwd_ms"] = cuda_ms(both(window_attention), runs=20)
+            del q, k, v, do, leaves
+            torch.cuda.empty_cache()
+    emit("windowed_timings", shapes={m: list(s) for m, s in WINDOW_SHAPE.items()},
+         window_attention=wide, masked_softmax=softmax, hybrid_vs_fused=versus,
+         note="K1/K2 library_ms: scaled_dot_product_attention per 58-token unit with the "
+              "adjacency as an additive mask (backward as fwd+bwd minus fwd); masked_softmax "
+              "library_ms: torch.softmax over the already-masked f32 scores (backward: "
+              "aten._softmax_backward_data of its output); timed only. hybrid_vs_fused: "
+              "one attention call (dual mask, f32 output), forward and forward+backward")
+
+    results = {}
+    for name, impl in WINDOWED_PATHS:
+        for cdt in ("float32", "bfloat16"):
+            model = windowed_model(name, impl, cdt)
+            with torch.inference_mode():
+                x = banded_batch(name)
+                ms = cuda_ms(lambda: model(x), runs=20, inner=1)
+            step_ms = train_step_ms(model, *banded_batch(name, train=True))
+            results[f"{name}/{impl}/{cdt}"] = {
+                "forward_ms": ms, "clips_per_s": 16 / ms * 1e3, "train_step_ms": step_ms,
+                "train_clips_per_s": 16 / step_ms * 1e3}
+            del model
+            torch.cuda.empty_cache()
+    emit("windowed_eval_train", batch=16, frames=192, results=results)
+    return {"window_attention": wide, "masked_softmax": softmax}
+
+
+# Per unit: tensors of N × HEAD_DIM that a call reads and writes once, and
+# N × N × HEAD_DIM products it does. forward: q, k, v → o; S = QKᵀ, O = AV.
+# backward: q, k, v, dO → dq, dk, dv; S, dA = dO Vᵀ, dV = Aᵀ dO, dQ = dS K,
+# dK = dSᵀ Q.
 WORK = {"fwd": (4, 2), "bwd": (7, 5)}
 
 
-def bound(kind: str, dtype_name: str) -> tuple[float, str]:
-    """(least ms on an H100 SXM, what bounds it) for one call at the
-    flagship shape: bytes over the memory rate or operations over the peak
-    rate of the type (f32: CUDA cores; bf16: dense tensor cores)."""
+def bound(kind: str, dtype_name: str, model: str = "HWGATE") -> tuple[float, str]:
+    """(least ms on an H100 SXM, what bounds it) for one call at ``model``'s
+    shape: bytes over the memory rate or operations over the peak rate of
+    the type (f32: CUDA cores; bf16: dense tensor cores). The padding of
+    HGATE's units is not work: 58 tokens, not 64."""
+    units, tokens, head_dim = WINDOW_SHAPE[model]
     tensors, products = WORK[kind]
     elem = 4 if dtype_name == "float32" else 2
-    bytes_ms = tensors * UNITS * TOKENS * HEAD_DIM * elem / PEAK_BYTES_PER_S * 1e3
-    flops = products * 2 * TOKENS * TOKENS * HEAD_DIM * UNITS
+    bytes_ms = tensors * units * tokens * head_dim * elem / PEAK_BYTES_PER_S * 1e3
+    flops = products * 2 * tokens * tokens * head_dim * units
     ops_ms = flops / PEAK_FLOPS[dtype_name] * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
@@ -1055,7 +1501,8 @@ def device_table(prof, top: int = 12) -> dict:
 
 def phase_profile():
     """Device time by kernel of one eval forward and of one train step, in
-    f32 and bf16, with the wall time of the profiled step."""
+    f32 and bf16, of every model and windowed path, with the wall time of
+    the profiled step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1063,13 +1510,17 @@ def phase_profile():
     from sl_hwgat_tpu_torch.train.state import make_optimizer
 
     out = {}
-    for name in ("HWGATE", *BANDED_MODELS):
-        banded = name in BANDED_MODELS
-        x = banded_batch(name) if banded else eval_batch()
-        xt, yt, valid = banded_batch(name, train=True) if banded else train_batch()
+    for name, impl in [(m, None) for m in ("HWGATE", *BANDED_MODELS)] + list(WINDOWED_PATHS):
+        # banded_batch("HWGATE") is eval_batch() / train_batch(): same seeds and shapes
+        x = banded_batch(name)
+        xt, yt, valid = banded_batch(name, train=True)
         for cdt in ("float32", "bfloat16"):
-            key = cdt if name == "HWGATE" else f"{name}/{cdt}"
-            model = build(name, cdt)
+            if impl is None:
+                key = cdt if name == "HWGATE" else f"{name}/{cdt}"
+                model = build(name, cdt)
+            else:
+                key = f"{name}/{impl}/{cdt}"
+                model = windowed_model(name, impl, cdt)
             with torch.inference_mode():
                 model(x)
                 torch.cuda.synchronize()
@@ -1094,9 +1545,10 @@ def phase_profile():
 
 def kernel_entry(kind: str, name: str, replaces: str, launches: int, timings: dict,
                  errors: dict) -> dict:
-    """One entry of the kernels line: the f32 numbers at the top level (the
-    serving path's type), bf16 under "bfloat16"; single-mask times (the
-    function the masked-SDPA yardstick computes too), dual-mask beside."""
+    """One entry of the kernels line: HWGATE's f32 numbers at the top level
+    (the serving path's type), bf16 under "bfloat16", HGATE's 58-token units
+    under "HGATE/<dtype>"; single-mask times (the function the masked-SDPA
+    yardstick computes too), dual-mask beside."""
     entry = {"name": name, "route": "cuda", "source": f"sl_hwgat_tpu_torch/csrc/{name}.cu",
              "replaces": replaces, "launches": launches}
     for dt, t in timings[kind].items():
@@ -1114,22 +1566,20 @@ def kernel_entry(kind: str, name: str, replaces: str, launches: int, timings: di
     return entry
 
 
-def banded_entry(kind: str, name: str, replaces: str, launches: int, timings: dict,
-                 errors: dict) -> dict:
-    """One banded entry of the kernels line: WGATE's f32 numbers at the top
-    level (the models' band; the serving path's type), the other cases
-    under "<model>/<dtype>"; max_abs_err over both bands of that case."""
+def case_entry(kind: str, name: str, replaces: str, launches: int, timings: dict,
+               errors: dict, top: str) -> dict:
+    """One entry of the kernels line from timings by "<model>/<dtype>" case:
+    the ``top`` case's numbers at the top level (the serving path's model and
+    type), the others under their case; max_abs_err over the error cases of
+    that model and type (errors keyed "<model>/.../<dtype>")."""
     entry = {"name": name, "route": "cuda", "source": f"sl_hwgat_tpu_torch/csrc/{name}.cu",
              "replaces": replaces, "launches": launches}
     for case, t in timings[kind].items():
         model, dt = case.split("/")
-        fields = {"ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
-                  "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                  "library_ms": t["library_ms"],
+        fields = {"ms": t["ms"], "kernel_ms": t["ms"], **t,
                   "max_abs_err": max(e for c, e in errors.items()
-                                     if c.startswith(model + "/") and c.endswith(dt)),
-                  "nondiagonal_band_ms": t["nondiagonal_band_ms"]}
-        if case == "WGATE/float32":
+                                     if c.startswith(model + "/") and c.endswith(dt))}
+        if case == top:
             entry.update(fields)
         else:
             entry[case] = fields
@@ -1168,6 +1618,8 @@ def main() -> int:
 
     fwd_errors = phase_kernel()
     bwd_errors = phase_backward()
+    fwd_errors.update(phase_kernel("HGATE"))
+    bwd_errors.update(phase_backward("HGATE"))
     phase_forward()
     with tempfile.TemporaryDirectory() as tmp:
         serve_launches = phase_serve(Path(tmp))
@@ -1179,29 +1631,53 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         banded_serve_launches = phase_banded_serve(Path(tmp))
     banded_train_launches = phase_banded_train()
+    softmax_fwd_errors, softmax_bwd_errors = phase_masked_softmax()
+    phase_windowed_forward()
+    with tempfile.TemporaryDirectory() as tmp:
+        windowed_serve_launches = phase_windowed_serve(Path(tmp))
+    windowed_train_launches = phase_windowed_train()
     timings = phase_timings()
     banded_timings = phase_banded_timings()
+    windowed_timings = phase_windowed_timings()
+    for kind in ("fwd", "bwd"):
+        timings[kind].update(windowed_timings["window_attention"][kind])
     phase_profile()
 
-    from sl_hwgat_tpu_torch.ops import banded_attention, window_attention
+    from sl_hwgat_tpu_torch.ops import banded_attention, hybrid_attention, window_attention
 
+    # launches of the main paths: the serving bursts and the AdamW/SYNTH runs
+    served, trained = windowed_serve_launches, windowed_train_launches
     fwd = kernel_entry("fwd", window_attention.KERNEL,
                        "sl_hwgat_tpu/ops/pallas_attention.py:241 (_fwd_kernel)",
-                       serve_launches, timings, fwd_errors)
-    fwd["train_launches"] = train_launches["fwd"]
+                       serve_launches + served["window_attention"], timings, fwd_errors)
+    fwd["hgate_serve_launches"] = served["window_attention"]
+    fwd["train_launches"] = train_launches["fwd"] + trained["window_attention"]
     bwd = kernel_entry("bwd", window_attention.KERNEL_BWD,
                        "sl_hwgat_tpu/ops/pallas_attention.py:295 (_bwd_kernel)",
-                       train_launches["bwd"], timings, bwd_errors)
-    bfwd = banded_entry("fwd", banded_attention.KERNEL,
-                        "sl_hwgat_tpu/ops/pallas_banded.py:408 (_fwd_kernel_packed); "
-                        ":129 (_fwd_kernel)",
-                        banded_serve_launches, banded_timings, banded_fwd_errors)
+                       train_launches["bwd"] + trained["window_attention_bwd"], timings,
+                       bwd_errors)
+    bwd["hgate_train_launches"] = trained["window_attention_bwd"]
+    bfwd = case_entry("fwd", banded_attention.KERNEL,
+                      "sl_hwgat_tpu/ops/pallas_banded.py:408 (_fwd_kernel_packed); "
+                      ":129 (_fwd_kernel)",
+                      banded_serve_launches, banded_timings, banded_fwd_errors, "WGATE/float32")
     bfwd["train_launches"] = banded_train_launches["fwd"]
-    bbwd = banded_entry("bwd", banded_attention.KERNEL_BWD,
-                        "sl_hwgat_tpu/ops/pallas_banded.py:427 (_bwd_kernel_packed); "
-                        ":146 (_bwd_kernel)",
-                        banded_train_launches["bwd"], banded_timings, banded_bwd_errors)
-    print(json.dumps({"kernels": [fwd, bwd, bfwd, bbwd]}), flush=True)
+    bbwd = case_entry("bwd", banded_attention.KERNEL_BWD,
+                      "sl_hwgat_tpu/ops/pallas_banded.py:427 (_bwd_kernel_packed); "
+                      ":146 (_bwd_kernel)",
+                      banded_train_launches["bwd"], banded_timings, banded_bwd_errors,
+                      "WGATE/float32")
+    softmax_timings = windowed_timings["masked_softmax"]
+    sfwd = case_entry("fwd", hybrid_attention.KERNEL,
+                      "sl_hwgat_tpu/ops/hybrid_attention.py:46 (_softmax_fwd_kernel)",
+                      served["masked_softmax"], softmax_timings, softmax_fwd_errors,
+                      "HWGATE/float32")
+    sfwd["train_launches"] = trained["masked_softmax"]
+    sbwd = case_entry("bwd", hybrid_attention.KERNEL_BWD,
+                      "sl_hwgat_tpu/ops/hybrid_attention.py:61 (_softmax_bwd_kernel)",
+                      trained["masked_softmax_bwd"], softmax_timings, softmax_bwd_errors,
+                      "HWGATE/float32")
+    print(json.dumps({"kernels": [fwd, bwd, bfwd, bbwd, sfwd, sbwd]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

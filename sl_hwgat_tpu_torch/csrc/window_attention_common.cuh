@@ -6,8 +6,13 @@
 // the two passes: a prune decision at the `u` boundary cannot flip between
 // them, and the gradient is gated by exactly the entries the forward kept.
 //
-// Layout: one warp per unit of kN = 32 tokens x DH (32 or 64), token-major
-// (U, kN, DH) in T = float or __nv_bfloat16; lane i owns query row i.
+// Layout: token-major (U, n, DH) in T = float or __nv_bfloat16. Units of
+// kN = 32 tokens run one warp per unit (lane i owns query row i, DH 32 or
+// 64); units of up to kWideN = 64 tokens (HGATE: 58) run one block of 64
+// threads per unit (thread i owns query row i, DH 64). The row code below is
+// written once for both: templated on the unit's capacity, with the unit's
+// token count n (== kN for 32-token units, where the guards fold away) and
+// 32- or 64-bit row bitmasks.
 
 #pragma once
 
@@ -15,10 +20,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace wattn {
 
 constexpr int kN = 32;
+constexpr int kWideN = 64;
 constexpr float kNeg = -10000.0f;
+
+// Row bitmask of a unit of up to kCap tokens: bit j = key token j.
+template <int kCap>
+using RowBits = typename std::conditional<(kCap <= 32), uint32_t, unsigned long long>::type;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -52,12 +64,14 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
   }
 }
 
-// The kN x DH rows of one unit -> f32 rows in the warp's shared memory, with
-// coalesced 16-byte loads and 16-byte stores.
-template <typename T, int DH>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ src, float* dst, int lane) {
+// The `rows` x DH rows of one unit -> f32 rows in shared memory, by
+// kThreads threads (tid = 0 .. kThreads-1) with coalesced 16-byte loads and
+// 16-byte stores.
+template <typename T, int DH, int kThreads>
+__device__ __forceinline__ void stage_rows(const T* __restrict__ src, float* dst, int tid,
+                                           int rows) {
   constexpr int kEpv = 16 / sizeof(T);
-  for (int e = lane; e < kN * DH / kEpv; e += 32) {
+  for (int e = tid; e < rows * DH / kEpv; e += kThreads) {
     float t[kEpv];
     load16(src + e * kEpv, t);
     float4* d = reinterpret_cast<float4*>(dst + e * kEpv);
@@ -90,9 +104,12 @@ __device__ __forceinline__ int mask_plane(long long unit, int dual, const int* _
   return ((tile * stack + unit_offset) / per_group) % groups == groups - 1;
 }
 
-// One query row against the unit's keys (f32 rows in shared memory `ks`):
+// One query row against the unit's keys (f32 rows in shared memory `ks`,
+// n <= kCap of them):
 //   s = qr . k_j (f32 sums);  prune: P0 = softmax(s), s[P0 > u] = 0;
 //   s[!allowed | (zero_quirk & s == 0)] = kNeg;  e = exp(s - max s).
+// Keys j >= n do not exist (padding): they take no part in either softmax
+// and get e = 0, so a padded row equals an unpadded one.
 // `allowed_row()` gives the row's adjacency bits; it is called after the
 // scores, where the registers of the query row are free again. Writes e to
 // `e` and its sum to `sum`: the probabilities are e[j] / sum, divided where
@@ -101,66 +118,80 @@ __device__ __forceinline__ int mask_plane(long long unit, int dual, const int* _
 // Returns the passthrough bits: bit j set where the masked score still
 // equals the raw score, i.e. where the gradient flows (the prune mask itself
 // is not differentiated).
-template <int DH, typename AllowedRow>
-__device__ __forceinline__ uint32_t attention_row(const float (&qr)[DH], const float* ks,
-                                                  const float* __restrict__ prune_u,
-                                                  AllowedRow allowed_row, int zero_quirk,
-                                                  float (&e)[kN], float& sum) {
-  float s[kN];
+template <int kCap, int DH, typename AllowedRow>
+__device__ __forceinline__ RowBits<kCap> attention_row(const float (&qr)[DH], const float* ks,
+                                                       int n, const float* __restrict__ prune_u,
+                                                       AllowedRow allowed_row, int zero_quirk,
+                                                       float (&e)[kCap], float& sum) {
+  using Bits = RowBits<kCap>;
+  float s[kCap];
 #pragma unroll
-  for (int j = 0; j < kN; ++j) {
-    const float4* kr = reinterpret_cast<const float4*>(ks + j * DH);
-    float acc = 0.f;
+  for (int j = 0; j < kCap; ++j) {
+    s[j] = 0.f;
+    if (j < n) {
+      const float4* kr = reinterpret_cast<const float4*>(ks + j * DH);
+      float acc = 0.f;
 #pragma unroll
-    for (int d4 = 0; d4 < DH / 4; ++d4) {
-      const float4 kk = kr[d4];
-      acc = fmaf(qr[4 * d4], kk.x, acc);
-      acc = fmaf(qr[4 * d4 + 1], kk.y, acc);
-      acc = fmaf(qr[4 * d4 + 2], kk.z, acc);
-      acc = fmaf(qr[4 * d4 + 3], kk.w, acc);
+      for (int d4 = 0; d4 < DH / 4; ++d4) {
+        const float4 kk = kr[d4];
+        acc = fmaf(qr[4 * d4], kk.x, acc);
+        acc = fmaf(qr[4 * d4 + 1], kk.y, acc);
+        acc = fmaf(qr[4 * d4 + 2], kk.z, acc);
+        acc = fmaf(qr[4 * d4 + 3], kk.w, acc);
+      }
+      s[j] = acc;
     }
-    s[j] = acc;
   }
 
   // Train-time pruning over the raw scores of the unit.
-  uint32_t pruned = 0u;
+  Bits pruned = 0;
   if (prune_u != nullptr) {
     const float u = __ldg(prune_u);
     float m = s[0];
 #pragma unroll
-    for (int j = 1; j < kN; ++j) m = fmaxf(m, s[j]);
+    for (int j = 1; j < kCap; ++j)
+      if (j < n) m = fmaxf(m, s[j]);
     float total = 0.f;
 #pragma unroll
-    for (int j = 0; j < kN; ++j) {
-      e[j] = expf(s[j] - m);
-      total += e[j];
+    for (int j = 0; j < kCap; ++j) {
+      if (j < n) {
+        e[j] = expf(s[j] - m);
+        total += e[j];
+      }
     }
 #pragma unroll
-    for (int j = 0; j < kN; ++j)
-      if (e[j] / total > u) pruned |= 1u << j;
+    for (int j = 0; j < kCap; ++j)
+      if (j < n && e[j] / total > u) pruned |= Bits(1) << j;
   }
 
   // Multiplicative adjacency + zero quirk, on the pruned scores.
-  const uint32_t allowed = allowed_row();
-  uint32_t pass = 0u;
+  const Bits allowed = allowed_row();
+  Bits pass = 0;
 #pragma unroll
-  for (int j = 0; j < kN; ++j) {
-    const float sp = ((pruned >> j) & 1u) ? 0.f : s[j];
-    const bool keep = ((allowed >> j) & 1u) && (!zero_quirk || sp != 0.f);
-    const float sm = keep ? sp : kNeg;
-    if (sm == s[j]) pass |= 1u << j;
-    e[j] = sm;
+  for (int j = 0; j < kCap; ++j) {
+    if (j < n) {
+      const float sp = ((pruned >> j) & 1u) ? 0.f : s[j];
+      const bool keep = ((allowed >> j) & 1u) && (!zero_quirk || sp != 0.f);
+      const float sm = keep ? sp : kNeg;
+      if (sm == s[j]) pass |= Bits(1) << j;
+      e[j] = sm;
+    }
   }
 
   // Row softmax, left undivided.
   float m = e[0];
 #pragma unroll
-  for (int j = 1; j < kN; ++j) m = fmaxf(m, e[j]);
+  for (int j = 1; j < kCap; ++j)
+    if (j < n) m = fmaxf(m, e[j]);
   sum = 0.f;
 #pragma unroll
-  for (int j = 0; j < kN; ++j) {
-    e[j] = expf(e[j] - m);
-    sum += e[j];
+  for (int j = 0; j < kCap; ++j) {
+    if (j < n) {
+      e[j] = expf(e[j] - m);
+      sum += e[j];
+    } else {
+      e[j] = 0.f;
+    }
   }
   return pass;
 }

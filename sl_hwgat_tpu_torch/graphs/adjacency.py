@@ -1,6 +1,6 @@
 """Attention masks of the graph-attention models: the multiplicative {0,1}
 masks of the windowed models (reference `hwgat/models/model_params.py:373-400`)
-and the additive {-1e4, 0} form of the banded ones.
+and of HGATE (`:461-484`), and the additive {-1e4, 0} form of the banded ones.
 
 Per spatial window over T temporal blocks of V joints: diagonal blocks are
 the spatial adjacency with self loops, the ±1 off-diagonal blocks are the
@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from sl_hwgat_tpu_torch.graphs.skeleton import WINDOW_EDGES_16, edges_to_dense
+from sl_hwgat_tpu_torch.graphs.skeleton import BODY29_EDGES, WINDOW_EDGES_16, edges_to_dense
 
 
 def window_adj(edges=WINDOW_EDGES_16, window_size: int = 16) -> np.ndarray:
@@ -43,6 +43,14 @@ def windowed_block_adj(temporal_blocks: int, window_size: int = 16,
         block_tridiagonal(window_adj(edges_per_window[w], window_size), temporal_blocks)
         for w in range(num_windows)
     ])
+
+
+def hgate_block_adj(edges=BODY29_EDGES, num_kps: int = 29,
+                    temporal_patch: int = 2) -> np.ndarray:
+    """(TP·K, TP·K) whole-skeleton block mask of HGATE (`model_params.py:461-484`):
+    the body graph with self loops on the diagonal blocks, same-joint links
+    between neighbouring frames."""
+    return block_tridiagonal(edges_to_dense(edges, num_kps, self_loops=True), temporal_patch)
 
 
 def additive_mask(adj: np.ndarray, neg: float = -10000.0) -> np.ndarray:

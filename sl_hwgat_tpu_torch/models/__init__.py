@@ -2,8 +2,8 @@
 
 ``build_model`` mirrors ``sl_hwgat_tpu.models.build_model``: a model is
 chosen by its reference name and sized from a dataset entry and the input
-dim. HWGATE, WGATE and GATE are ported; the other names are queued in
-ROADMAP.md.
+dim. HWGATE, HGATE, WGATE and GATE are ported; the other names are queued
+in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -11,16 +11,17 @@ from __future__ import annotations
 import torch
 
 from sl_hwgat_tpu_torch.models.gate import GATE, gate_from_dataset
+from sl_hwgat_tpu_torch.models.hgate import HGATE, hgate_from_dataset
 from sl_hwgat_tpu_torch.models.hwgate import HWGATE, hwgate_from_dataset
 from sl_hwgat_tpu_torch.models.wgate import WGATE, wgate_from_dataset
 
-MODEL_REGISTRY = {"HWGATE": hwgate_from_dataset, "WGATE": wgate_from_dataset,
-                  "GATE": gate_from_dataset}
-NOT_PORTED = ("HGATE", "STGCN", "DecoupledGCN", "Transformer")
+MODEL_REGISTRY = {"HWGATE": hwgate_from_dataset, "HGATE": hgate_from_dataset,
+                  "WGATE": wgate_from_dataset, "GATE": gate_from_dataset}
+NOT_PORTED = ("STGCN", "DecoupledGCN", "Transformer")
 
 # Canonical joints each model consumes (64 = the WindowCreate layout, 29 = the
 # raw skeleton).
-MODEL_NUM_KPS = {"HWGATE": 64, "WGATE": 64, "GATE": 29}
+MODEL_NUM_KPS = {"HWGATE": 64, "HGATE": 29, "WGATE": 64, "GATE": 29}
 
 
 def resolve_device(device) -> torch.device:
@@ -45,5 +46,5 @@ def build_model(name: str, dataset_params: dict, input_dim: int, *, device="cuda
     return model.to(dev).eval()
 
 
-__all__ = ["MODEL_REGISTRY", "MODEL_NUM_KPS", "GATE", "HWGATE", "WGATE", "build_model",
-           "resolve_device"]
+__all__ = ["MODEL_REGISTRY", "MODEL_NUM_KPS", "GATE", "HGATE", "HWGATE", "WGATE",
+           "build_model", "resolve_device"]

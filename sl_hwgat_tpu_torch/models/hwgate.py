@@ -5,9 +5,12 @@ PyTorch counterpart of ``sl_hwgat_tpu/models/hwgate.py`` on the token-major
 
 - window partition/reverse and the temporal merge are index maps
   (``ops/window.py``);
-- every block's adjacency-masked MSA is one ``window_attention`` call, the
-  CUDA kernel on a card: units of 32 tokens (2 frames × 16 joints) × head dim
-  ordered (b, f, nW, h);
+- every block's adjacency-masked MSA is one attention call over units of 32
+  tokens (2 frames × 16 joints) × head dim ordered (b, f, nW, h):
+  ``attn_impl`` "auto" or "pallas" runs ``window_attention`` (the fused CUDA
+  kernels on a card), "hybrid" runs ``hybrid_window_attention`` (batched
+  GEMMs around the masked-softmax kernels), whose f32 output is cast to the
+  compute dtype before ``proj`` as the JAX model does;
 - shifted blocks roll the frames by -1 before attention and back after; the
   last temporal group of every clip attends under ``adj ∧ shift_tail_mask``
   (the kernel's dual-mask mode, with ``units_per_group = nW·h`` and
@@ -42,8 +45,19 @@ from sl_hwgat_tpu_torch.models.common import (
     fourier_matrix,
     layer_norm,
 )
+from sl_hwgat_tpu_torch.ops.hybrid_attention import hybrid_window_attention
 from sl_hwgat_tpu_torch.ops.window import temporal_merge, window_partition, window_reverse
 from sl_hwgat_tpu_torch.ops.window_attention import window_attention
+
+# The JAX package's ``attn_impl`` names that the port runs: the fused kernel
+# ("auto" picks it, as on the TPU) and the hybrid GEMMs + masked softmax.
+ATTN_IMPLS = ("auto", "pallas", "hybrid")
+
+
+def check_attn_impl(attn_impl: str) -> str:
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl={attn_impl!r}: the port runs {ATTN_IMPLS}")
+    return attn_impl
 
 
 def _supertile_stack(tokens: int) -> tuple[int, int | None]:
@@ -72,17 +86,20 @@ def shift_tail_mask(tokens_per_frame: int, temporal_patch: int, shift: int) -> n
 
 class WindowedMSA(nn.Module):
     """Multi-head self-attention over token windows under one shared
-    multiplicative adjacency mask. ≡ `HWGATE.py:65-118`."""
+    multiplicative adjacency mask. ≡ `HWGATE.py:65-118` (prune=True) and
+    `HGATE.py:65-108` (prune=False)."""
 
     def __init__(self, dim: int, num_heads: int, adj: np.ndarray, *,
                  tail_adj: np.ndarray | None = None, proj_drop: float = 0.0,
-                 prune: bool = True, compute_dtype: torch.dtype = torch.float32,
+                 prune: bool = True, attn_impl: str = "auto",
+                 compute_dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.num_heads = num_heads
         self.adj = adj
         self.tail_adj = tail_adj
         self.prune = prune
+        self.attn_impl = check_attn_impl(attn_impl)
         # One fused (d, 3d) projection with output rows [q | k | v], as the
         # reference stores it.
         self.qkv = Dense(dim, 3 * dim, compute_dtype, generator)
@@ -106,11 +123,19 @@ class WindowedMSA(nn.Module):
         stack, pad = _supertile_stack(n)
         tail_kw = {}
         if self.tail_adj is not None:
-            tail_kw = dict(tail_adj=self.tail_adj, units_per_group=windows_per_frame * h,
+            per_group = windows_per_frame * h
+            if per_group % stack:
+                # An odd head count (HGATE): a supertile would straddle two
+                # temporal groups. One unit per supertile gives the function
+                # of the JAX model's split by group, since units never mix.
+                stack = 1
+            tail_kw = dict(tail_adj=self.tail_adj, units_per_group=per_group,
                            groups=temporal_groups)
-        out = window_attention(q, k, v, self.adj, scale=dh**-0.5, stack=stack,
-                               pad_tokens=pad, prune_u=prune_u,
-                               out_dtype=cdt, **tail_kw)
+        kw = dict(scale=dh**-0.5, stack=stack, pad_tokens=pad, prune_u=prune_u, **tail_kw)
+        if self.attn_impl == "hybrid":
+            out = hybrid_window_attention(q, k, v, self.adj, **kw).to(cdt)
+        else:
+            out = window_attention(q, k, v, self.adj, out_dtype=cdt, **kw)
         out = out.reshape(g, h, n, dh).permute(0, 2, 1, 3).reshape(g, n, d)
         return dropout(self.proj(out), self.proj_drop, self.training, generator)
 
@@ -121,7 +146,7 @@ class PartAttentionBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, window_size: int, temporal_patch: int,
                  shift_size: int, adj: np.ndarray, *, drop: float = 0.0,
-                 ff_ratio: float = 2.0, prune: bool = True,
+                 ff_ratio: float = 2.0, prune: bool = True, attn_impl: str = "auto",
                  compute_dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
         super().__init__()
@@ -134,7 +159,8 @@ class PartAttentionBlock(nn.Module):
             tail_adj = adj * shift_tail_mask(window_size, temporal_patch, shift_size)
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.attn = WindowedMSA(dim, num_heads, adj, tail_adj=tail_adj, proj_drop=drop,
-                                prune=prune, compute_dtype=compute_dtype, generator=generator)
+                                prune=prune, attn_impl=attn_impl, compute_dtype=compute_dtype,
+                                generator=generator)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.ff = FeedForward(dim, int(dim * ff_ratio), drop, compute_dtype, generator)
 
@@ -170,15 +196,16 @@ class HWGATE(nn.Module):
     FFN, the attention kernel and the residual stream in bf16 (parameters,
     LayerNorm statistics, the pooling and the head stay f32) — the JAX
     model's ``stream_dtype='auto'``. ``prune_attn``: train-time attention
-    pruning, the JAX model's option of the same name.
+    pruning, and ``attn_impl`` ("auto", "pallas" or "hybrid"), the JAX
+    model's options of the same names.
     """
 
     def __init__(self, kp_dim: int = 2, temporal_dim: int = 192,
                  num_classes: int = 2002, embed_dim: int = 128, temporal_patch: int = 2,
                  depths: Sequence[int] = (2, 2, 4), num_heads: Sequence[int] = (2, 4, 8),
                  window_size: int = 16, drop_rate: float = 0.1, ff_ratio: float = 2.0,
-                 prune_attn: bool = True, compute_dtype: str = "float32",
-                 generator: torch.Generator | None = None):
+                 prune_attn: bool = True, attn_impl: str = "auto",
+                 compute_dtype: str = "float32", generator: torch.Generator | None = None):
         super().__init__()
         cdt = DTYPES[compute_dtype]
         self.compute_dtype = cdt
@@ -197,7 +224,7 @@ class HWGATE(nn.Module):
                     dim, num_heads[i], window_size, temporal_patch,
                     0 if j % 2 == 0 else temporal_patch // 2, adj,
                     drop=drop_rate, ff_ratio=ff_ratio, prune=prune_attn,
-                    compute_dtype=cdt, generator=generator)
+                    attn_impl=attn_impl, compute_dtype=cdt, generator=generator)
                 for j in range(depth)]))
         last = int(embed_dim * 2 ** (len(depths) - 1))
         self.norm = nn.LayerNorm(last, eps=LN_EPS)

@@ -26,7 +26,7 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 SOURCES = ("window_attention_fwd", "window_attention_bwd", "banded_attention_fwd",
-           "banded_attention_bwd")
+           "banded_attention_bwd", "masked_softmax_fwd", "masked_softmax_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -11,6 +11,9 @@ Counterpart of ``sl_hwgat_tpu/ops/attention.py``:
    are exactly 0 and the result equals a per-unit softmax.
 3. ``stacked_window_attention_bwd``: the plain version of the backward
    kernel (``csrc/window_attention_bwd.cu``), on the same supertiles.
+   ``unit_masked_softmax`` and ``unit_masked_softmax_bwd`` are the plain
+   versions of the masked-softmax kernels (``csrc/masked_softmax_*.cu``) on
+   per-unit (U, N, N) scores; all of them mask through ``masked_scores``.
 4. ``banded_frame_attention``: the JAX package's ±1-frame banded attention
    of GATE/WGATE (without its halo arguments); ``banded_frame_attention_k8``
    computes the same function with the rounding of the frame-packed TPU
@@ -100,6 +103,24 @@ def _unstack(x: torch.Tensor, n: int, np_: int) -> torch.Tensor:
     return x.reshape(-1, np_, x.shape[-1])[:, :n]
 
 
+def masked_scores(raw, allowed, *, zero_quirk, prune_u, unit=None):
+    """The softmax input of raw f32 scores (the masking rules of
+    `sl_hwgat_tpu/ops/pallas_attention.py:38-63`): prune over the raw
+    scores of each row's own unit, then NEG wherever ``allowed`` is False
+    or (``zero_quirk``) the pruned score is exactly 0. ``unit``: None when
+    every entry of the last axis is a token of the row's unit, else the
+    bool plane of the in-unit entries; the others go to 2·NEG."""
+    s = raw
+    if prune_u is not None:
+        s_iso = s if unit is None else torch.where(unit, s, UNIT_NEG)
+        s = torch.where(_softmax(s_iso) > prune_u, 0.0, s)
+    keep = allowed & (s != 0) if zero_quirk else allowed
+    s = torch.where(keep, s, NEG)
+    # Cross-unit / padded entries sit below the -1e4 mask level, so a fully
+    # masked row still softmaxes uniformly over its own unit's tokens.
+    return s if unit is None else torch.where(unit, s, 2 * NEG)
+
+
 def _tile_scores(qs, ks, adj, *, n, np_, stack, scale, zero_quirk, prune_u, tail_adj, sel):
     """(raw, masked) f32 scores of the supertiles: the raw scores of the
     scaled q, and the scores after pruning, adjacency masking and unit
@@ -114,15 +135,47 @@ def _tile_scores(qs, ks, adj, *, n, np_, stack, scale, zero_quirk, prune_u, tail
 
     scaled = qs * torch.tensor(scale, dtype=qs.dtype, device=dev)
     raw = torch.matmul(scaled.float(), ks.float().transpose(1, 2))
-    s = raw
-    if prune_u is not None:
-        s_iso = torch.where(unit, s, UNIT_NEG)
-        s = torch.where(_softmax(s_iso) > prune_u, 0.0, s)
-    keep = allowed & (s != 0) if zero_quirk else allowed
-    s = torch.where(keep, s, NEG)
-    # Cross-unit / padded entries sit below the -1e4 mask level, so a fully
-    # masked row still softmaxes uniformly over its own unit's tokens.
-    return raw, torch.where(unit, s, 2 * NEG)
+    return raw, masked_scores(raw, allowed, zero_quirk=zero_quirk, prune_u=prune_u, unit=unit)
+
+
+def unit_allowed(adj, tail_adj, sel, units: int, stack: int, device) -> torch.Tensor:
+    """(U, N, N) bool adjacency of every unit: ``adj``, or ``tail_adj`` for
+    the units of each supertile of ``stack`` units whose ``sel`` is 1."""
+    allowed = torch.from_numpy(np.asarray(adj, dtype=np.float32) != 0).to(device)
+    if tail_adj is None:
+        return allowed.expand(units, -1, -1)
+    tail = torch.from_numpy(np.asarray(tail_adj, dtype=np.float32) != 0).to(device)
+    per_unit = sel.to(device).bool().repeat_interleave(stack)
+    return torch.where(per_unit[:, None, None], tail, allowed)
+
+
+def unit_masked_softmax(s, adj, *, stack: int = 4, zero_quirk: bool = True, prune_u=None,
+                        tail_adj=None, sel=None,
+                        p_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """P = softmax of the masked (U, N, N) f32 scores ``s``, one N-token unit
+    each, stored as ``p_dtype``: the per-unit form of the JAX package's
+    ``_masked_softmax`` (`sl_hwgat_tpu/ops/hybrid_attention.py:46-58`), whose
+    (T, S·Np, S·Np) supertiles hold these blocks on their diagonal and exact
+    zeros elsewhere. ``sel``: (U/stack,) ints, 1 where a supertile of
+    ``stack`` units attends under ``tail_adj``."""
+    allowed = unit_allowed(adj, tail_adj, sel, s.shape[0], stack, s.device)
+    sm = masked_scores(s, allowed, zero_quirk=zero_quirk, prune_u=prune_u)
+    return _softmax(sm).to(p_dtype)
+
+
+def unit_masked_softmax_bwd(s, dp, adj, *, stack: int = 4, zero_quirk: bool = True,
+                            prune_u=None, tail_adj=None, sel=None) -> torch.Tensor:
+    """dS of ``unit_masked_softmax`` for the gradient ``dp`` of P, written out
+    as `sl_hwgat_tpu/ops/hybrid_attention.py:61-75` computes it: A is
+    recomputed in f32, dS = A∘(dP − rowsum(dP∘A)), kept only where the
+    masked score still equals the raw one (the prune mask is not
+    differentiated). f32, like the scores."""
+    allowed = unit_allowed(adj, tail_adj, sel, s.shape[0], stack, s.device)
+    sm = masked_scores(s, allowed, zero_quirk=zero_quirk, prune_u=prune_u)
+    a = _softmax(sm)
+    dpf = dp.float()
+    ds = a * (dpf - (dpf * a).sum(dim=-1, keepdim=True))
+    return ds * (sm == s)
 
 
 def stacked_window_attention(q, k, v, adj, *, scale: float, stack: int = 4,

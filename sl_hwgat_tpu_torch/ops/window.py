@@ -2,6 +2,8 @@
 element for element to ``sl_hwgat_tpu/ops/window.py``.
 
 - ``window_partition`` (B,F,K,D) → (B·f·nW, TP·W, D)  (`HWGATE.py:30-47`)
+- ``block_partition``  (B,F,K,D) → (B·f, TP·K, D), whole-skeleton temporal
+  blocks (HGATE, `HGATE.py:30-47`)
 - ``temporal_merge``   (B,F,K,D) → (B, F/TP, K, TP·D) (`HWGATE.py:49-63`)
 - ``spatial_window_partition`` (B,F,K,D) → (B·nW, F·W, D), one spatial window
   over all frames (WGATE, `WGATE.py:32-66`)
@@ -30,6 +32,19 @@ def window_reverse(x: torch.Tensor, window_size: int, temporal_patch: int,
     b = x.shape[0] // (f * nw)
     x = x.reshape(b, f, nw, tp, w, d).permute(0, 1, 3, 2, 4, 5)
     return x.reshape(b, temporal_dim, num_kps, d)
+
+
+def block_partition(x: torch.Tensor, temporal_patch: int) -> torch.Tensor:
+    """(B, F, K, D) → (B·f, TP·K, D): TP frames of the whole skeleton."""
+    b, f_total, k, d = x.shape
+    return x.reshape(b * (f_total // temporal_patch), temporal_patch * k, d)
+
+
+def block_reverse(x: torch.Tensor, temporal_patch: int, temporal_dim: int,
+                  num_kps: int) -> torch.Tensor:
+    """Inverse of :func:`block_partition`."""
+    b = x.shape[0] // (temporal_dim // temporal_patch)
+    return x.reshape(b, temporal_dim, num_kps, x.shape[-1])
 
 
 def spatial_window_partition(x: torch.Tensor, window_size: int) -> torch.Tensor:

@@ -10,9 +10,12 @@ current stream, or raises. On CPU tensors it runs the plain version,
 ``plain_window_attention`` (``ops/attention.py::stacked_window_attention``),
 which torch differentiates. There is no fallback from one to the other.
 
-``window_attention.launches`` and ``window_attention_bwd.launches`` count the
-two kernels' launches (plain integers that a run may reset), so a caller can
-show that a path went through the kernels.
+The kernels take units of 32 tokens with head dim 32 or 64 (HWGATE), and
+units of up to 64 tokens with head dim 64 (HGATE's 58, which the JAX package
+pads to 64 and stacks two to a supertile; per unit the padding is simply
+absent). ``window_attention.launches`` and ``window_attention_bwd.launches``
+count the two kernels' launches (plain integers that a run may reset), so a
+caller can show that a path went through the kernels.
 """
 
 from __future__ import annotations
@@ -31,10 +34,35 @@ from sl_hwgat_tpu_torch.ops.attention import (
 KERNEL = "window_attention_fwd"
 KERNEL_BWD = "window_attention_bwd"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_TOKENS = 32
+_KERNEL_TOKENS = 32        # units of 32 tokens: head dim 32 or 64
 _KERNEL_HEAD_DIMS = (32, 64)
+_WIDE_TOKENS = 64          # other units of up to 64 tokens: head dim 64
 _MASKS: dict = {}
 _LOCK = threading.Lock()
+
+
+def check_masks(units: int, n: int, adj, stack: int, tail_adj, units_per_group, groups):
+    """Check the mask arguments of U units of n tokens."""
+    if np.shape(adj) != (n, n):
+        raise ValueError(f"adj must be ({n}, {n}), got {np.shape(adj)}")
+    if units % stack:
+        raise ValueError(f"units ({units}) must be a multiple of the stack ({stack})")
+    if tail_adj is not None:
+        if units_per_group is None or groups is None:
+            raise ValueError("tail_adj needs units_per_group and groups")
+        if units_per_group % stack:
+            raise ValueError(
+                f"units per temporal group ({units_per_group}) must be a multiple of "
+                f"the supertile stack ({stack}) so no supertile mixes mask planes")
+
+
+def plain_sel(x, stack, tail_adj, units_per_group, groups, unit_offset, sel):
+    """``sel`` as the plain versions take it: the one given, or in dual-mask
+    mode the temporal-group phase's (``make_sel``) for the (U, …) tensor x."""
+    if tail_adj is not None and sel is None:
+        sel = make_sel(x.shape[0] // stack, stack, units_per_group, groups, unit_offset,
+                       device=x.device)
+    return sel
 
 
 def make_sel(tiles: int, stack: int, units_per_group: int, groups: int,
@@ -47,55 +75,72 @@ def make_sel(tiles: int, stack: int, units_per_group: int, groups: int,
 
 
 def _row_bits(adj) -> np.ndarray:
-    """(N, N) {0,1} mask → (N,) uint32, bit j of word i set where adj[i, j]."""
+    """(N, N) {0,1} mask → (N,) uint64, bit j of word i set where adj[i, j]."""
     a = np.asarray(adj, dtype=np.float32) != 0
-    return (a.astype(np.uint64) << np.arange(a.shape[1], dtype=np.uint64)).sum(1).astype(np.uint32)
+    return (a.astype(np.uint64) << np.arange(a.shape[1], dtype=np.uint64)).sum(1, dtype=np.uint64)
 
 
-def _device_masks(adj, tail_adj, device) -> torch.Tensor:
+def device_masks(adj, tail_adj, device, wide: bool = False) -> torch.Tensor:
     """(2, N) row bitmasks on ``device``: plane 0 ``adj``, plane 1 ``tail_adj``
-    (or ``adj`` again in single-mask mode); cached per mask pair and device."""
+    (or ``adj`` again in single-mask mode), 32-bit words for 32-token units
+    unless ``wide``, else 64-bit; cached per mask pair, width and device."""
     a = np.asarray(adj, dtype=np.float32)
     t = a if tail_adj is None else np.asarray(tail_adj, dtype=np.float32)
-    key = (a.tobytes(), t.tobytes(), str(device))
+    if a.shape[0] > _WIDE_TOKENS:
+        raise ValueError(f"row bitmasks hold at most {_WIDE_TOKENS} tokens, got {a.shape[0]}")
+    wide = wide or a.shape[0] != _KERNEL_TOKENS
+    key = (a.tobytes(), t.tobytes(), wide, str(device))
     with _LOCK:
         m = _MASKS.get(key)
         if m is None:
-            bits = np.stack([_row_bits(a), _row_bits(t)]).view(np.int32)
+            bits = np.stack([_row_bits(a), _row_bits(t)])
+            bits = bits.view(np.int64) if wide else bits.astype(np.uint32).view(np.int32)
             m = _MASKS[key] = torch.from_numpy(bits).to(device)
         return m
+
+
+def device_args(x, stack, prune_u, sel):
+    """(prune_u, sel) as the kernels read them: a one-element float32 tensor
+    (or None) and (U/stack,) int32 (or None), on x's device, where x is a
+    (U, …) tensor."""
+    dev = x.device
+    if prune_u is not None and not torch.is_tensor(prune_u):
+        prune_u = torch.full((1,), float(prune_u), dtype=torch.float32, device=dev)
+    if prune_u is not None and (prune_u.device != dev or prune_u.dtype != torch.float32
+                                or prune_u.numel() != 1):
+        raise ValueError("prune_u must be a one-element float32 tensor on the inputs' device")
+    if sel is not None:
+        sel = torch.as_tensor(sel, dtype=torch.int32, device=dev).contiguous()
+        if sel.shape != (x.shape[0] // stack,):
+            raise ValueError(f"sel must have shape ({x.shape[0] // stack},), got "
+                             f"{tuple(sel.shape)}")
+    return prune_u, sel
 
 
 def _kernel_args(q, adj, *, stack, pad_tokens, prune_u, tail_adj, sel, tensors):
     """Check what the kernels take; return the device (masks, prune_u, sel)."""
     u, n, dh = q.shape
-    if n != _KERNEL_TOKENS or pad_tokens not in (None, n):
-        raise ValueError(f"the CUDA kernels take unpadded {_KERNEL_TOKENS}-token units, "
-                         f"got N={n}, pad_tokens={pad_tokens}")
-    if dh not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"the CUDA kernels take head dims {_KERNEL_HEAD_DIMS}, got {dh}")
+    if pad_tokens not in (None, n) and not n < pad_tokens <= _WIDE_TOKENS:
+        raise ValueError(f"pad_tokens={pad_tokens} for {n}-token units: the kernels pad "
+                         f"nothing and take at most {_WIDE_TOKENS} tokens")
+    if n == _KERNEL_TOKENS:
+        if dh not in _KERNEL_HEAD_DIMS:
+            raise ValueError(f"the CUDA kernels take head dims {_KERNEL_HEAD_DIMS} for "
+                             f"{n}-token units, got {dh}")
+    elif not (1 <= n <= _WIDE_TOKENS and dh == 64):
+        raise ValueError(f"the CUDA kernels take {_KERNEL_TOKENS}-token units, or units of "
+                         f"up to {_WIDE_TOKENS} tokens with head dim 64; got N={n}, dh={dh}")
     for name, t in tensors.items():
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    dev = q.device
-    masks = _device_masks(adj, tail_adj, dev)
-    if prune_u is not None and not torch.is_tensor(prune_u):
-        prune_u = torch.full((1,), float(prune_u), dtype=torch.float32, device=dev)
-    if prune_u is not None and (prune_u.device != dev or prune_u.dtype != torch.float32
-                                or prune_u.numel() != 1):
-        raise ValueError("prune_u must be a one-element float32 tensor on q's device")
-    if sel is not None:
-        sel = torch.as_tensor(sel, dtype=torch.int32, device=dev).contiguous()
-        if sel.shape != (u // stack,):
-            raise ValueError(f"sel must have shape ({u // stack},), got {tuple(sel.shape)}")
-    return masks, prune_u, sel
+    return (device_masks(adj, tail_adj, q.device), *device_args(q, stack, prune_u, sel))
 
 
-def _ptr(t):
+def ptr(t):
     return t.data_ptr() if t is not None else None
 
 
-def _mask_mode(tail_adj, stack, units_per_group, groups, unit_offset):
+def mask_mode(tail_adj, stack, units_per_group, groups, unit_offset):
     """(dual, stack, per_group, groups, unit_offset) of the C interfaces."""
     dual = tail_adj is not None
     return (int(dual), int(stack), int(units_per_group) if dual else 0,
@@ -117,9 +162,9 @@ def _kernel(q, k, v, adj, *, scale, stack, pad_tokens, zero_quirk, prune_u,
     with torch.cuda.device(dev):
         err = _build.function(KERNEL, _ARGTYPES[KERNEL])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), masks.data_ptr(),
-            _ptr(sel), _ptr(prune_u), u, dh, _DTYPE_CODE[q.dtype], _DTYPE_CODE[out_dtype],
+            ptr(sel), ptr(prune_u), u, n, dh, _DTYPE_CODE[q.dtype], _DTYPE_CODE[out_dtype],
             float(scale), int(zero_quirk),
-            *_mask_mode(tail_adj, stack, units_per_group, groups, unit_offset),
+            *mask_mode(tail_adj, stack, units_per_group, groups, unit_offset),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL} launch failed: cudaError {err}")
@@ -136,7 +181,7 @@ def _kernel_bwd(q, k, v, do, adj, *, scale, stack, pad_tokens, zero_quirk, prune
     masks, prune_u, sel = _kernel_args(q, adj, stack=stack, pad_tokens=pad_tokens,
                                        prune_u=prune_u, tail_adj=tail_adj, sel=sel,
                                        tensors={"q": q, "k": k, "v": v, "do": do})
-    u, _, dh = q.shape
+    u, n, dh = q.shape
     dev = q.device
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     if u == 0:
@@ -144,9 +189,9 @@ def _kernel_bwd(q, k, v, do, adj, *, scale, stack, pad_tokens, zero_quirk, prune
     with torch.cuda.device(dev):
         err = _build.function(KERNEL_BWD, _ARGTYPES[KERNEL_BWD])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), masks.data_ptr(), _ptr(sel), _ptr(prune_u),
-            u, dh, _DTYPE_CODE[q.dtype], float(scale), int(zero_quirk),
-            *_mask_mode(tail_adj, stack, units_per_group, groups, unit_offset),
+            dk.data_ptr(), dv.data_ptr(), masks.data_ptr(), ptr(sel), ptr(prune_u),
+            u, n, dh, _DTYPE_CODE[q.dtype], float(scale), int(zero_quirk),
+            *mask_mode(tail_adj, stack, units_per_group, groups, unit_offset),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL_BWD} launch failed: cudaError {err}")
@@ -156,12 +201,12 @@ def _kernel_bwd(q, k, v, do, adj, *, scale, stack, pad_tokens, zero_quirk, prune
 
 
 _ARGTYPES = {
-    # q, k, v, o, masks, sel, prune_u, units, dh, in_dtype, out_dtype, scale,
-    # zero_quirk, dual, stack, per_group, groups, unit_offset, stream
-    KERNEL: ["p"] * 7 + ["ll", "i", "i", "i", "f", "i", "i", "i", "i", "i", "ll", "p"],
-    # q, k, v, do, dq, dk, dv, masks, sel, prune_u, units, dh, dtype, scale,
-    # zero_quirk, dual, stack, per_group, groups, unit_offset, stream
-    KERNEL_BWD: ["p"] * 10 + ["ll", "i", "i", "f", "i", "i", "i", "i", "i", "ll", "p"],
+    # q, k, v, o, masks, sel, prune_u, units, tokens, dh, in_dtype, out_dtype,
+    # scale, zero_quirk, dual, stack, per_group, groups, unit_offset, stream
+    KERNEL: ["p"] * 7 + ["ll", "i", "i", "i", "i", "f", "i", "i", "i", "i", "i", "ll", "p"],
+    # q, k, v, do, dq, dk, dv, masks, sel, prune_u, units, tokens, dh, dtype,
+    # scale, zero_quirk, dual, stack, per_group, groups, unit_offset, stream
+    KERNEL_BWD: ["p"] * 10 + ["ll", "i", "i", "i", "f", "i", "i", "i", "i", "i", "ll", "p"],
 }
 
 
@@ -207,18 +252,7 @@ def window_attention(q, k, v, adj, *, scale: float, stack: int = 4,
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     if not (q.dtype == k.dtype == v.dtype) or not (q.device == k.device == v.device):
         raise ValueError("q, k, v must share one dtype and one device")
-    u, n, _ = q.shape
-    if np.shape(adj) != (n, n):
-        raise ValueError(f"adj must be ({n}, {n}), got {np.shape(adj)}")
-    if u % stack:
-        raise ValueError(f"units ({u}) must be a multiple of the stack ({stack})")
-    if tail_adj is not None:
-        if units_per_group is None or groups is None:
-            raise ValueError("tail_adj needs units_per_group and groups")
-        if units_per_group % stack:
-            raise ValueError(
-                f"units per temporal group ({units_per_group}) must be a multiple of "
-                f"the supertile stack ({stack}) so no supertile mixes mask planes")
+    check_masks(q.shape[0], q.shape[1], adj, stack, tail_adj, units_per_group, groups)
     out_dtype = torch.float32 if out_dtype is None else out_dtype
     kw = dict(scale=scale, stack=stack, pad_tokens=pad_tokens, zero_quirk=zero_quirk,
               tail_adj=tail_adj, units_per_group=units_per_group, groups=groups,
@@ -262,9 +296,7 @@ def plain_window_attention(q, k, v, adj, *, scale, stack=4, pad_tokens=None,
     """The plain PyTorch version of the kernel, with ``window_attention``'s
     arguments, on any device: what ``window_attention`` runs on the CPU, and
     what the kernel is held against on a card."""
-    if tail_adj is not None and sel is None:
-        sel = make_sel(q.shape[0] // stack, stack, units_per_group, groups, unit_offset,
-                       device=q.device)
+    sel = plain_sel(q, stack, tail_adj, units_per_group, groups, unit_offset, sel)
     return stacked_window_attention(
         q, k, v, adj, scale=scale, stack=stack, pad_tokens=pad_tokens,
         zero_quirk=zero_quirk, prune_u=prune_u, tail_adj=tail_adj, sel=sel,
@@ -277,9 +309,7 @@ def plain_window_attention_bwd(q, k, v, do, adj, *, scale, stack=4, pad_tokens=N
                                out_dtype=None):
     """The plain PyTorch version of the backward kernel, with
     ``window_attention_bwd``'s arguments, on any device."""
-    if tail_adj is not None and sel is None:
-        sel = make_sel(q.shape[0] // stack, stack, units_per_group, groups, unit_offset,
-                       device=q.device)
+    sel = plain_sel(q, stack, tail_adj, units_per_group, groups, unit_offset, sel)
     return stacked_window_attention_bwd(
         q, k, v, do, adj, scale=scale, stack=stack, pad_tokens=pad_tokens,
         zero_quirk=zero_quirk, prune_u=prune_u, tail_adj=tail_adj, sel=sel)

@@ -55,7 +55,11 @@ class Predictor:
                         batch_buckets: tuple = (1, 4, 8, 16), device="cuda",
                         **model_overrides):
         """Load ``path`` into ``model_type`` sized for ``dataset`` on
-        ``device`` (default ``cuda``; raises when no card is present)."""
+        ``device`` (default ``cuda``; raises when no card is present).
+        HWGATE and WGATE take the 64-joint windowed transform, HGATE and
+        GATE the 29-joint skeleton one (``MODEL_NUM_KPS``).
+        ``model_overrides`` reach the model's constructor, e.g.
+        ``attn_impl="hybrid"`` for HWGATE and HGATE."""
         dev = resolve_device(device)
         ds = DATASET_PARAMS[dataset]
         model = build_model(model_type, ds, 2, device=dev, **model_overrides)

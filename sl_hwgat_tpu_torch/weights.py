@@ -1,10 +1,10 @@
 """Weights across frameworks: the reference key layout, JAX trees, ``.pt`` files.
 
 The port's models use the reference PyTorch key layout
-(`hwgat/models/HWGATE.py:260-331`, `WGATE.py`, `GATE.py`): ``B``,
+(`hwgat/models/HWGATE.py:260-331`, `HGATE.py`, `WGATE.py`, `GATE.py`): ``B``,
 ``pos_encoder.pe`` (1, T, 1, D), the blocks' ``{norm1,norm2}.*``, a fused
 ``attn.qkv`` with rows [q | k | v], ``attn.proj`` and ``ff.{fc1,fc2}`` under
-``layers.{i}.blocks.{j}`` (HWGATE) or ``layers.{i}`` (WGATE, GATE), then
+``layers.{i}.blocks.{j}`` (HWGATE, HGATE) or ``layers.{i}`` (WGATE, GATE), then
 ``norm``, GATE's ``weightedAvg`` and ``head``. So a reference checkpoint
 loads as it is, and ``state_dict_from_jax`` is the exact inverse of the JAX
 package's ``gat_family_from_torch``.
@@ -25,7 +25,7 @@ _REBUILT = ("adj_mask", "attn_mask")
 
 
 def params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
-    """A JAX HWGATE, WGATE or GATE ``params`` tree (numpy leaves: the
+    """A JAX HWGATE, HGATE, WGATE or GATE ``params`` tree (numpy leaves: the
     parameters, their gradients or any tree of that structure; no buffers)
     → a dict under the port's parameter names (``model.named_parameters()``).
     flax kernels (in, out) become torch weights (out, in); the separate
@@ -64,7 +64,7 @@ def params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
 
 
 def state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
-    """JAX ``{'params': ..., 'buffers': ...}`` of HWGATE, WGATE or GATE
+    """JAX ``{'params': ..., 'buffers': ...}`` of HWGATE, HGATE, WGATE or GATE
     (numpy leaves) → the port's state_dict: ``params_from_jax`` plus the two
     buffers."""
     buffers = variables["buffers"]

@@ -90,7 +90,7 @@ def test_build_model_cpu_is_seeded_eval_and_cuda_needs_a_card():
     for (ka, va), (kb, vb) in zip(a.state_dict().items(), b.state_dict().items()):
         assert ka == kb and torch.equal(va, vb)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("HGATE", {"num_class": 10, "src_len": 8}, 2, device="cpu")
+        build_model("STGCN", {"num_class": 10, "src_len": 8}, 2, device="cpu")
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
