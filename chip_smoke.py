@@ -80,6 +80,18 @@ Phases, each printing one JSON line (any failure ends the run non-zero):
               call; the eval forward and the train step of each model and
               path; a torch.profiler table of one eval forward and one train
               step of each.
+18. probes   — the kernel bench's three probe kernels (stream_probe,
+              relayout, tile_matmul) against their plain versions at the
+              bench's shapes (12288 units × 32 × 64), f32 and bf16, every mode
+              and layout; K10 (banded_packed_mm) at WGATE's and GATE's batch-16
+              shapes; every fused probe through relayout + K1 equal to K1 on
+              plainly permuted inputs; softmax_only through K7. Then main path
+              11: the bench's measure() over entries of every family and K10,
+              counts reset just before and read just after.
+19. bench    — python -m sl_hwgat_tpu_torch.bench.kernel <impl> for one entry
+              of each family and K10 (one after another), then
+              python -m sl_hwgat_tpu_torch.bench.run; each prints its line.
+              Then kernel, plain, bound and library ms of the probe kernels.
 
 The last lines are the kernels line, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -99,14 +111,17 @@ import time
 from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
+# the least time of a call on an H100 SXM: bytes over its memory rate, or
+# operations over the type's peak (f32 CUDA cores, bf16 dense tensor cores)
+from sl_hwgat_tpu_torch.utils.profiling import bound as h100_bound
+from sl_hwgat_tpu_torch.utils.profiling import device_seconds
+
 SEED = 0
 UNITS, TOKENS, HEAD_DIM = 12288, 32, 64  # 16·96·4·2 = 16·48·4·4 = 16·24·4·8
 # (units, tokens, head dim) of one windowed attention call at batch 16:
 # HWGATE's 32-token windows, HGATE's 58-token whole skeletons (16·96·2 =
 # 16·48·4 = 16·24·8 units of 29 joints × 2 frames)
 WINDOW_SHAPE = {"HWGATE": (UNITS, TOKENS, HEAD_DIM), "HGATE": (3072, 58, HEAD_DIM)}
-PEAK_BYTES_PER_S = 3.35e12               # H100 SXM HBM3
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 CUDA cores; bf16 dense tensor
 TOL = {"float32": 1e-5, "bfloat16": 4e-3}
 # backward kernel vs plain: |got - want| <= atol + rtol·|want| (one bf16 ulp is 2^-8)
 BWD_TOL = {"float32": dict(atol=2e-5, rtol=0.0), "bfloat16": dict(atol=4e-3, rtol=1e-2)}
@@ -115,6 +130,13 @@ LOGIT_TOL = {"float32": dict(atol=2e-4, rtol=1e-4), "bfloat16": dict(atol=0.05, 
 # ‖g − g′‖/‖g′‖ per parameter (bf16) (tests/test_pallas_attention.py:380)
 GRAD_ATOL_F32, GRAD_REL_BF16 = 5e-4, 2e-2
 LR = 5e-4
+
+
+def ms_bound(nbytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
+    """(least ms on an H100 SXM, "bytes" or "operations") of a call that
+    moves ``nbytes`` and does ``flops`` operations in ``dtype_name``."""
+    seconds, by = h100_bound(nbytes, flops, dtype_name)
+    return seconds * 1e3, by
 
 
 def emit(phase: str, **fields) -> None:
@@ -1137,9 +1159,7 @@ def softmax_bound(kind: str, dtype_name: str, model: str) -> tuple[float, str]:
     entries = units * tokens * tokens
     elem = 4 if dtype_name == "float32" else 2
     nbytes = entries * (4 + elem if kind == "fwd" else 4 + elem + 4)
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = entries * SOFTMAX_OPS[kind] / PEAK_FLOPS["float32"] * 1e3
-    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+    return ms_bound(nbytes, entries * SOFTMAX_OPS[kind], "float32")
 
 
 def phase_windowed_timings() -> dict:
@@ -1278,10 +1298,8 @@ def bound(kind: str, dtype_name: str, model: str = "HWGATE") -> tuple[float, str
     units, tokens, head_dim = WINDOW_SHAPE[model]
     tensors, products = WORK[kind]
     elem = 4 if dtype_name == "float32" else 2
-    bytes_ms = tensors * units * tokens * head_dim * elem / PEAK_BYTES_PER_S * 1e3
-    flops = products * 2 * tokens * tokens * head_dim * units
-    ops_ms = flops / PEAK_FLOPS[dtype_name] * 1e3
-    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+    return ms_bound(tensors * units * tokens * head_dim * elem,
+                    products * 2 * tokens * tokens * head_dim * units, dtype_name)
 
 
 def sdpa_ms(q, k, v, do, mask, scale: float = HEAD_DIM**-0.5, runs: int = 30,
@@ -1418,10 +1436,7 @@ def banded_bound(kind: str, dtype_name: str, model: str, band) -> tuple[float, s
     nbytes = elems * (3 * elem + 4) if kind == "fwd" else 7 * elems * elem
     e = band == 0
     edges = planes * (frames * int(e[1].sum()) + (frames - 1) * int(e[0].sum() + e[2].sum()))
-    flops = edges * 2 * BANDED_DH * (2 if kind == "fwd" else 5)
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = flops / PEAK_FLOPS[dtype_name] * 1e3
-    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+    return ms_bound(nbytes, edges * 2 * BANDED_DH * (2 if kind == "fwd" else 5), dtype_name)
 
 
 def phase_banded_timings() -> dict:
@@ -1543,6 +1558,418 @@ def phase_profile():
     emit("profile", batch=16, results=out)
 
 
+# --- the kernel bench (phases 18-19) ---------------------------------------
+
+PROBE_TILES = UNITS // 4  # the bench's 128-token supertiles
+# the bench entries the main path measures: one or two of each family, K10
+BENCH_PATH = ("floor_purecopy_bf16", "dmaflr_3stream", "mix_floor", "tsw_floor",
+              "xrelay_s0pallas_bf16", "xstrided_s2_bf16", "matmul_only", "matmul_only_bf16",
+              "floor_sn256_bf16", "tmq_mm", "banded_packed_mm", "banded_packed_mm_bf16",
+              "tmq_fused", "softmax_only")
+# the subprocess runs of the bench's entry point: one of each family, and K10
+BENCH_CLI = ("floor_purecopy_bf16", "xrelay_s0pallas_bf16", "matmul_only_bf16",
+             "banded_packed_mm_bf16", "tmq_fused", "softmax_only")
+# the fused probes: TPU layouts around K1
+FUSED_PROBES = ("tlay_fused", "tlay_fused_bf16", "mix_fused", "tmx_fused", "tmq_fused",
+                "tmq_bfused", "tsw_fused", "tsw_bstack", "tsw_1_fused", "lp_fused_bf16",
+                "pallas_tbf16", "pallas_tpre_bf16", "pallas_widepre_bf16", "pallas_tbwd_bf16",
+                "pallas_widebwd_bf16")
+K10_SHAPES = {"WGATE": (512, 192, 16), "GATE": (128, 192, 29)}  # planes, frames, joints
+
+
+def probe_counts() -> dict:
+    from sl_hwgat_tpu_torch.ops import probes
+
+    return dict(probes.LAUNCHES)
+
+
+def launched(kernel: str, fn):
+    """fn(), which must launch ``kernel`` at least once."""
+    from sl_hwgat_tpu_torch.ops import probes
+
+    before = probes.LAUNCHES[kernel]
+    out = fn()
+    if probes.LAUNCHES[kernel] <= before:
+        raise AssertionError(f"{kernel} was not launched")
+    return out
+
+
+def check(errors: dict, case: str, got, want, *, atol: float = 0.0, rtol: float = 0.0):
+    """Record max |got − want| under ``case``; fail where it exceeds
+    atol + rtol·|want|."""
+    import torch
+
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{case}: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} "
+                             f"{want.dtype}")
+    diff = (got.float() - want.float()).abs()
+    errors[case] = diff.max().item()
+    excess = (diff - atol - rtol * want.float().abs()).max().item()
+    if not excess <= 0:
+        raise AssertionError(f"{case}: max abs err {errors[case]} (atol {atol}, rtol {rtol})")
+
+
+def tile_bar(want) -> float:
+    """The tile products' bar: 1e-5·max|O| in f32, 4e-3·max|O| for bf16
+    inputs (S is rounded to bf16 between the products; another summation
+    order can flip one rounding)."""
+    return want.float().abs().max().item()
+
+
+def k10_inputs(model: str, dtype):
+    import torch
+
+    planes, frames, joints = K10_SHAPES[model]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    return [torch.randn(planes, frames * joints, BANDED_DH, generator=g, device="cuda").to(dtype)
+            for _ in range(3)]
+
+
+@contextmanager
+def plain_relayouts():
+    """The layout maps through plain permutes instead of the relayout kernel."""
+    from sl_hwgat_tpu_torch.ops import layouts, probes
+
+    kernel = layouts.relayout
+    layouts.relayout = probes.plain_relayout
+    try:
+        yield
+    finally:
+        layouts.relayout = kernel
+
+
+def phase_probes() -> dict:
+    """Phase 18: the three probe kernels against their plain versions at the
+    bench's shapes, f32 and bf16, every mode and layout; K10 at WGATE's and
+    GATE's batch-16 shapes; every fused probe through relayout + K1 equal to
+    K1 on token-major inputs taken by plain permutes; softmax_only through K7
+    against its plain version."""
+    import torch
+
+    from sl_hwgat_tpu_torch.bench import kernel as bench
+    from sl_hwgat_tpu_torch.ops import hybrid_attention, probes
+    from sl_hwgat_tpu_torch.ops.banded_attention import banded_packed_mm, plain_banded_packed_mm
+
+    errors = {name: {} for name in (*probes.KERNELS, "fused", "softmax_only")}
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+    t, sn, dh = PROBE_TILES, 128, HEAD_DIM
+    stream, relay, mm = probes.KERNELS
+    f32, bf16 = torch.float32, torch.bfloat16
+    for dt in (f32, bf16):
+        name = dtype_name(dt)
+        x = randn(t, sn, dh, dtype=dt)
+        for out in (f32, bf16):  # copy with a type change
+            check(errors[stream], f"copy/{name}->{dtype_name(out)}",
+                  launched(stream, lambda: probes.stream_copy(x, out)),
+                  probes.plain_stream_copy(x, out))
+        y, z = randn(t, sn, dh, dtype=dt), randn(t, sn, dh, dtype=dt)
+        packed = torch.stack([x, y, z])
+        for case, args in (("sum3", (x, y, z)), ("sum3_packed", tuple(packed))):
+            check(errors[stream], f"{case}/{name}", launched(stream, lambda: probes.stream_sum3(*args)),
+                  probes.plain_stream_sum3(*args))
+        # the floors: (SN, DH) tiles in two layouts; model-wide blocks of TG = 16
+        xt, yt = randn(t, dh, sn, dtype=dt), randn(t, dh, sn, dtype=dt)
+        th = t // 8
+        wide = [randn(8, dh, th * sn, dtype=dt) for _ in range(3)]
+        tile = dict(view=(t, 1, sn * dh), group_cols=sn * dh)
+        floors = {"mix": (xt, x, dict(y=yt, **tile)), "tmx": (xt, x, dict(b=y, **tile)),
+                  "tsw": (wide[0], wide[1], dict(b=wide[2], view=(8, dh, th * sn),
+                                                  group_cols=16 * sn))}
+        for case, (fx, fa, kw) in floors.items():
+            got = launched(stream, lambda: probes.stream_floor(fx, fa, out_dtype=dt, **kw))
+            want = probes.plain_stream_floor(fx, fa, out_dtype=dt, **kw)
+            # f32 sums of 8192+ terms in another order: one output ulp, or
+            # 1e-5·max|o| where a sum nearly cancels
+            check(errors[stream], f"floor_{case}/{name}", got, want,
+                  atol=1e-5 * want.float().abs().max().item(),
+                  rtol=2.0**-7 if dt == bf16 else 1e-5)
+        # relayouts: row gathers and tiled transposes, ragged sizes too
+        for shape, perm in (((6144, 32, 2, dh), (0, 2, 1, 3)), ((6144, 32, 2, dh), (2, 0, 1, 3)),
+                            ((1536, 32, 8, dh), (0, 2, 1, 3)), ((1536, 32, 8, dh), (2, 0, 1, 3)),
+                            ((t, sn, dh), (0, 2, 1)), ((t, dh, sn), (0, 2, 1)),
+                            ((8, th, sn, dh), (0, 3, 1, 2)), ((8, dh, th, sn), (0, 2, 3, 1)),
+                            ((128, 5568, 16), (0, 2, 1)), ((7, 33, 5, 3), (3, 1, 0, 2)),
+                            ((7, 33, 5, 3), (1, 0, 2, 3)), ((3, 5, 7), (2, 0, 1))):
+            a = randn(*shape, dtype=dt)
+            check(errors[relay], f"{'x'.join(map(str, shape))}/{perm}/{name}",
+                  launched(relay, lambda: probes.relayout(a, perm)), probes.plain_relayout(a, perm))
+        # tile products in the probes' layouts
+        x128 = randn(t, sn, 128, dtype=dt)
+        first = x.view(t // 16, 16, sn, dh)[:, :1].expand(-1, 16, -1, -1)
+        tr = randn(t, dh, sn, dtype=dt).view(1, t, dh, sn).transpose(2, 3)
+        out_t = torch.empty(t, dh, sn, dtype=dt, device="cuda")
+        x256 = x.view(1, t // 2, 256, dh)
+        cases = {
+            "matmul_only": ((x[None], x[None], x[None]), {}, f32),
+            "matmul_k128": ((x128[None], x128[None], x128[None]), {}, f32),
+            "sn256": ((x256, x256, x256), {}, dt),
+            "dot1": ((x[None], x[None]), {"cols": dh}, f32),
+            "bigm": ((x.view(t // 16, 16, sn, dh), first), {"cols": dh}, f32),
+            "transposed": ((tr, tr, tr), {"out": out_t.view(1, t, dh, sn).transpose(2, 3)}, dt),
+        }
+        for case, (ops, kw, out_dtype) in cases.items():
+            got = launched(mm, lambda: probes.tile_matmul(*ops, out_dtype=out_dtype, **kw))
+            if "out" in kw:
+                got = out_t.clone()
+            want = probes.plain_tile_matmul(*ops, cols=kw.get("cols"), out_dtype=out_dtype)
+            want = want.reshape(got.shape) if "out" not in kw else \
+                want.view(t, sn, dh).transpose(1, 2).contiguous()
+            scale = 4e-3 if dt == bf16 else 1e-5
+            check(errors[mm], f"{case}/{name}", got, want, atol=scale * tile_bar(want))
+        # K10 at WGATE's and GATE's batch-16 shapes
+        for model, (_, _, joints) in K10_SHAPES.items():
+            q, k, v = k10_inputs(model, dt)
+            for out_dtype in {f32, dt}:
+                got = launched(mm, lambda: banded_packed_mm(q, k, v, joints=joints,
+                                                            out_dtype=out_dtype))
+                want = plain_banded_packed_mm(q, k, v, joints=joints, out_dtype=out_dtype)
+                scale = 4e-3 if dt == bf16 else 1e-5
+                check(errors[mm], f"K10/{model}/{name}->{dtype_name(out_dtype)}", got, want,
+                      atol=scale * tile_bar(want))
+        del x, y, z, packed, xt, yt, wide, x128, first, tr, out_t
+        torch.cuda.empty_cache()
+
+    # the fused probes: relayout + K1 against K1 on plainly permuted inputs
+    from sl_hwgat_tpu_torch.ops import window_attention as window_mod
+
+    for impl in FUSED_PROBES:
+        p = bench.inputs(impl, UNITS, device="cuda")
+        with torch.no_grad():
+            before = window_mod.window_attention.launches
+            got = launched(relay, lambda: p.body(p.state))
+            if window_mod.window_attention.launches <= before:
+                raise AssertionError(f"{impl}: K1 was not launched")
+            with plain_relayouts():
+                want = p.body(p.state)
+        check(errors["fused"], impl, got, want)
+    p = bench.inputs("softmax_only", UNITS, device="cuda")
+    with torch.no_grad():
+        before = hybrid_attention.masked_softmax.launches
+        got = p.body(p.state)
+        if hybrid_attention.masked_softmax.launches <= before:
+            raise AssertionError("softmax_only: K7 was not launched")
+        kernel = hybrid_attention.masked_softmax
+        hybrid_attention.masked_softmax = hybrid_attention.plain_masked_softmax
+        try:
+            want = p.body(p.state)
+        finally:
+            hybrid_attention.masked_softmax = kernel
+    check(errors["softmax_only"], "softmax_only", got, want, atol=1e-5)
+    del p, got, want
+    torch.cuda.empty_cache()
+    emit("probes", tiles=[t, sn, dh], k10_shapes={m: list(s) for m, s in K10_SHAPES.items()},
+         max_abs_err=errors, launches=probe_counts(),
+         note="stream and relayout bit for bit; floors one output ulp; tile products and K10 "
+              "1e-5 / 4e-3 x max|O|; fused probes bit for bit against K1 on plainly permuted "
+              "inputs; softmax_only 1e-5")
+    return errors
+
+
+def phase_bench_path() -> dict:
+    """Main path 11: the kernel bench's ``measure`` (what its command line
+    runs) over one or two entries of each family and K10, counts reset just
+    before and read just after; every one of the three probe kernels, K1 and
+    K7 launched."""
+    import torch
+
+    from sl_hwgat_tpu_torch.bench import kernel as bench
+
+    bench.reset_launches()
+    records = {}
+    for impl in BENCH_PATH:
+        rec = bench.measure(impl, UNITS, repeats=3, inner=5)
+        records[impl] = {k: rec[k] for k in ("time_us", "device_us", "bound_us", "bound_by",
+                                             "launches")}
+    counts = bench.launches()
+    from sl_hwgat_tpu_torch.ops import hybrid_attention, probes, window_attention
+
+    for kernel in (*probes.KERNELS, window_attention.KERNEL, hybrid_attention.KERNEL):
+        if not counts.get(kernel):
+            raise AssertionError(f"the bench path never launched {kernel}")
+    torch.cuda.empty_cache()
+    emit("bench_path", units=UNITS, entries=records, launches=counts)
+    return counts
+
+
+def phase_bench_cli(repo: Path) -> dict:
+    """Phase 19: ``python -m sl_hwgat_tpu_torch.bench.kernel <impl>`` for one
+    entry of each family and K10, one child after another so that each has
+    the card to itself, then ``python -m sl_hwgat_tpu_torch.bench.run``;
+    each must print its line, and the run's must come from ``pallas_obf16``."""
+    lines = {}
+    for impl in BENCH_CLI:
+        proc = subprocess.run(
+            [sys.executable, "-m", "sl_hwgat_tpu_torch.bench.kernel", impl, str(UNITS),
+             "--repeats", "3"], cwd=repo, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"bench.kernel {impl} exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        if rec["impl"] != impl or rec["device"]["platform"] != "gpu" or "bound_us" not in rec:
+            raise AssertionError(f"bench.kernel {impl}: unexpected line {rec}")
+        lines[impl] = {k: rec[k] for k in ("time_us", "spread_pct", "device_us", "bound_us",
+                                           "bound_by")}
+    run = subprocess.run([sys.executable, "-m", "sl_hwgat_tpu_torch.bench.run"], cwd=repo,
+                         capture_output=True, text=True, timeout=900)
+    if run.returncode != 0:
+        raise AssertionError(f"bench.run exited {run.returncode}: {run.stderr[-2000:]}")
+    metric = json.loads(run.stdout.strip().splitlines()[-1])
+    for key in ("metric", "value", "unit", "vs_baseline"):
+        if key not in metric:
+            raise AssertionError(f"bench.run: no {key} in {metric}")
+    if metric["config"] != "fused_bf16_obf16":
+        raise AssertionError(f"bench.run measured {metric['config']}, not fused_bf16_obf16")
+    emit("bench_cli", lines=lines, run=metric, run_note=run.stderr.strip().splitlines()[-1:])
+    return metric
+
+
+def phase_probe_timings() -> dict:
+    """Kernel, plain, bound and library ms of the three probe kernels at the
+    bench's shapes: the bf16 copy (library ``Tensor.copy_``), the relayout
+    (library ``permute(...).contiguous()``, which is also the plain
+    version), the tile products (library: two ``torch.bmm``) and K10 at
+    WGATE's and GATE's shapes; beside the CUDA-event ms, the kernel's and
+    the library call's device ms (``profiling.device_seconds``) and the
+    wrapper's host ms per call."""
+    import torch
+
+    from sl_hwgat_tpu_torch.ops import probes
+    from sl_hwgat_tpu_torch.ops.banded_attention import (
+        banded_packed_mm,
+        packed_frames_per_tile,
+        plain_banded_packed_mm,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    t, sn, dh = PROBE_TILES, 128, HEAD_DIM
+    f32, bf16 = torch.float32, torch.bfloat16
+    out = {}
+
+    def host_ms(fn, calls: int = 100) -> float:
+        """Host ms per call of ``fn`` with the card's queue never empty: what
+        the wrapper's host path costs a launch."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        seconds = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return seconds / calls * 1e3
+
+    def row(fn, plain, library, nbytes, flops, dtype, plain_runs=30):
+        """CUDA-event ms of the kernel, its plain version and the library
+        call; the kernel's and the library call's device ms (the card's
+        queue kept full: without the host's launch gaps, which the events of
+        a short kernel include) and the wrapper's host ms."""
+        bound_ms, by = ms_bound(nbytes, flops, dtype)
+        return {"ms": cuda_ms(fn), "device_ms": device_seconds(fn) * 1e3, "host_ms": host_ms(fn),
+                "plain_ms": cuda_ms(plain, runs=plain_runs),
+                "library_ms": cuda_ms(library) if library else None,
+                "library_device_ms": device_seconds(library) * 1e3 if library else None,
+                "bound_ms": bound_ms, "bound_by": by}
+
+    # stream_probe
+    x = torch.randn(t, sn, dh, generator=g, device="cuda").to(bf16)
+    y, z = (torch.randn(t, sn, dh, generator=g, device="cuda").to(bf16) for _ in range(2))
+    xt, yt = (torch.randn(t, dh, sn, generator=g, device="cuda").to(bf16) for _ in range(2))
+    dst = torch.empty_like(x)
+    dst32 = torch.empty(x.shape, device="cuda")
+    n = x.nbytes
+    tile = dict(view=(t, 1, sn * dh), group_cols=sn * dh, out_dtype=bf16)
+    out["stream_probe"] = {
+        "copy_bf16": row(lambda: probes.stream_copy(x, bf16),
+                         lambda: probes.plain_stream_copy(x, bf16), lambda: dst.copy_(x), 2 * n,
+                         0, "bfloat16"),
+        "copy_bf16_to_f32": row(lambda: probes.stream_copy(x, f32),
+                                lambda: probes.plain_stream_copy(x, f32),
+                                lambda: dst32.copy_(x), 3 * n, 0, "bfloat16"),
+        "sum3_bf16": row(lambda: probes.stream_sum3(x, y, z),
+                         lambda: probes.plain_stream_sum3(x, y, z), None, 4 * n, 0, "bfloat16"),
+        "floor_mix_bf16": row(lambda: probes.stream_floor(xt, x, y=yt, **tile),
+                              lambda: probes.plain_stream_floor(xt, x, y=yt, **tile), None, 4 * n,
+                              0, "bfloat16"),
+    }
+    # relayout
+    r0 = torch.randn(6144, 32, 2, dh, generator=g, device="cuda").to(bf16)
+    out["relayout"] = {
+        "xrelay_s0_bf16": row(lambda: probes.relayout(r0, (0, 2, 1, 3)),
+                              lambda: probes.plain_relayout(r0, (0, 2, 1, 3)),
+                              lambda: r0.permute(0, 2, 1, 3).contiguous(), 2 * r0.nbytes, 0,
+                              "bfloat16"),
+        "xstrided_s0_bf16": row(lambda: probes.relayout(r0, (2, 0, 1, 3)),
+                                lambda: probes.plain_relayout(r0, (2, 0, 1, 3)),
+                                lambda: r0.permute(2, 0, 1, 3).contiguous(), 2 * r0.nbytes, 0,
+                                "bfloat16"),
+        "transpose_bf16": row(lambda: probes.relayout(x, (0, 2, 1)),
+                              lambda: probes.plain_relayout(x, (0, 2, 1)),
+                              lambda: x.permute(0, 2, 1).contiguous(), 2 * n, 0, "bfloat16"),
+    }
+    del r0, y, z, xt, yt, dst, dst32
+    # tile_matmul: matmul_only's products, then K10
+    mm = {}
+    for dt in (f32, bf16):
+        a = torch.randn(t, sn, dh, generator=g, device="cuda").to(dt)
+        a4 = a[None]
+        flops = t * 4.0 * sn * sn * dh
+        mm[f"matmul_only/{dtype_name(dt)}"] = row(
+            lambda: probes.tile_matmul(a4, a4, a4), lambda: probes.plain_tile_matmul(a4, a4, a4),
+            lambda: torch.bmm(torch.bmm(a, a.transpose(1, 2)), a), a.nbytes + t * sn * dh * 4,
+            flops, dtype_name(dt), plain_runs=10)
+        for model, (planes, frames, joints) in K10_SHAPES.items():
+            q, k, v = k10_inputs(model, dt)
+            rows = packed_frames_per_tile(joints) * joints  # 128 or 116 tokens a tile
+            qb, kb, vb = (u.view(-1, rows, BANDED_DH) for u in (q, k, v))
+            flops = qb.shape[0] * 4.0 * rows * rows * BANDED_DH
+            mm[f"K10/{model}/{dtype_name(dt)}"] = row(
+                lambda: banded_packed_mm(q, k, v, joints=joints),
+                lambda: plain_banded_packed_mm(q, k, v, joints=joints),
+                lambda: torch.bmm(torch.bmm(qb, kb.transpose(1, 2)), vb),
+                3 * q.nbytes + q.numel() * 4, flops, dtype_name(dt), plain_runs=10)
+            del q, k, v, qb, kb, vb
+        del a, a4
+    out["tile_matmul"] = mm
+    torch.cuda.empty_cache()
+    emit("probe_timings", kernels=out,
+         note="library_ms, timed only: Tensor.copy_ into a preallocated tensor (stream), "
+              "permute(...).contiguous() (relayout; also its plain version), two torch.bmm "
+              "calls (tile products and K10; f32 sums, the operands' type out, so in bf16 "
+              "S and O are bf16)")
+    return out
+
+
+def probe_entry(name: str, replaces: str, launches: int, timings: dict, top: str,
+                errors: dict) -> dict:
+    """One entry of the kernels line for a probe kernel: the ``top`` case's
+    numbers at the top level, the others under their case."""
+    entry = {"name": name, "route": "cuda", "source": f"sl_hwgat_tpu_torch/csrc/{name}.cu",
+             "replaces": replaces, "launches": launches}
+    for case, t in timings.items():
+        if case == top:
+            entry.update(t, kernel_ms=t["ms"], max_abs_err=max(errors.values()))
+        else:
+            entry[case] = t
+    return entry
+
+
+STREAM_REPLACES = ("bench_kernel.py:450 (floor_copy, floor_slab, floor_pure*), :515 (tlay_copy), "
+                   ":593 (mix_floor), :685 (tmx_floor), :805 (tmq_floor), :951 (tsw_floor), "
+                   ":1045 (dmaflr_hbm), :1066 (dmaflr_3stream), :1090 (dmaflr_qkvpack), "
+                   ":1181 (xstrided_ref)")
+RELAYOUT_REPLACES = "bench_kernel.py:1138 (xrelay_s0pallas, xrelay_s2pallas), :1201 (xstrided_s0, xstrided_s2)"
+MATMUL_REPLACES = ("bench_kernel.py:381 (mm_*), :450 (floor_dot1slim, floor_bigm, floor_sn256), "
+                   ":515 (tlay_mm), :593 (mix_mm), :685 (tmx_mm), :805 (tmq_mm, tmq_bmm), "
+                   ":1248 (matmul_only, matmul_k128, matmul_only_bf16); "
+                   "sl_hwgat_tpu/ops/pallas_banded.py:395 (_fwd_kernel_packed_mm, K10)")
+FUSED_REPLACES = ("; bench_kernel.py:515 (tlay_fused), :593 (mix_fused), :685 (tmx_fused), "
+                  ":805 (tmq_fused, tmq_bfused), :951 (tsw_fused, tsw_bstack, tsw_1_fused), "
+                  ":1012 (lp_fused_bf16)")
+
+
 def kernel_entry(kind: str, name: str, replaces: str, launches: int, timings: dict,
                  errors: dict) -> dict:
     """One entry of the kernels line: HWGATE's f32 numbers at the top level
@@ -1642,16 +2069,22 @@ def main() -> int:
     for kind in ("fwd", "bwd"):
         timings[kind].update(windowed_timings["window_attention"][kind])
     phase_profile()
+    probe_errors = phase_probes()
+    bench_launches = phase_bench_path()
+    phase_bench_cli(repo)
+    probe_timings = phase_probe_timings()
 
-    from sl_hwgat_tpu_torch.ops import banded_attention, hybrid_attention, window_attention
+    from sl_hwgat_tpu_torch.ops import banded_attention, hybrid_attention, probes, window_attention
 
     # launches of the main paths: the serving bursts and the AdamW/SYNTH runs
     served, trained = windowed_serve_launches, windowed_train_launches
     fwd = kernel_entry("fwd", window_attention.KERNEL,
-                       "sl_hwgat_tpu/ops/pallas_attention.py:241 (_fwd_kernel)",
+                       "sl_hwgat_tpu/ops/pallas_attention.py:241 (_fwd_kernel)" + FUSED_REPLACES,
                        serve_launches + served["window_attention"], timings, fwd_errors)
     fwd["hgate_serve_launches"] = served["window_attention"]
     fwd["train_launches"] = train_launches["fwd"] + trained["window_attention"]
+    fwd["bench_launches"] = bench_launches[window_attention.KERNEL]
+    fwd["fused_probes_max_abs_err"] = max(probe_errors["fused"].values())
     bwd = kernel_entry("bwd", window_attention.KERNEL_BWD,
                        "sl_hwgat_tpu/ops/pallas_attention.py:295 (_bwd_kernel)",
                        train_launches["bwd"] + trained["window_attention_bwd"], timings,
@@ -1669,15 +2102,25 @@ def main() -> int:
                       "WGATE/float32")
     softmax_timings = windowed_timings["masked_softmax"]
     sfwd = case_entry("fwd", hybrid_attention.KERNEL,
-                      "sl_hwgat_tpu/ops/hybrid_attention.py:46 (_softmax_fwd_kernel)",
+                      "sl_hwgat_tpu/ops/hybrid_attention.py:46 (_softmax_fwd_kernel); "
+                      "bench_kernel.py:1285 (softmax_only)",
                       served["masked_softmax"], softmax_timings, softmax_fwd_errors,
                       "HWGATE/float32")
     sfwd["train_launches"] = trained["masked_softmax"]
+    sfwd["bench_launches"] = bench_launches[hybrid_attention.KERNEL]
+    sfwd["softmax_only_max_abs_err"] = probe_errors["softmax_only"]["softmax_only"]
     sbwd = case_entry("bwd", hybrid_attention.KERNEL_BWD,
                       "sl_hwgat_tpu/ops/hybrid_attention.py:61 (_softmax_bwd_kernel)",
                       trained["masked_softmax_bwd"], softmax_timings, softmax_bwd_errors,
                       "HWGATE/float32")
-    print(json.dumps({"kernels": [fwd, bwd, bfwd, bbwd, sfwd, sbwd]}), flush=True)
+    stream, relay, mm = probes.KERNELS
+    new = [probe_entry(stream, STREAM_REPLACES, bench_launches[stream],
+                       probe_timings[stream], "copy_bf16", probe_errors[stream]),
+           probe_entry(relay, RELAYOUT_REPLACES, bench_launches[relay],
+                       probe_timings[relay], "xrelay_s0_bf16", probe_errors[relay]),
+           probe_entry(mm, MATMUL_REPLACES, bench_launches[mm], probe_timings[mm],
+                       "matmul_only/float32", probe_errors[mm])]
+    print(json.dumps({"kernels": [fwd, bwd, bfwd, bbwd, sfwd, sbwd, *new]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,102 @@
+"""The headline kernel metric of the port: fused window attention, edges/s.
+
+    python -m sl_hwgat_tpu_torch.bench.run [--units N] [--device cpu]
+
+Counterpart of the kernel half of ``bench.py``: it starts
+``python -m sl_hwgat_tpu_torch.bench.kernel`` in a child process under a
+timeout for the window-attention kernel K1 with bf16 in and out
+(``pallas_obf16``), then a second child that times ``calib_shape_bf16``,
+the kernel's batched products through ``torch.bmm``. The last line of
+standard output is
+
+    {"metric": "fused_window_attention_edges_per_sec", "value": ...,
+     "unit": "edges/s", "vs_baseline": ..., "vs_calib": ...}
+
+``vs_baseline`` is the share of the H100 bound (``utils/profiling.py``) the
+kernel reaches (bound time over measured time); ``vs_calib`` is the
+calibration's time over the kernel's. ``bench.py`` falls back to the f32
+kernel; here every configuration runs the same K1, so there is no fallback:
+if either child prints no line, the run fails and prints no metric. The
+train-step and eval-step halves of ``bench.py`` are not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+CONFIG, IMPL, CALIB = "fused_bf16_obf16", "pallas_obf16", "calib_shape_bf16"
+UNITS = 12288
+CHILD_TIMEOUT_S = 600.0  # one child's build of the kernels and its measurement
+REPO_ROOT = Path(__file__).resolve().parents[2]
+
+
+def run_child(impl: str, units: int, device: str) -> dict | None:
+    """The JSON line of ``bench.kernel <impl> <units>``, or None (the
+    reason on standard error) if the child fails or times out."""
+    cmd = [sys.executable, "-m", "sl_hwgat_tpu_torch.bench.kernel", impl, str(units),
+           "--device", device]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(REPO_ROOT), env.get("PYTHONPATH")) if p)
+    try:
+        out = subprocess.run(cmd, capture_output=True, text=True, timeout=CHILD_TIMEOUT_S, env=env,
+                             cwd=REPO_ROOT)
+    except subprocess.TimeoutExpired:
+        print(f"# bench.run: {impl} timed out after {CHILD_TIMEOUT_S} s", file=sys.stderr)
+        return None
+    for line in reversed(out.stdout.splitlines()):
+        if line.startswith("{"):
+            try:
+                return json.loads(line)
+            except json.JSONDecodeError:
+                break
+    tail = out.stderr.strip().splitlines()[-3:]
+    print(f"# bench.run: {impl} failed (rc={out.returncode}): {tail}", file=sys.stderr)
+    return None
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--units", type=int, default=UNITS)
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    args = ap.parse_args(argv)
+    if args.device == "cuda":
+        import torch
+
+        if not torch.cuda.is_available():
+            print("bench.run: no CUDA device (pass --device cpu for host times)",
+                  file=sys.stderr)
+            return 1
+
+    rec = run_child(IMPL, args.units, args.device)
+    if rec is None:
+        print(f"bench.run: the kernel child ({IMPL}) printed no line", file=sys.stderr)
+        return 1
+    calib = run_child(CALIB, args.units, args.device)
+    if calib is None:
+        print("bench.run: the calibration child printed no line", file=sys.stderr)
+        return 1
+
+    seconds = rec["time_us"] / 1e6
+    print(f"# config={CONFIG} impl={IMPL} time={rec['time_us']:.1f}us "
+          f"[{rec['time_us_min']:.1f}, {rec['time_us_max']:.1f}] over {rec['n_repeats']} "
+          f"repeats, bound {rec['bound_us']:.1f}us ({rec['bound_by']}), calib "
+          f"{calib['time_us']:.1f}us, device {rec['device']}", file=sys.stderr)
+    print(json.dumps({
+        "metric": "fused_window_attention_edges_per_sec",
+        "value": rec["edges"] / seconds,
+        "unit": "edges/s",
+        "vs_baseline": rec["bound_us"] / rec["time_us"],
+        "vs_calib": calib["time_us"] / rec["time_us"],
+        "config": CONFIG,
+        "device": rec["device"],
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

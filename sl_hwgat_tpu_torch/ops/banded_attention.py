@@ -17,6 +17,13 @@ masks, cached on the device. Both kernels visit only the edges, which is
 exact wherever a row has one: the wrapper refuses a band with an edgeless
 row. ``banded_attention.launches`` and ``banded_attention_bwd.launches``
 count the two kernels' launches.
+
+``banded_packed_mm`` is the frame-packed kernel's product-only probe (K10,
+`sl_hwgat_tpu/ops/pallas_banded.py:395` ``_fwd_kernel_packed_mm``, reached
+there through ``PALLAS_BANDED_PACKED_MM=1``): per tile of 128/Vp frames, the
+two products of the attention with no scale, band, mask or softmax. It runs
+on the tile-product kernel (``ops/probes.py::tile_matmul``) and is forward
+only.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from sl_hwgat_tpu_torch.ops.attention import (
     banded_frame_attention_bwd,
     banded_frame_attention_k8,
 )
+from sl_hwgat_tpu_torch.ops.probes import plain_tile_matmul, tile_matmul
 
 KERNEL = "banded_attention_fwd"
 KERNEL_BWD = "banded_attention_bwd"
@@ -223,6 +231,58 @@ def plain_banded_attention_bwd(q, k, v, do, band, *, scale):
     grads = banded_frame_attention_bwd(*(_frames(t, band) for t in (q, k, v, do)), band,
                                        scale=scale)
     return tuple(g.reshape(q.shape) for g in grads)
+
+
+def packed_frames_per_tile(joints: int) -> int:
+    """Frames in one 128-lane tile of the JAX frame-packed layout: 128/Vp,
+    Vp the smallest of 8, 16, 32, 64, 128 that holds the joints
+    (`sl_hwgat_tpu/ops/pallas_banded.py:634-639`)."""
+    for vp in (8, 16, 32, 64, 128):
+        if joints <= vp:
+            return 128 // vp
+    raise ValueError(f"the frame-packed layout takes at most 128 joints, got {joints}")
+
+
+def _packed_tiles(q, k, v, joints: int):
+    if q.ndim != 3 or not (q.shape == k.shape == v.shape):
+        raise ValueError(f"q, k, v must share one (P, F·V, dh) shape, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError("q, k, v must share one dtype")
+    fpt = packed_frames_per_tile(joints)
+    planes, n, dh = q.shape
+    rows = fpt * joints
+    if n % rows:
+        raise ValueError(f"{n} tokens are not whole tiles of {fpt} frames × {joints} joints")
+    return tuple(x.reshape(planes, n // rows, rows, dh) for x in (q, k, v))
+
+
+def banded_packed_mm(q, k, v, *, joints: int, out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """K10 over (P, F·V, dh) planes: for every tile of 128/Vp frames (4 for
+    29 joints, 8 for 16), S = Q·Kᵀ (f32 sums, rounded to v's type), O = S·V
+    (f32 sums). Returns (P, F·V, dh) in ``out_dtype`` (default float32). The
+    JAX kernel keeps S transposed, (keys, queries)
+    (`pallas_banded.py:403-404`): the same entries. On CUDA tensors it
+    launches the tile-product kernel or raises; it has no gradient, and a
+    CUDA input that requires one raises."""
+    out_dtype = torch.float32 if out_dtype is None else out_dtype
+    tiles = _packed_tiles(q, k, v, joints)
+    if q.device.type == "cuda":
+        if any(t.requires_grad for t in (q, k, v)) and torch.is_grad_enabled():
+            raise RuntimeError("banded_packed_mm is forward only: its inputs must not "
+                               "require a gradient")
+        return tile_matmul(*tiles, out_dtype=out_dtype).reshape(q.shape)
+    if q.device.type != "cpu":
+        raise ValueError(f"banded_packed_mm runs on cuda or cpu, got {q.device}")
+    return plain_tile_matmul(*tiles, out_dtype=out_dtype).reshape(q.shape)
+
+
+def plain_banded_packed_mm(q, k, v, *, joints: int,
+                           out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The plain PyTorch version of ``banded_packed_mm``, on any device."""
+    out_dtype = torch.float32 if out_dtype is None else out_dtype
+    tiles = _packed_tiles(q, k, v, joints)
+    return plain_tile_matmul(*tiles, out_dtype=out_dtype).reshape(q.shape)
 
 
 banded_attention.launches = 0

@@ -177,6 +177,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference_package():
     assert out.returncode == 0, out.stderr
     seen = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("serve", "ops.window_attention", "ops.hybrid_attention", "models.hgate",
-                 "train.loop", "train.state", "train.losses", "data.dataset", "data.synthetic"):
+                 "train.loop", "train.state", "train.losses", "data.dataset", "data.synthetic",
+                 "ops.probes", "ops.layouts", "bench.kernel", "bench.run", "utils.profiling"):
         assert f"sl_hwgat_tpu_torch.{name}" in seen["modules"]
     assert seen["reference"] == [] and seen["jax"] == []
