@@ -6,12 +6,15 @@ Phases, each printing one JSON line (any failure ends the run non-zero):
 
 1. device   — the card (nvidia-smi name and power limit), torch and CUDA.
 2. build    — nvcc builds every CUDA source of the port (sm_90a) into build/,
-              one process per source, all at once.
+              one process per source, all at once; every instantiation of
+              the K1/K2 kernels for units of up to 64 tokens must take at
+              most 128 registers and spill nothing.
 3. kernel   — the forward window-attention kernel against its plain PyTorch
               version at the flagship shape (12288 units × 32 tokens × dh 64)
               and at HGATE's (3072 units × 58 tokens × dh 64, two units to a
-              64-token padded supertile): single and dual mask, prune off and
-              u = 0.3, f32 and bf16.
+              64-token padded supertile), and at 96 units of 17, 33, 48 and
+              64 tokens under seeded random adjacencies: single and dual
+              mask, prune off and u = 0.3, f32 and bf16.
 4. backward — the backward kernel against its plain version at the same shapes
               and cases, with a seeded output gradient; the autograd
               Function's gradients equal a direct call of the kernel.
@@ -76,7 +79,8 @@ Phases, each printing one JSON line (any failure ends the run non-zero):
 17. timings  — CUDA-event medians of every kernel, its plain version and its
               library yardstick (masked scaled_dot_product_attention, or
               torch.softmax over masked scores for K7; timed, never called by
-              the port); the hybrid attention against the fused kernels per
+              the port), at 58 tokens also the card's time of K1/K2 and of
+              the yardstick; the hybrid attention against the fused kernels per
               call; the eval forward and the train step of each model and
               path; a torch.profiler table of one eval forward and one train
               step of each.
@@ -90,8 +94,11 @@ Phases, each printing one JSON line (any failure ends the run non-zero):
               counts reset just before and read just after.
 19. bench    — python -m sl_hwgat_tpu_torch.bench.kernel <impl> for one entry
               of each family and K10 (one after another), then
-              python -m sl_hwgat_tpu_torch.bench.run; each prints its line.
-              Then kernel, plain, bound and library ms of the probe kernels.
+              python -m sl_hwgat_tpu_torch.bench.run; each prints its line,
+              and the run's vs_calib must be its paired child's ratio. Then
+              kernel, plain, bound and library ms of the probe kernels, and
+              library ms of the fused probes (masked SDPA) and softmax_only
+              (torch.softmax).
 
 The last lines are the kernels line, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -102,6 +109,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -137,6 +145,49 @@ def ms_bound(nbytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
     moves ``nbytes`` and does ``flops`` operations in ``dtype_name``."""
     seconds, by = h100_bound(nbytes, flops, dtype_name)
     return seconds * 1e3, by
+
+
+def ptxas_kernels(log: str) -> dict:
+    """{kernel: {"registers": n, "spill_bytes": stores + loads}} of every
+    entry function in nvcc's ``-Xptxas -v`` output."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)'?", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+# K1/K2 for units of up to 64 tokens: what the kernels line says of them
+WIDE_DESIGN = ("units of up to 64 tokens (HGATE's 58): one 4-warp block per unit, 16 query rows "
+               "a warp; scores and softmax on the mma.sync accumulator layout, shared by K1 and "
+               "K2 (window_attention_wide.cuh); scores as exact f32 FMA chains in the plain "
+               "GEMM's order in both types, only the kept ones where a row keeps at most 8 keys "
+               "(a compacted softmax); the other bf16 products on the tensor cores (mma.sync "
+               "m16n8k16, f32 sums, ldmatrix), f32 ones exact on the CUDA cores in register tiles")
+
+
+def wide_ptxas(report: dict) -> dict:
+    """ptxas's registers and spills of every wide K1/K2 instantiation built in
+    this run; fails unless each takes at most 128 registers and spills
+    nothing."""
+    wide = {name: r for src in ("window_attention_fwd", "window_attention_bwd") if src in report
+            for name, r in ptxas_kernels(report[src]["log"]).items() if "_wide_kernel" in name}
+    expected = 4 * ("window_attention_fwd" in report) + 2 * ("window_attention_bwd" in report)
+    if len(wide) != expected:
+        raise AssertionError(f"ptxas reported {len(wide)} wide K1/K2 kernels, not {expected}")
+    for name, r in wide.items():
+        if not (r.get("registers", 256) <= 128 and r.get("spill_bytes", 1) == 0):
+            raise AssertionError(f"{name}: {r} (at most 128 registers and no spills)")
+    return wide
 
 
 def emit(phase: str, **fields) -> None:
@@ -219,6 +270,50 @@ def attention_kwargs(dual: bool, prune_u, tail, model: str = "HWGATE"):
     return kw
 
 
+# Unit sizes that the wide K1/K2 kernels cut into 16-row strips otherwise
+# than HGATE's 58, checked beside it at WIDE_UNITS units each.
+WIDE_TOKENS, WIDE_UNITS = (17, 33, 48, 64), 96
+
+
+def wide_unit_masks(n: int):
+    """A seeded random symmetric (n, n) adjacency with self-loops, about 7
+    kept keys a row, so that some warps of the wide kernels take their
+    compacted path (rows of at most 8 keys) and others the dense one; and a
+    tail plane keeping a random symmetric part of it."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + n)
+    eye = np.eye(n, dtype=bool)
+    a = rng.random((n, n)) < 3.0 / n
+    adj = a | a.T | eye
+    t = rng.random((n, n)) < 0.5
+    return adj.astype(np.float32), (adj & (t | t.T | eye)).astype(np.float32)
+
+
+def wide_unit_cases(dtype):
+    """(case, q, k, v, dO, adj, kwargs) of the wide kernels at every
+    WIDE_TOKENS size, HGATE's arguments (two units to a 64-token padded
+    supertile): single and dual mask, prune off and u = 0.3."""
+    import torch
+
+    for n in WIDE_TOKENS:
+        adj, tail = wide_unit_masks(n)
+        g = torch.Generator(device="cuda").manual_seed(SEED + n)
+        q, k, v, do = (torch.randn(WIDE_UNITS, n, HEAD_DIM, generator=g, device="cuda")
+                       for _ in range(4))
+        q, k, v, do = q.to(dtype), k.to(dtype), (v * 0.2).to(dtype), do.to(dtype)
+        for dual in (False, True):
+            for prune_u in (None, 0.3):
+                kw = dict(scale=HEAD_DIM**-0.5, stack=2, pad_tokens=64)
+                if prune_u is not None:
+                    kw["prune_u"] = torch.full((1,), prune_u, device="cuda")
+                if dual:
+                    kw.update(tail_adj=tail, units_per_group=2, groups=4)
+                case = (f"HGATE/{dtype_name(dtype)}/n{n}/{'dual' if dual else 'single'}/"
+                        f"prune={prune_u}")
+                yield case, q, k, v, do, adj, kw
+
+
 def case_prefix(model: str) -> str:
     """The prefix of ``model``'s cases in the kernel phases' error keys."""
     return "" if model == "HWGATE" else f"{model}/"
@@ -245,10 +340,37 @@ def phase_kernel(model: str = "HWGATE"):
                 errors[case] = err
                 if not err <= TOL[name]:
                     raise AssertionError(f"kernel vs plain {case}: max abs err {err} > {TOL[name]}")
+        if model == "HGATE":
+            for case, q, k, v, _, adj_n, kw in wide_unit_cases(dtype):
+                got = window_attention(q, k, v, adj_n, out_dtype=dtype, **kw)
+                want = plain_window_attention(q, k, v, adj_n, out_dtype=dtype, **kw)
+                torch.cuda.synchronize()
+                errors[case] = err = (got.float() - want.float()).abs().max().item()
+                if not err <= TOL[name]:
+                    raise AssertionError(f"kernel vs plain {case}: max abs err {err} > {TOL[name]}")
     units, tokens, head_dim = WINDOW_SHAPE[model]
     emit("kernel", model=model, units=units, tokens=tokens, head_dim=head_dim, tolerance=TOL,
-         max_abs_err=errors)
+         unit_sizes=list(WIDE_TOKENS) if model == "HGATE" else None, max_abs_err=errors)
     return errors
+
+
+def check_gradients(detail: dict, case: str, got, want, dtype) -> float:
+    """Hold the kernel's (dq, dk, dv) against the plain version's at
+    BWD_TOL; record each max abs error under ``detail[case]``; return the
+    largest."""
+    import torch
+
+    torch.cuda.synchronize()
+    tol = BWD_TOL[dtype_name(dtype)]
+    detail[case] = {}
+    for grad, g, w in zip(("dq", "dk", "dv"), got, want):
+        diff = (g.float() - w.float()).abs()
+        excess = (diff - tol["atol"] - tol["rtol"] * w.float().abs()).max().item()
+        detail[case][grad] = diff.max().item()
+        if g.dtype != dtype or not excess <= 0:
+            raise AssertionError(f"backward kernel vs plain {case} {grad}: max abs "
+                                 f"err {detail[case][grad]} over {tol}")
+    return max(detail[case].values())
 
 
 def phase_backward(model: str = "HWGATE"):
@@ -266,23 +388,18 @@ def phase_backward(model: str = "HWGATE"):
         name = dtype_name(dtype)
         q, k, v = attention_inputs(dtype, model)
         do = output_grad(dtype, model)
-        tol = BWD_TOL[name]
         for dual in (False, True):
             for prune_u in (None, 0.3):
                 kw = attention_kwargs(dual, prune_u, tail, model)
                 got = window_attention_bwd(q, k, v, do, adj, **kw)
                 want = plain_window_attention_bwd(q, k, v, do, adj, **kw)
-                torch.cuda.synchronize()
                 case = f"{case_prefix(model)}{name}/{'dual' if dual else 'single'}/prune={prune_u}"
-                detail[case] = {}
-                for grad, g, w in zip(("dq", "dk", "dv"), got, want):
-                    diff = (g.float() - w.float()).abs()
-                    excess = (diff - tol["atol"] - tol["rtol"] * w.float().abs()).max().item()
-                    detail[case][grad] = diff.max().item()
-                    if g.dtype != dtype or not excess <= 0:
-                        raise AssertionError(f"backward kernel vs plain {case} {grad}: max abs "
-                                             f"err {detail[case][grad]} over {tol}")
-                errors[case] = max(detail[case].values())
+                errors[case] = check_gradients(detail, case, got, want, dtype)
+        if model == "HGATE":
+            for case, q, k, v, do, adj_n, kw in wide_unit_cases(dtype):
+                got = window_attention_bwd(q, k, v, do, adj_n, **kw)
+                want = plain_window_attention_bwd(q, k, v, do, adj_n, **kw)
+                errors[case] = check_gradients(detail, case, got, want, dtype)
     # the autograd Function's gradients are the kernel's
     q, k, v = (t.detach().requires_grad_() for t in attention_inputs(torch.float32, model))
     do = output_grad(torch.float32, model)
@@ -1201,19 +1318,28 @@ def phase_windowed_timings() -> dict:
                 for dual in (False, True):
                     dkw = attention_kwargs(dual, None, tail, model)
                     case = "dual" if dual else "single"
+                    def k1():
+                        return window_attention(q, k, v, adj, out_dtype=dtype, **dkw)
+
+                    def k2():
+                        return window_attention_bwd(q, k, v, do, adj, **dkw)
+
                     fwd[case] = {
-                        "ms": cuda_ms(lambda: window_attention(q, k, v, adj, out_dtype=dtype,
-                                                               **dkw)),
+                        "ms": cuda_ms(k1), "device_ms": device_seconds(k1) * 1e3,
                         "plain_ms": cuda_ms(lambda: plain_window_attention(
                             q, k, v, adj, out_dtype=dtype, **dkw), runs=10)}
                     bwd[case] = {
-                        "ms": cuda_ms(lambda: window_attention_bwd(q, k, v, do, adj, **dkw)),
+                        "ms": cuda_ms(k2), "device_ms": device_seconds(k2) * 1e3,
                         "plain_ms": cuda_ms(lambda: plain_window_attention_bwd(
                             q, k, v, do, adj, **dkw), runs=5)}
-                library = sdpa_ms(q, k, v, do, additive.to(dtype)[None, None])
-                for kind, cases, lib in (("fwd", fwd, library[0]), ("bwd", bwd, library[1])):
+                mask = additive.to(dtype)[None, None]
+                library = sdpa_ms(q, k, v, do, mask)
+                library_device = sdpa_ms(q, k, v, do, mask, timer=device_seconds)
+                for kind, cases, lib, lib_device in (("fwd", fwd, library[0], library_device[0]),
+                                                     ("bwd", bwd, library[1], library_device[1])):
                     bound_ms, bound_by = bound(kind, name, model)
-                    wide[kind][key] = {"cases": cases, "library_ms": lib, "bound_ms": bound_ms,
+                    wide[kind][key] = {"cases": cases, "library_ms": lib,
+                                       "library_device_ms": lib_device, "bound_ms": bound_ms,
                                        "bound_by": bound_by}
             # K7, single mask (the library call's function), with the library
             # yardstick: one softmax call over the already-masked scores, and
@@ -1261,7 +1387,10 @@ def phase_windowed_timings() -> dict:
     emit("windowed_timings", shapes={m: list(s) for m, s in WINDOW_SHAPE.items()},
          window_attention=wide, masked_softmax=softmax, hybrid_vs_fused=versus,
          note="K1/K2 library_ms: scaled_dot_product_attention per 58-token unit with the "
-              "adjacency as an additive mask (backward as fwd+bwd minus fwd); masked_softmax "
+              "adjacency as an additive mask (backward as fwd+bwd minus fwd); device_ms and "
+              "library_device_ms: the card's time with its queue kept full "
+              "(profiling.device_seconds), which the events' ms exceed where the wrapper's "
+              "host path outlasts the kernel; masked_softmax "
               "library_ms: torch.softmax over the already-masked f32 scores (backward: "
               "aten._softmax_backward_data of its output); timed only. hybrid_vs_fused: "
               "one attention call (dual mask, f32 output), forward and forward+backward")
@@ -1303,10 +1432,12 @@ def bound(kind: str, dtype_name: str, model: str = "HWGATE") -> tuple[float, str
 
 
 def sdpa_ms(q, k, v, do, mask, scale: float = HEAD_DIM**-0.5, runs: int = 30,
-            backends=None):
+            backends=None, timer=None):
     """(forward ms, backward ms) of masked scaled_dot_product_attention on the
     same units, the backward as (forward + backward) − forward. Timed only.
-    ``backends``: the SDPA backends it may use (default: PyTorch's choice)."""
+    ``backends``: the SDPA backends it may use (default: PyTorch's choice).
+    ``timer``: ``cuda_ms`` (the default, CUDA events around back-to-back
+    calls) or ``device_seconds`` (the card's time with its queue kept full)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import sdpa_kernel
@@ -1317,12 +1448,15 @@ def sdpa_ms(q, k, v, do, mask, scale: float = HEAD_DIM**-0.5, runs: int = 30,
     def fwd():
         return F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, scale=scale)
 
+    def ms(fn, n):
+        return cuda_ms(fn, runs=n) if timer is None else timer(fn) * 1e3
+
     with sdpa_kernel(backends) if backends else nullcontext():
         with torch.no_grad():
-            fwd_ms = cuda_ms(fwd, runs=runs)
-        grad_fwd_ms = cuda_ms(fwd, runs=runs)
-        both_ms = cuda_ms(lambda: torch.autograd.grad(fwd(), (qg, kg, vg), do4),
-                          runs=max(runs * 2 // 3, 5))
+            fwd_ms = ms(fwd, runs)
+        grad_fwd_ms = ms(fwd, runs)
+        both_ms = ms(lambda: torch.autograd.grad(fwd(), (qg, kg, vg), do4),
+                     max(runs * 2 // 3, 5))
     return fwd_ms, both_ms - grad_fwd_ms
 
 
@@ -1800,7 +1934,8 @@ def phase_bench_cli(repo: Path) -> dict:
     """Phase 19: ``python -m sl_hwgat_tpu_torch.bench.kernel <impl>`` for one
     entry of each family and K10, one child after another so that each has
     the card to itself, then ``python -m sl_hwgat_tpu_torch.bench.run``;
-    each must print its line, and the run's must come from ``pallas_obf16``."""
+    each must print its line, the run's must come from ``pallas_obf16``, and
+    its ``vs_calib`` must be the ``pair_tscore_bf16`` child's paired ratio."""
     lines = {}
     for impl in BENCH_CLI:
         proc = subprocess.run(
@@ -1824,7 +1959,18 @@ def phase_bench_cli(repo: Path) -> dict:
             raise AssertionError(f"bench.run: no {key} in {metric}")
     if metric["config"] != "fused_bf16_obf16":
         raise AssertionError(f"bench.run measured {metric['config']}, not fused_bf16_obf16")
-    emit("bench_cli", lines=lines, run=metric, run_note=run.stderr.strip().splitlines()[-1:])
+    # vs_calib is the paired child's median ratio, inside its [min, max]
+    note = run.stderr.strip().splitlines()[-1:]
+    paired = re.search(r"vs_calib (\S+) \[(\S+), (\S+)\] \(pair_tscore_bf16:", note[0] if note
+                       else "")
+    if paired is None:
+        raise AssertionError(f"bench.run named no paired calibration: {note}")
+    ratio, low, high = map(float, paired.groups())
+    if not (metric["vs_calib"] == ratio and low <= ratio <= high):
+        raise AssertionError(f"bench.run: vs_calib {metric['vs_calib']} is not the paired "
+                             f"child's ratio {ratio} [{low}, {high}]")
+    emit("bench_cli", lines=lines, run=metric, run_note=note,
+         vs_calib_from="pair_tscore_bf16", vs_calib_range=[low, high])
     return metric
 
 
@@ -1933,12 +2079,39 @@ def phase_probe_timings() -> dict:
             del q, k, v, qb, kb, vb
         del a, a4
     out["tile_matmul"] = mm
+    # library yardsticks of the fused probes (K1 between relayouts) and of
+    # softmax_only (K7), on their kernels' inputs: masked SDPA on the
+    # token-major q, k, v that the fused probes hand K1 (bf16 in and out),
+    # and torch.softmax over the masked [q_g | q_g] unit blocks that K7 reads
+    from sl_hwgat_tpu_torch.bench import kernel as bench
+    from sl_hwgat_tpu_torch.ops.attention import masked_scores, unit_allowed
+
+    d = bench.draws("tmq_fused", UNITS)
+    q, k, v = (torch.from_numpy(d[name]).cuda().to(bf16)[:, None] for name in "qkv")
+    adj = bench.window_adj()
+    additive = torch.where(torch.from_numpy(adj) != 0, 0.0, -1e4).cuda().to(bf16)[None, None]
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=additive,
+                                                                scale=bench.SCALE)
+
+    x3 = torch.from_numpy(d["q"]).cuda().reshape(-1, 128, HEAD_DIM)
+    blocks = torch.stack([x3[:, :TOKENS, :TOKENS], x3[:, TOKENS:2 * TOKENS, TOKENS:2 * TOKENS]],
+                         1).reshape(-1, TOKENS, TOKENS)
+    masked = masked_scores(blocks, unit_allowed(adj, None, None, blocks.shape[0], 2, "cuda"),
+                           zero_quirk=True, prune_u=None)
+    with torch.no_grad():
+        for probe, fn in (("fused", sdpa), ("softmax_only", lambda: torch.softmax(masked, -1))):
+            out[probe] = {"library_ms": cuda_ms(fn), "library_device_ms": device_seconds(fn) * 1e3}
+    del q, k, v, x3, blocks, masked
     torch.cuda.empty_cache()
     emit("probe_timings", kernels=out,
          note="library_ms, timed only: Tensor.copy_ into a preallocated tensor (stream), "
               "permute(...).contiguous() (relayout; also its plain version), two torch.bmm "
               "calls (tile products and K10; f32 sums, the operands' type out, so in bf16 "
-              "S and O are bf16)")
+              "S and O are bf16); fused: masked scaled_dot_product_attention on the fused "
+              "probes' token-major K1 inputs (bf16); softmax_only: torch.softmax over the "
+              "masked unit blocks that K7 reads")
     return out
 
 
@@ -1986,6 +2159,9 @@ def kernel_entry(kind: str, name: str, replaces: str, launches: int, timings: di
             "max_abs_err": max(e for c, e in errors.items() if c.startswith(dt)),
             "dual_mask_ms": dual["ms"], "dual_mask_plain_ms": dual["plain_ms"],
         }
+        if "device_ms" in single:
+            fields.update(device_ms=single["device_ms"], dual_mask_device_ms=dual["device_ms"],
+                          library_device_ms=t["library_device_ms"])
         if dt == "float32":
             entry.update(fields)
         else:
@@ -2042,6 +2218,8 @@ def main() -> int:
                       "ptxas": [ln.strip() for ln in r["log"].splitlines()
                                 if "registers" in ln or "spill" in ln]}
                   for n, r in report.items()})
+    wide_kernels = wide_ptxas(report)
+    emit("build_wide_kernels", ptxas=wide_kernels)
 
     fwd_errors = phase_kernel()
     bwd_errors = phase_backward()
@@ -2085,11 +2263,16 @@ def main() -> int:
     fwd["train_launches"] = train_launches["fwd"] + trained["window_attention"]
     fwd["bench_launches"] = bench_launches[window_attention.KERNEL]
     fwd["fused_probes_max_abs_err"] = max(probe_errors["fused"].values())
+    fwd["fused_probes_library"] = probe_timings["fused"]
+    fwd["wide_design"] = WIDE_DESIGN
+    fwd["wide_ptxas"] = {n: r for n, r in wide_kernels.items() if "fwd" in n}
     bwd = kernel_entry("bwd", window_attention.KERNEL_BWD,
                        "sl_hwgat_tpu/ops/pallas_attention.py:295 (_bwd_kernel)",
                        train_launches["bwd"] + trained["window_attention_bwd"], timings,
                        bwd_errors)
     bwd["hgate_train_launches"] = trained["window_attention_bwd"]
+    bwd["wide_design"] = WIDE_DESIGN
+    bwd["wide_ptxas"] = {n: r for n, r in wide_kernels.items() if "bwd" in n}
     bfwd = case_entry("fwd", banded_attention.KERNEL,
                       "sl_hwgat_tpu/ops/pallas_banded.py:408 (_fwd_kernel_packed); "
                       ":129 (_fwd_kernel)",
@@ -2109,6 +2292,7 @@ def main() -> int:
     sfwd["train_launches"] = trained["masked_softmax"]
     sfwd["bench_launches"] = bench_launches[hybrid_attention.KERNEL]
     sfwd["softmax_only_max_abs_err"] = probe_errors["softmax_only"]["softmax_only"]
+    sfwd["softmax_only_library"] = probe_timings["softmax_only"]
     sbwd = case_entry("bwd", hybrid_attention.KERNEL_BWD,
                       "sl_hwgat_tpu/ops/hybrid_attention.py:61 (_softmax_bwd_kernel)",
                       trained["masked_softmax_bwd"], softmax_timings, softmax_bwd_errors,

@@ -643,8 +643,9 @@ _BUILDERS = (
 )
 
 
-def inputs(impl: str, units: int = UNITS, *, device="cpu", tg: int | None = None) -> Probe:
-    """The probe of ``impl`` on ``device``: its chained input in the probe's
+def inputs(impl: str, units: int = UNITS, *, device="cuda", tg: int | None = None) -> Probe:
+    """The probe of ``impl`` on ``device`` (the card unless "cpu" is asked
+    for; without a card, "cuda" raises): its chained input in the probe's
     layout (``state``, equal to what ``bench_kernel.py`` chains), the call,
     and the call's work. ``tg``: the TPU block's tile count where the
     function depends on it (floor_bigm, tsw_floor; default 16, 8 for
@@ -655,8 +656,11 @@ def inputs(impl: str, units: int = UNITS, *, device="cpu", tg: int | None = None
         raise NotImplementedError(
             f"{impl}: the ELL sparse attention (ops/sparse_attention.py, no Pallas kernel) is "
             "not ported yet: ROADMAP.md queue 1 item 10")
-    d = draws(impl, units)
     dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the kernel bench's inputs live on the card "
+                           '(pass device="cpu" for host runs)')
+    d = draws(impl, units)
     for prefixes, build in _BUILDERS:
         if impl.startswith(prefixes):
             return build(impl, d, dev, tg)

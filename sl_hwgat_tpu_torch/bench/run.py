@@ -5,19 +5,24 @@
 Counterpart of the kernel half of ``bench.py``: it starts
 ``python -m sl_hwgat_tpu_torch.bench.kernel`` in a child process under a
 timeout for the window-attention kernel K1 with bf16 in and out
-(``pallas_obf16``), then a second child that times ``calib_shape_bf16``,
-the kernel's batched products through ``torch.bmm``. The last line of
+(``pallas_obf16``), then a second child for ``pair_tscore_bf16``, which
+times K1 on prepacked supertiles and its ``torch.bmm`` shape calibration in
+turns and gives the median of the per-pair ratios (``bench.py``'s paired
+estimator: two separate children drift apart by 10%). The last line of
 standard output is
 
     {"metric": "fused_window_attention_edges_per_sec", "value": ...,
      "unit": "edges/s", "vs_baseline": ..., "vs_calib": ...}
 
-``vs_baseline`` is the share of the H100 bound (``utils/profiling.py``) the
-kernel reaches (bound time over measured time); ``vs_calib`` is the
-calibration's time over the kernel's. ``bench.py`` falls back to the f32
-kernel; here every configuration runs the same K1, so there is no fallback:
-if either child prints no line, the run fails and prints no metric. The
-train-step and eval-step halves of ``bench.py`` are not ported yet.
+``value`` and ``vs_baseline`` (the share of the H100 bound,
+``utils/profiling.py``, the kernel reaches: bound time over measured time)
+come from the ``pallas_obf16`` child; ``vs_calib`` is the paired child's
+``ratio_vs_calib`` (calibration time over kernel time), with its
+``ratio_min``/``ratio_max`` on standard error. ``bench.py`` falls back to
+the f32 kernel; here every configuration runs the same K1, so no child
+falls back to another: if either prints no line, the run fails and prints
+no metric. The train-step and eval-step halves of ``bench.py`` are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-CONFIG, IMPL, CALIB = "fused_bf16_obf16", "pallas_obf16", "calib_shape_bf16"
+CONFIG, IMPL, PAIR = "fused_bf16_obf16", "pallas_obf16", "pair_tscore_bf16"
 UNITS = 12288
 CHILD_TIMEOUT_S = 600.0  # one child's build of the kernels and its measurement
 REPO_ROOT = Path(__file__).resolve().parents[2]
@@ -76,22 +81,24 @@ def main(argv=None) -> int:
     if rec is None:
         print(f"bench.run: the kernel child ({IMPL}) printed no line", file=sys.stderr)
         return 1
-    calib = run_child(CALIB, args.units, args.device)
-    if calib is None:
-        print("bench.run: the calibration child printed no line", file=sys.stderr)
+    pair = run_child(PAIR, args.units, args.device)
+    if pair is None:
+        print(f"bench.run: the paired calibration child ({PAIR}) printed no line",
+              file=sys.stderr)
         return 1
 
     seconds = rec["time_us"] / 1e6
     print(f"# config={CONFIG} impl={IMPL} time={rec['time_us']:.1f}us "
           f"[{rec['time_us_min']:.1f}, {rec['time_us_max']:.1f}] over {rec['n_repeats']} "
-          f"repeats, bound {rec['bound_us']:.1f}us ({rec['bound_by']}), calib "
-          f"{calib['time_us']:.1f}us, device {rec['device']}", file=sys.stderr)
+          f"repeats, bound {rec['bound_us']:.1f}us ({rec['bound_by']}), vs_calib "
+          f"{pair['ratio_vs_calib']} [{pair['ratio_min']}, {pair['ratio_max']}] ({PAIR}: "
+          f"calib {pair['calib_time_us']:.1f}us), device {rec['device']}", file=sys.stderr)
     print(json.dumps({
         "metric": "fused_window_attention_edges_per_sec",
         "value": rec["edges"] / seconds,
         "unit": "edges/s",
         "vs_baseline": rec["bound_us"] / rec["time_us"],
-        "vs_calib": calib["time_us"] / rec["time_us"],
+        "vs_calib": pair["ratio_vs_calib"],
         "config": CONFIG,
         "device": rec["device"],
     }), flush=True)

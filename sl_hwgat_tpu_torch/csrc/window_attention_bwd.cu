@@ -39,14 +39,24 @@
 // 228-242 registers, which fits only two blocks per SM, and the kernel is
 // slower for it.
 // Units of up to 64 tokens (window_attention_bwd_wide_kernel, HGATE's 58):
-// one block of 64 threads per unit, the same three phases with thread i
-// owning row i and then column i, one 34 KB buffer (K, then V, then the two
-// 64 x 64 tiles, whose rows the column phase reads four entries at a time),
-// block barriers between the phases. ptxas gives it 255 registers and spills
-// about 870 bytes per thread, so four blocks (8 warps) fit an SM: it is the
-// slow kernel of the set, far from its bound.
+// one block of 4 warps per unit; q, k, v and dO staged in shared memory by
+// cp.async beside the f32 score tiles of the forward (70 KB in bf16, 102 KB
+// in f32). Each warp recomputes A for its 16 query rows with the forward's
+// routine (window_attention_wide.cuh) and forms dA = dO V^T on the same
+// accumulator layout, then dS; after a block barrier the score tiles hold
+// T(A) and dS, each warp forms dQ = dS K for its rows and, after another,
+// dV = T(A)^T dO and dK = dS^T Q for key rows 16w .. 16w + 15. bf16 runs
+// these four products on the tensor cores (mma.sync m16n8k16, f32 sums; dS
+// passes to dQ in registers, the transposed products read the tiles by
+// ldmatrix.trans); f32 runs them as exact f32 products on the CUDA cores
+// (4 x 8 register tiles). The scores are f32 on the CUDA cores in both, as
+// the forward's.
+// Bound at HGATE's batch 16 (3072 units of 58 tokens): bytes in bf16, 160 MB
+// (48 us at 3.35 TB/s) against 6.6 GFLOP (7 us on the tensor cores);
+// operations in f32 (99 us on the CUDA cores) against 319 MB (95 us).
 
 #include "window_attention_common.cuh"
+#include "window_attention_wide.cuh"
 
 namespace {
 
@@ -180,68 +190,11 @@ window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   column_product<T, DH, false>(k + base, dst, dq + base, lane, scale);
 }
 
-// Row stride of the wide kernels' 64 x 64 tiles: 16-byte aligned rows, so
-// the products read four entries with one broadcast load (their row-wise
-// writes, once per entry, meet 4-way bank conflicts).
-constexpr int kWideStride = kWideN + 4;
-
-// Output rows a thread sums at once in the wide kernels' products: four
-// independent FMA chains, since few warps per SM leave a single chain's
-// latency unhidden.
-constexpr int kWideRows = 4;
-static_assert(kWideRows == 4, "the transposed product reads rows as float4");
-
-// out[r, t] = T(scale * sum_m tile(r, m) src[m, t]) for the unit's n rows,
-// tile(r, m) as in column_product; thread t owns column t (DH = 64). Tile
-// entries outside the unit's n x n block are 0, so the 16-byte reads may
-// run past n.
-template <typename T, bool kTranspose>
-__device__ __forceinline__ void wide_column_product(const T* __restrict__ src, const float* tile,
-                                                    T* __restrict__ out, int t, int n,
-                                                    float scale) {
-  constexpr int DH = 64;
-  float col[kWideN];
-#pragma unroll
-  for (int m = 0; m < kWideN; ++m) col[m] = m < n ? to_float(src[m * DH + t]) : 0.f;
-  for (int r = 0; r < n; r += kWideRows) {
-    float acc[kWideRows];
-#pragma unroll
-    for (int i = 0; i < kWideRows; ++i) acc[i] = 0.f;
-    if constexpr (kTranspose) {  // tile(m, r .. r + 3): one load per key row m
-#pragma unroll
-      for (int m = 0; m < kWideN; ++m) {
-        if (m < n) {
-          const float4 x = *reinterpret_cast<const float4*>(tile + m * kWideStride + r);
-          acc[0] = fmaf(x.x, col[m], acc[0]);
-          acc[1] = fmaf(x.y, col[m], acc[1]);
-          acc[2] = fmaf(x.z, col[m], acc[2]);
-          acc[3] = fmaf(x.w, col[m], acc[3]);
-        }
-      }
-    } else {  // tile(r + i, m .. m + 3): one load per row and four keys
-#pragma unroll
-      for (int m = 0; m < kWideN; m += 4) {
-        if (m < n) {
-#pragma unroll
-          for (int i = 0; i < kWideRows; ++i) {
-            const float4 x = *reinterpret_cast<const float4*>(tile + (r + i) * kWideStride + m);
-            acc[i] = fmaf(x.x, col[m], acc[i]);
-            acc[i] = fmaf(x.y, col[m + 1], acc[i]);
-            acc[i] = fmaf(x.z, col[m + 2], acc[i]);
-            acc[i] = fmaf(x.w, col[m + 3], acc[i]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kWideRows; ++i)
-      if (r + i < n) out[(r + i) * DH + t] = from_float<T>(acc[i] * scale);
-  }
-}
-
-// Units of n <= kWideN tokens, DH = 64: one block of kWideN threads per unit.
+// Units of n <= 64 tokens, DH = 64: one block of wide::kThreads per unit,
+// warp w on query rows 16w .. 16w + 15 for A, dA, dS and dQ, then on key
+// rows 16w .. 16w + 15 for dV and dK (window_attention_wide.cuh).
 template <typename T>
-__global__ void __launch_bounds__(kWideN)
+__global__ void __launch_bounds__(wide::kThreads, wide::kMinBlocks)
 window_attention_bwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                  const T* __restrict__ v, const T* __restrict__ dout,
                                  T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
@@ -249,90 +202,100 @@ window_attention_bwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ 
                                  const int* __restrict__ sel, const float* __restrict__ prune_u,
                                  int n, float scale, int zero_quirk, int dual, int stack,
                                  int per_group, int groups, long long unit_offset) {
-  constexpr int DH = 64;
-  constexpr int kEpv = 16 / sizeof(T);
-  // K, then V (n x DH each), then the two tiles (64 x kWideStride each)
-  __shared__ __align__(16) float smem[2 * kWideN * kWideStride];
+  using namespace wide;
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  T* qs = reinterpret_cast<T*>(wide_smem);
+  T* ks = qs + kTileElems<T>;
+  T* vs = ks + kTileElems<T>;
+  T* dos = vs + kTileElems<T>;
+  // The f32 score tiles, then (once every warp has its scores) the T(A) and
+  // dS tiles, query rows x keys.
+  float* qf = reinterpret_cast<float*>(dos + kTileElems<T>);
+  float* kf = qf + kTileElems<float>;
+  T* at = reinterpret_cast<T*>(qf);
+  T* dst = at + kTileElems<T>;
 
-  const int t = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, r0 = (tid >> 5) * 16;
   const long long unit = blockIdx.x;
-  const long long base = unit * n * DH;
-  const long long row = base + static_cast<long long>(t) * DH;
-
-  // Row phase: scores, prune, mask and softmax of row t, as the forward.
-  stage_rows<T, DH, kWideN>(k + base, smem, t, n);
+  const long long base = unit * n * kDH;
+  stage_tile(q + base, qs, n, tid);
+  stage_tile(k + base, ks, n, tid);
+  stage_tile(v + base, vs, n, tid);
+  stage_tile(dout + base, dos, n, tid);
+  stage_f32(q + base, qf, n, tid, round_to<T>(scale));
+  stage_f32(k + base, kf, n, tid, 1.f);
+  cp_async_wait_all();
   __syncthreads();
-  float a[kWideN];
-  unsigned long long pass = 0ull;
-  if (t < n) {
-    float qr[DH];
-    load_scaled_row<T, DH>(q + row, scale, qr);
-    const auto allowed_row = [&] {
-      return masks[mask_plane(unit, dual, sel, stack, per_group, groups, unit_offset) * n + t];
+
+  const bool active = r0 < n;  // warp-uniform
+  float a[8][4], ds[8][4];
+  if (active) {
+    // A and its pass bits, recomputed as the forward computes them.
+    const auto allowed_row = [&](int row) {
+      return masks[mask_plane(unit, dual, sel, stack, per_group, groups, unit_offset) * n + row];
     };
-    float sum;
-    pass = attention_row<kWideN, DH>(qr, smem, n, prune_u, allowed_row, zero_quirk, a, sum);
+    const uint32_t pass = strip_attention(qf, kf, r0, lane, n, prune_u, allowed_row, zero_quirk, a);
+    // dA = dO V^T on the same layout, then dS = T(A o (dA - rowsum(dA o A)) o pass).
+    strip_abt(dos, vs, r0, lane, ds);
 #pragma unroll
-    for (int j = 0; j < kWideN; ++j) a[j] = a[j] / sum;
-  } else {
+    for (int h = 0; h < 2; ++h) {
+      float rowsum = 0.f;
 #pragma unroll
-    for (int j = 0; j < kWideN; ++j) a[j] = 0.f;
-  }
-  __syncthreads();  // K is dead in every thread
-
-  // dA row t = dO row t . V rows (V rows are broadcasts), then dS in place.
-  stage_rows<T, DH, kWideN>(v + base, smem, t, n);
-  __syncthreads();
-  float ds[kWideN];
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-  for (int j = 0; j < kWideN; ++j) ds[j] = 0.f;
-  if (t < n) {
+        for (int e = 0; e < 2; ++e) rowsum += ds[j][2 * h + e] * a[j][2 * h + e];
+      rowsum = quad_sum(rowsum);
 #pragma unroll
-    for (int h = 0; h < DH; h += 32) {
-      float dor[32];
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int c = 0; c < 32 / kEpv; ++c) load16(dout + row + h + c * kEpv, dor + c * kEpv);
-#pragma unroll
-      for (int j = 0; j < kWideN; ++j) {
-        if (j < n) {
-          const float4* vr = reinterpret_cast<const float4*>(smem + j * DH + h);
-          float acc = ds[j];
-#pragma unroll
-          for (int d4 = 0; d4 < 8; ++d4) {
-            const float4 vv = vr[d4];
-            acc = fmaf(dor[4 * d4], vv.x, acc);
-            acc = fmaf(dor[4 * d4 + 1], vv.y, acc);
-            acc = fmaf(dor[4 * d4 + 2], vv.z, acc);
-            acc = fmaf(dor[4 * d4 + 3], vv.w, acc);
-          }
-          ds[j] = acc;
+        for (int e = 0; e < 2; ++e) {
+          const float g = a[j][2 * h + e] * (ds[j][2 * h + e] - rowsum);
+          ds[j][2 * h + e] = round_to<T>(((pass >> (4 * j + 2 * h + e)) & 1u) ? g : 0.f);
         }
-      }
-    }
-    float rowsum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kWideN; ++j) rowsum += ds[j] * a[j];
-#pragma unroll
-    for (int j = 0; j < kWideN; ++j) {
-      const float g = a[j] * (ds[j] - rowsum);
-      ds[j] = round_to<T>(((pass >> j) & 1ull) ? g : 0.f);
     }
   }
-  __syncthreads();  // V is dead in every thread
+  __syncthreads();  // the score tiles are dead in every warp
 
-  // T(A) and dS into their tiles (zero outside the unit's n x n block).
-  float* at = smem;
-  float* dst = smem + kWideN * kWideStride;
-#pragma unroll
-  for (int j = 0; j < kWideN; ++j) {
-    at[t * kWideStride + j] = round_to<T>(a[j]);
-    dst[t * kWideStride + j] = ds[j];
+  if (active) {
+    write_strip(at, a, r0, lane);
+    write_strip(dst, ds, r0, lane);
+    // dQ = T((dS K) * scale) for the warp's own query rows.
+    if constexpr (kTensorCores<T>) {
+      uint32_t p[4][4];
+      to_a_operand(ds, p);
+      float acc[8][4];
+      strip_ab(p, ks, lane, acc);
+      store_strip(dq + base, acc, r0, lane, n, scale);
+    } else {
+      __syncwarp();
+      float acc[4][8];
+      tile_product<false>(dst, ks, r0, lane, acc);
+      store_tile<false>(dq + base, acc, r0, lane, n, scale);
+    }
+  } else {  // rows past the unit: zeros in both tiles
+    for (int i = lane; i < 16 * kDH; i += 32) {
+      const int idx = (r0 + i / kDH) * kStride<T> + i % kDH;
+      at[idx] = from_float<T>(0.f);
+      dst[idx] = from_float<T>(0.f);
+    }
   }
-  __syncthreads();
+  __syncthreads();  // both tiles complete
 
-  wide_column_product<T, true>(dout + base, at, dv + base, t, n, 1.f);
-  wide_column_product<T, true>(q + base, dst, dk + base, t, n, scale);
-  wide_column_product<T, false>(k + base, dst, dq + base, t, n, scale);
+  // dV = T(A)^T dO and dK = T((dS^T Q) * scale) for key rows r0 .. r0 + 15.
+  if (!active) return;
+  if constexpr (kTensorCores<T>) {
+    float acc[8][4];
+    strip_atb(at, dos, r0, lane, acc);
+    store_strip(dv + base, acc, r0, lane, n, 1.f);
+    strip_atb(dst, qs, r0, lane, acc);
+    store_strip(dk + base, acc, r0, lane, n, scale);
+  } else {
+    float acc[4][8];
+    tile_product<true>(at, dos, r0, lane, acc);
+    store_tile<true>(dv + base, acc, r0, lane, n, 1.f);
+    tile_product<true>(dst, qs, r0, lane, acc);
+    store_tile<true>(dk + base, acc, r0, lane, n, scale);
+  }
 }
 
 struct Args {
@@ -356,11 +319,19 @@ cudaError_t launch(const Args& a) {
 
 template <typename T>
 cudaError_t launch_wide(const Args& a) {
-  window_attention_bwd_wide_kernel<T><<<static_cast<unsigned>(a.units), kWideN, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), static_cast<T*>(a.dq), static_cast<T*>(a.dk),
-      static_cast<T*>(a.dv), static_cast<const unsigned long long*>(a.masks), a.sel, a.prune_u,
-      a.tokens, a.scale, a.zero_quirk, a.dual, a.stack, a.per_group, a.groups, a.unit_offset);
+  constexpr int kBytes = 4 * wide::kTileElems<T> * static_cast<int>(sizeof(T)) +
+                         2 * wide::kTileElems<float> * static_cast<int>(sizeof(float));
+  if (a.units > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      window_attention_bwd_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  if (err != cudaSuccess) return err;
+  window_attention_bwd_wide_kernel<T>
+      <<<static_cast<unsigned>(a.units), wide::kThreads, kBytes, a.stream>>>(
+          static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+          static_cast<const T*>(a.dout), static_cast<T*>(a.dq), static_cast<T*>(a.dk),
+          static_cast<T*>(a.dv), static_cast<const unsigned long long*>(a.masks), a.sel,
+          a.prune_u, a.tokens, a.scale, a.zero_quirk, a.dual, a.stack, a.per_group, a.groups,
+          a.unit_offset);
   return cudaGetLastError();
 }
 

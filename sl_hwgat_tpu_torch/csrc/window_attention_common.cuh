@@ -8,11 +8,11 @@
 //
 // Layout: token-major (U, n, DH) in T = float or __nv_bfloat16. Units of
 // kN = 32 tokens run one warp per unit (lane i owns query row i, DH 32 or
-// 64); units of up to kWideN = 64 tokens (HGATE: 58) run one block of 64
-// threads per unit (thread i owns query row i, DH 64). The row code below is
-// written once for both: templated on the unit's capacity, with the unit's
-// token count n (== kN for 32-token units, where the guards fold away) and
-// 32- or 64-bit row bitmasks.
+// 64). The row code below is templated on the unit's capacity, with the
+// unit's token count n (== kN here, where the guards fold away) and 32- or
+// 64-bit row bitmasks. Units of up to kWideN = 64 tokens (HGATE: 58, DH 64)
+// run the tiled kernels of window_attention_wide.cuh, whose shared routine
+// (strip_attention) plays this header's part for them.
 
 #pragma once
 

@@ -27,22 +27,32 @@
 // i.e. 60 us at 3.35 TB/s, against 3.2 GFLOP (3 us on the bf16 tensor cores).
 // The design keeps everything except q/k/v/o on chip: scores, both softmaxes
 // and the masks live in registers and shared memory, and each input byte is
-// read from device memory once, with 16-byte loads. The products run on the
-// CUDA cores in f32 (no wgmma, no TMA yet), which a later change replaces.
+// read from device memory once, with 16-byte loads. The 32-token kernel's
+// products run on the CUDA cores in f32.
 //
 // Work split, 32-token units: one warp per unit, kWarps units per block,
 // no block-wide barriers. Lane i owns query row i for the scores and both
 // softmaxes; for A V lane d owns output columns d (and d + 32), so the stores
-// coalesce.
-// Units of up to 64 tokens (window_attention_fwd_wide_kernel): one block of
-// 64 threads per unit, thread i owning query row i, then output column i;
-// K and then the probability tile share one 17 KB shared buffer. The
-// TPU kernel pads HGATE's 58 tokens to 64 and stacks two units; here the
+// coalesce. The score/prune/mask/softmax code of these units is in
+// window_attention_common.cuh, shared with the backward kernel, which
+// recomputes A from it bit for bit.
+// Units of up to 64 tokens (window_attention_fwd_wide_kernel, HGATE's 58):
+// one block of 4 warps per unit, each on 16 query rows; the scaled q and k
+// staged in shared memory as f32 tiles, v by cp.async (43 KB in bf16, 51 KB
+// in f32); scores and softmax on the mma.sync accumulator layout
+// (window_attention_wide.cuh, shared with the backward). The scores are
+// exact f32 products summed in the plain version's order on the CUDA cores,
+// in both types; bf16 runs O = A V on the tensor cores (mma.sync m16n8k16,
+// f32 sums), A passing from the accumulators to the A operand in registers;
+// f32 runs A V as exact f32 products on the CUDA cores, in 4 x 8 register
+// tiles over A written to the warp's own rows of the q tile.
+// The TPU kernel pads HGATE's 58 tokens to 64 and stacks two units; here the
 // padded keys simply do not exist (no weight, no part in either softmax).
-// The score/prune/mask/softmax code is in window_attention_common.cuh, shared
-// with the backward kernel, which recomputes A from it bit for bit.
+// Bound at HGATE's batch 16 (3072 units of 58 tokens): bytes, 91 MB in bf16
+// (27 us at 3.35 TB/s) against 2.6 GFLOP (3 us on the bf16 tensor cores).
 
 #include "window_attention_common.cuh"
+#include "window_attention_wide.cuh"
 
 namespace {
 
@@ -116,70 +126,52 @@ window_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// Units of n <= kWideN tokens, DH = 64: one block of kWideN threads per unit.
+// Units of n <= 64 tokens, DH = 64: one block of wide::kThreads per unit,
+// warp w on query rows 16w .. 16w + 15 (window_attention_wide.cuh).
 template <typename T, typename TO>
-__global__ void __launch_bounds__(kWideN)
+__global__ void __launch_bounds__(wide::kThreads, wide::kMinBlocks)
 window_attention_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                  const T* __restrict__ v, TO* __restrict__ o,
                                  const unsigned long long* __restrict__ masks,
                                  const int* __restrict__ sel, const float* __restrict__ prune_u,
                                  int n, float scale, int zero_quirk, int dual, int stack,
                                  int per_group, int groups, long long unit_offset) {
-  constexpr int DH = 64;
-  // Row stride of the probability tile: 16-byte aligned rows, read four
-  // entries at a time (the row-wise writes meet 4-way bank conflicts, once).
-  constexpr int kPStride = kWideN + 4;
-  __shared__ __align__(16) float scratch[kWideN * kPStride];  // K, then the tile
+  using namespace wide;
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  float* qs = reinterpret_cast<float*>(wide_smem);  // q * T(scale); f32: then A
+  float* ks = qs + kTileElems<float>;
+  T* vs = reinterpret_cast<T*>(ks + kTileElems<float>);
 
-  const int t = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, r0 = (tid >> 5) * 16;
   const long long unit = blockIdx.x;
-  const long long base = unit * n * DH;
-
-  stage_rows<T, DH, kWideN>(k + base, scratch, t, n);
+  const long long base = unit * n * kDH;
+  stage_tile(v + base, vs, n, tid);
+  stage_f32(q + base, qs, n, tid, round_to<T>(scale));
+  stage_f32(k + base, ks, n, tid, 1.f);
+  cp_async_wait_all();
   __syncthreads();
+  if (r0 >= n) return;  // rows past the unit: no barrier follows
 
-  float e[kWideN], sum = 1.f;
-  if (t < n) {
-    float qr[DH];
-    load_scaled_row<T, DH>(q + base + static_cast<long long>(t) * DH, scale, qr);
-    const auto allowed_row = [&] {
-      return masks[mask_plane(unit, dual, sel, stack, per_group, groups, unit_offset) * n + t];
-    };
-    attention_row<kWideN, DH>(qr, scratch, n, prune_u, allowed_row, zero_quirk, e, sum);
-  }
-  __syncthreads();  // K is dead in every thread
-#pragma unroll
-  for (int j = 0; j < kWideN; ++j)  // zero outside the unit's n x n block
-    scratch[t * kPStride + j] = t < n && j < n ? round_to<T>(e[j] / sum) : 0.f;
-  __syncthreads();
-
-  // O = A V: thread t owns output column t; probability rows are broadcasts,
-  // four entries a load, kRows rows at once (independent FMA chains: few
-  // warps per SM leave a single chain's latency unhidden).
-  constexpr int kRows = 4;
-  float vr[kWideN];
-#pragma unroll
-  for (int j = 0; j < kWideN; ++j) vr[j] = j < n ? to_float(v[base + j * DH + t]) : 0.f;
-  for (int i = 0; i < n; i += kRows) {
-    float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kWideN; j += 4) {
-      if (j < n) {
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float4 p = *reinterpret_cast<const float4*>(scratch + (i + r) * kPStride + j);
-          acc[r] = fmaf(p.x, vr[j], acc[r]);
-          acc[r] = fmaf(p.y, vr[j + 1], acc[r]);
-          acc[r] = fmaf(p.z, vr[j + 2], acc[r]);
-          acc[r] = fmaf(p.w, vr[j + 3], acc[r]);
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      if (i + r < n) o[base + (i + r) * DH + t] = from_float<TO>(acc[r]);
+  const auto allowed_row = [&](int row) {
+    return masks[mask_plane(unit, dual, sel, stack, per_group, groups, unit_offset) * n + row];
+  };
+  float s[8][4];
+  strip_attention(qs, ks, r0, lane, n, prune_u, allowed_row, zero_quirk, s);
+  if constexpr (kTensorCores<T>) {
+    // A rounded to bf16 in registers, fed back as the A operand of A V.
+    uint32_t p[4][4];
+    to_a_operand(s, p);
+    float acc[8][4];
+    strip_ab(p, vs, lane, acc);
+    store_strip(o + base, acc, r0, lane, n, 1.f);
+  } else {
+    // A into the warp's own rows of the q tile, then A V in register tiles.
+    __syncwarp();
+    write_strip(qs, s, r0, lane);
+    __syncwarp();
+    float acc[4][8];
+    tile_product<false>(qs, vs, r0, lane, acc);
+    store_tile<false>(o + base, acc, r0, lane, n, 1.f);
   }
 }
 
@@ -202,10 +194,18 @@ cudaError_t launch(const Args& a) {
 
 template <typename T, typename TO>
 cudaError_t launch_wide(const Args& a) {
-  window_attention_fwd_wide_kernel<T, TO><<<static_cast<unsigned>(a.units), kWideN, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<TO*>(a.o), static_cast<const unsigned long long*>(a.masks), a.sel, a.prune_u,
-      a.tokens, a.scale, a.zero_quirk, a.dual, a.stack, a.per_group, a.groups, a.unit_offset);
+  constexpr int kBytes = 2 * wide::kTileElems<float> * static_cast<int>(sizeof(float)) +
+                         wide::kTileElems<T> * static_cast<int>(sizeof(T));
+  if (a.units > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      window_attention_fwd_wide_kernel<T, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  if (err != cudaSuccess) return err;
+  window_attention_fwd_wide_kernel<T, TO>
+      <<<static_cast<unsigned>(a.units), wide::kThreads, kBytes, a.stream>>>(
+          static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+          static_cast<TO*>(a.o), static_cast<const unsigned long long*>(a.masks), a.sel,
+          a.prune_u, a.tokens, a.scale, a.zero_quirk, a.dual, a.stack, a.per_group, a.groups,
+          a.unit_offset);
   return cudaGetLastError();
 }
 
