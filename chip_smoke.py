@@ -8,7 +8,8 @@ Phases, each printing one JSON line (any failure ends the run non-zero):
 2. build    — nvcc builds every CUDA source of the port (sm_90a) into build/,
               one process per source, all at once; every instantiation of
               the K1/K2 kernels for units of up to 64 tokens must take at
-              most 128 registers and spill nothing.
+              most 128 registers and spill nothing, and no instantiation of
+              K7's forward or K8's backward may spill.
 3. kernel   — the forward window-attention kernel against its plain PyTorch
               version at the flagship shape (12288 units × 32 tokens × dh 64)
               and at HGATE's (3072 units × 58 tokens × dh 64, two units to a
@@ -41,8 +42,9 @@ Phases, each printing one JSON line (any failure ends the run non-zero):
               versions at WGATE's (512 planes × 192 frames × 16 joints) and
               GATE's (128 × 192 × 29) batch-16 shapes, dh 16, f32 and bf16,
               under the models' identity ±1-frame band and under a
-              non-diagonal band (the spatial plane as prev/next); the
-              autograd Function's gradients equal a direct backward call.
+              non-diagonal band (the spatial plane as prev/next), a second
+              backward call equal to the first bit for bit; the autograd
+              Function's gradients equal a direct backward call.
 10. banded forward — WGATE and GATE at FDMSE-ISL (192 frames, 2002 classes,
               embed 128, 8 blocks, 8 heads), batch 16, f32 and bf16: logits
               through the kernel against the plain attention, 8 launches per
@@ -64,6 +66,12 @@ Phases, each printing one JSON line (any failure ends the run non-zero):
               off and 0.3 (HWGATE), P in f32 and bf16; the hybrid attention
               through K7 against the fused kernel (one function); the
               autograd Function's gradient equals a direct backward call.
+    edge cases — the banded kernels under a full band (V = 32, 96 edges a
+              row, 64 planes × 37 frames: not a multiple of the 4 frames a
+              block) and at GATE's 29 joints in one-frame clips, the backward
+              repeating bit for bit; K7 forward and backward at 37 units of
+              58 and of 33 tokens (stack 1), dual mask through a seeded sel,
+              prune 0.3; f32 and bf16, the bars above.
 14. windowed forward — HWGATE with attn_impl="hybrid", and HGATE on its
               default (K1/K2 at 58 tokens) and hybrid paths, at FDMSE-ISL,
               batch 16, f32 and bf16: logits against the plain path, 8
@@ -79,11 +87,12 @@ Phases, each printing one JSON line (any failure ends the run non-zero):
 17. timings  — CUDA-event medians of every kernel, its plain version and its
               library yardstick (masked scaled_dot_product_attention, or
               torch.softmax over masked scores for K7; timed, never called by
-              the port), at 58 tokens also the card's time of K1/K2 and of
-              the yardstick; the hybrid attention against the fused kernels per
-              call; the eval forward and the train step of each model and
-              path; a torch.profiler table of one eval forward and one train
-              step of each.
+              the port), for K1/K2 at 58 tokens, K7 and K8/K9 also the card's
+              time of the kernel and of the yardstick; the hybrid attention
+              against the fused kernels per call; the eval forward and the
+              train step of each model and path; a torch.profiler table of
+              one eval forward and one train step of each (annotated ranges
+              left out).
 18. probes   — the kernel bench's three probe kernels (stream_probe,
               relayout, tile_matmul) against their plain versions at the
               bench's shapes (12288 units × 32 × 64), f32 and bf16, every mode
@@ -107,6 +116,7 @@ package beside this script, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import re
@@ -148,8 +158,9 @@ def ms_bound(nbytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
 
 
 def ptxas_kernels(log: str) -> dict:
-    """{kernel: {"registers": n, "spill_bytes": stores + loads}} of every
-    entry function in nvcc's ``-Xptxas -v`` output."""
+    """{kernel: {"registers": n, "spill_bytes": stores + loads,
+    "static_smem_bytes": n}} of every entry function in nvcc's ``-Xptxas -v``
+    output."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)'?", line)
@@ -163,6 +174,9 @@ def ptxas_kernels(log: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             out[name]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m and name:
+            out[name]["static_smem_bytes"] = int(m.group(1))
     return out
 
 
@@ -188,6 +202,78 @@ def wide_ptxas(report: dict) -> dict:
         if not (r.get("registers", 256) <= 128 and r.get("spill_bytes", 1) == 0):
             raise AssertionError(f"{name}: {r} (at most 128 registers and no spills)")
     return wide
+
+
+# the kernels redesigned last, K7's forward and K8's backward: their sources
+# and what the kernels line says of their design. The build phase fails if
+# any of their instantiations spills.
+REDESIGNED = {
+    "masked_softmax_fwd": (
+        "a row per 8 lanes (16 for n > 32), four columns a lane by a map n alone fixes "
+        "(4l..4l+3 for n % 4 == 0; pairs 2l, 2l+1 and 2l+2L, 2l+2L+1 for other even n, "
+        "HGATE's 58-float rows being only 8-byte aligned; l + Lc for odd n), so a warp works "
+        "4 (2) rows at once and a lane moves 16 (8) bytes an access; reductions over the "
+        "lane's columns, then 3 (4) xor-shuffle steps; P = exp times one reciprocal of the "
+        "sum; a block of 8 warps takes 128/n whole units and looks up each unit's mask plane "
+        "once. The row routine (masked_softmax_common.cuh) is K7's backward's too, which "
+        "recomputes A through it"),
+    "banded_attention_bwd": (
+        "a block of ceil((128/V + 2)·V / 32) warps owns 128/V frames of a plane: q, dO of its "
+        "frames ±1 and k, v of its frames ±2 staged in q's type by cp.async, 16-byte chunks "
+        "swizzled per row (no bank conflicts for 8 consecutive rows); row phase, one thread "
+        "per staged query row in one round: each edge's score and dP once, A and dS cached "
+        "in shared memory by edge rank (f32 dots in d order on the CUDA cores, max then sum "
+        "in (plane, joint) order as the forward), dQ of its own rows; column phase: dK then "
+        "dV of each own key row gathered from the cache (no atomics); rows with more edges "
+        "than the cache's 32 recompute the rest from the kept (max, sum, D)"),
+}
+
+
+def redesigned_ptxas(report: dict) -> dict:
+    """{source: ptxas's registers, spills and static shared memory of each
+    instantiation} of the REDESIGNED sources built in this run; fails on a
+    spill."""
+    out = {src: ptxas_kernels(report[src]["log"]) for src in REDESIGNED if src in report}
+    for src, kernels in out.items():
+        if not kernels:
+            raise AssertionError(f"ptxas reported no kernel of {src}")
+        for name, r in kernels.items():
+            if r.get("spill_bytes", 1) != 0:
+                raise AssertionError(f"{src}: {name} spills: {r}")
+    return out
+
+
+def redesigned_blocks() -> dict:
+    """{source: {case: ...}}: one block of each REDESIGNED kernel at the main
+    paths' shapes, as its launcher sizes it: K7's units and threads, K8's
+    dynamic shared memory and threads (under each model's band and the
+    non-diagonal one)."""
+    import ctypes
+
+    from sl_hwgat_tpu_torch.ops import _build
+    from sl_hwgat_tpu_torch.ops.banded_attention import edges_per_row
+
+    first, second = ctypes.c_int(), ctypes.c_int()
+
+    def block(fn, names, *args):
+        fn.restype = ctypes.c_int
+        if fn(*args, ctypes.byref(first), ctypes.byref(second)) != 0:
+            raise AssertionError(f"{fn.__name__}{args}: refused")
+        return dict(zip(names, (first.value, second.value)))
+
+    softmax = _build.load("masked_softmax_fwd").masked_softmax_fwd_block
+    banded = _build.load("banded_attention_bwd").banded_attention_bwd_block
+    out = {"masked_softmax_fwd": {
+               m: block(softmax, ("units", "threads"), n)
+               for m, (_, n, _) in WINDOW_SHAPE.items()},
+           "banded_attention_bwd": {}}
+    for model, kinds in banded_bands().items():
+        for kind, band in kinds.items():
+            for code, name in enumerate(("float32", "bfloat16")):
+                out["banded_attention_bwd"][f"{model}/{kind}/{name}"] = block(
+                    banded, ("dynamic_smem_bytes", "threads"), band.shape[1], code,
+                    edges_per_row(band))
+    return out
 
 
 def emit(phase: str, **fields) -> None:
@@ -734,6 +820,28 @@ def banded_inputs(model: str, dtype):
     return q.to(dtype), k.to(dtype), (v * 0.2).to(dtype), (do * 0.2).to(dtype)
 
 
+def banded_bwd_errors(case: str, got, want, dtype) -> dict:
+    """{grad: max abs error} of the banded backward kernel's (dq, dk, dv)
+    against the plain version's; raises where an entry is over BWD_TOL or a
+    gradient is not in ``dtype``."""
+    import torch
+
+    torch.cuda.synchronize()
+    tol = BWD_TOL[dtype_name(dtype)]
+    errors = {}
+    for grad, g_, w in zip(("dq", "dk", "dv"), got, want):
+        diff = (g_.float() - w.float()).abs()
+        excess = diff - tol["atol"] - tol["rtol"] * w.float().abs()
+        errors[grad] = diff.max().item()
+        if g_.dtype != dtype or not excess.max().item() <= 0:
+            at = int(excess.argmax())
+            raise AssertionError(
+                f"banded backward vs plain {case} {grad}: max abs err {errors[grad]}, worst "
+                f"excess at {at}: got {g_.flatten()[at].item()}, want {w.flatten()[at].item()}, "
+                f"{int((excess > 0).sum())} entries over {tol}")
+    return errors
+
+
 def phase_banded():
     import torch
 
@@ -759,23 +867,14 @@ def phase_banded():
                 if not (got.dtype == torch.float32 and fwd_errors[case] <= TOL[name]):
                     raise AssertionError(f"banded kernel vs plain {case}: max abs err "
                                          f"{fwd_errors[case]} > {TOL[name]}")
-                tol = BWD_TOL[name]
-                bwd_errors[case] = {}
                 got = banded_attention_bwd(q, k, v, do, band, scale=BANDED_SCALE)
                 want = plain_banded_attention_bwd(q, k, v, do, band, scale=BANDED_SCALE)
-                torch.cuda.synchronize()
-                for grad, g_, w in zip(("dq", "dk", "dv"), got, want):
-                    diff = (g_.float() - w.float()).abs()
-                    excess = diff - tol["atol"] - tol["rtol"] * w.float().abs()
-                    bwd_errors[case][grad] = diff.max().item()
-                    if g_.dtype != dtype or not excess.max().item() <= 0:
-                        at = int(excess.argmax())
-                        raise AssertionError(
-                            f"banded backward vs plain {case} {grad}: max abs err "
-                            f"{bwd_errors[case][grad]}, worst excess at {at}: got "
-                            f"{g_.flatten()[at].item()}, want {w.flatten()[at].item()}, "
-                            f"{int((excess > 0).sum())} entries over {tol}")
-                del got, want
+                bwd_errors[case] = banded_bwd_errors(case, got, want, dtype)
+                # gather, no atomics: a second call gives the same bits
+                again = banded_attention_bwd(q, k, v, do, band, scale=BANDED_SCALE)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"banded backward {case}: a second call differs")
+                del got, want, again
             del q, k, v, do
             torch.cuda.empty_cache()
     # the autograd Function's gradients are the backward kernel's
@@ -788,7 +887,8 @@ def phase_banded():
         raise AssertionError("banded autograd gradients differ from a direct backward call")
     emit("banded", shapes={m: [*BANDED_SHAPE[m], BANDED_DH] for m in BANDED_MODELS},
          tolerance={"fwd": TOL, "bwd": BWD_TOL}, fwd_max_abs_err=fwd_errors,
-         bwd_max_abs_err=bwd_errors, autograd_equals_kernel=True)
+         bwd_max_abs_err=bwd_errors, autograd_equals_kernel=True,
+         bwd_repeats_bit_for_bit=True)
     return fwd_errors, {c: max(e.values()) for c, e in bwd_errors.items()}
 
 
@@ -1079,6 +1179,100 @@ def phase_masked_softmax():
     return fwd_err, bwd_err
 
 
+# Cases at the edges of the kernels' contracts: the banded kernels under a
+# full band (every bit of the three planes, V = 32: 96 edges a row) over a
+# frame count that is not a multiple of the frames per block, and GATE's 29
+# joints in one-frame clips; K7 at a ragged unit count (stack 1) under the
+# dual mask through a seeded `sel`, with pruning, at HGATE's 58 tokens and
+# at 33 (odd: rows and units not 16-byte aligned).
+EDGE_BANDED = {"full_band": (64, 37, 32), "one_frame": (128, 1, 29)}  # planes, frames, joints
+EDGE_UNITS, EDGE_TOKENS = 37, (58, 33)
+
+
+def phase_edge_cases():
+    """The banded kernels and K7 against their plain versions at the cases
+    above, f32 and bf16, with the main phases' bars and input scales; the
+    banded backward also repeats bit for bit. Returns the max abs errors by
+    kernel and case."""
+    import numpy as np
+    import torch
+
+    from sl_hwgat_tpu_torch.ops.banded_attention import (
+        banded_attention,
+        banded_attention_bwd,
+        plain_banded_attention,
+        plain_banded_attention_bwd,
+    )
+    from sl_hwgat_tpu_torch.ops.hybrid_attention import (
+        masked_softmax,
+        masked_softmax_bwd,
+        plain_masked_softmax,
+        plain_masked_softmax_bwd,
+    )
+
+    errors = {"banded_fwd": {}, "banded_bwd": {}, "softmax_fwd": {}, "softmax_bwd": {}}
+    bands = {"full_band": np.zeros((3, 32, 32), np.float32),
+             "one_frame": banded_bands()["GATE"]["identity"]}
+    for label, (planes, frames, joints) in EDGE_BANDED.items():
+        band = bands[label]
+        g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+        base = [torch.randn(planes, frames * joints, BANDED_DH, generator=g, device="cuda")
+                for _ in range(4)]
+        for dtype in (torch.float32, torch.bfloat16):
+            name = dtype_name(dtype)
+            case = f"{label}/{name}"
+            q, k = base[0].to(dtype), base[1].to(dtype)
+            v, do = (base[2] * 0.2).to(dtype), (base[3] * 0.2).to(dtype)
+            got = banded_attention(q, k, v, band, scale=BANDED_SCALE)
+            want = plain_banded_attention(q, k, v, band, scale=BANDED_SCALE)
+            torch.cuda.synchronize()
+            errors["banded_fwd"][case] = (got - want).abs().max().item()
+            if not errors["banded_fwd"][case] <= TOL[name]:
+                raise AssertionError(f"banded kernel vs plain {case}: max abs err "
+                                     f"{errors['banded_fwd'][case]} > {TOL[name]}")
+            got = banded_attention_bwd(q, k, v, do, band, scale=BANDED_SCALE)
+            want = plain_banded_attention_bwd(q, k, v, do, band, scale=BANDED_SCALE)
+            errors["banded_bwd"][case] = max(banded_bwd_errors(case, got, want, dtype).values())
+            again = banded_attention_bwd(q, k, v, do, band, scale=BANDED_SCALE)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"banded backward {case}: a second call differs")
+    for n in EDGE_TOKENS:
+        adj, tail = masks("HGATE") if n == 58 else wide_unit_masks(n)
+        g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+        q, k = (torch.randn(EDGE_UNITS, n, HEAD_DIM, generator=g, device="cuda")
+                for _ in range(2))
+        sel = (torch.rand(EDGE_UNITS, generator=g, device="cuda") < 0.5).int()
+        dp = torch.randn(EDGE_UNITS, n, n, generator=g, device="cuda") * 0.2
+        kw = dict(stack=1, tail_adj=tail, units_per_group=1, groups=2, sel=sel,
+                  prune_u=torch.full((1,), 0.3, device="cuda"))
+        for dtype in (torch.float32, torch.bfloat16):
+            name = dtype_name(dtype)
+            case = f"{EDGE_UNITS}x{n}/{name}"
+            s = scores_of(q.to(dtype), k.to(dtype), HEAD_DIM**-0.5)
+            got = masked_softmax(s, adj, p_dtype=dtype, **kw)
+            want = plain_masked_softmax(s, adj, p_dtype=dtype, **kw)
+            torch.cuda.synchronize()
+            errors["softmax_fwd"][case] = (got.float() - want.float()).abs().max().item()
+            if got.dtype != dtype or not errors["softmax_fwd"][case] <= TOL[name]:
+                raise AssertionError(f"masked softmax vs plain {case}: max abs err "
+                                     f"{errors['softmax_fwd'][case]} > {TOL[name]}")
+            got = masked_softmax_bwd(s, dp.to(dtype), adj, **kw)
+            want = plain_masked_softmax_bwd(s, dp.to(dtype), adj, **kw)
+            torch.cuda.synchronize()
+            tol = BWD_TOL[name]
+            diff = (got - want).abs()
+            errors["softmax_bwd"][case] = diff.max().item()
+            if not (diff - tol["atol"] - tol["rtol"] * want.abs()).max().item() <= 0:
+                raise AssertionError(f"masked softmax backward vs plain {case}: max abs err "
+                                     f"{errors['softmax_bwd'][case]} over {tol}")
+    emit("edge_cases", banded={k: [*v, BANDED_DH] for k, v in EDGE_BANDED.items()},
+         masked_softmax={"units": EDGE_UNITS, "tokens": list(EDGE_TOKENS), "stack": 1,
+                         "dual_mask": "sel", "prune_u": 0.3},
+         tolerance={"fwd": TOL, "bwd": BWD_TOL}, max_abs_err=errors,
+         banded_bwd_repeats_bit_for_bit=True)
+    return errors
+
+
 def path_kernels(impl: str):
     """((forward, backward) counters of the kernels ``impl`` runs, the same
     pair of the other path), each a function with a ``launches`` count."""
@@ -1351,22 +1545,21 @@ def phase_windowed_timings() -> dict:
                                                    s.device), zero_quirk=True, prune_u=None)
             p32 = torch.softmax(masked, -1)
             dp32 = dp.float()
-            library = {
-                "fwd": cuda_ms(lambda: torch.softmax(masked, -1)),
-                "bwd": cuda_ms(lambda: torch.ops.aten._softmax_backward_data(
-                    dp32, p32, -1, torch.float32))}
-            cases = {
-                "fwd": {"ms": cuda_ms(lambda: masked_softmax(s, adj, p_dtype=dtype, **skw)),
-                        "plain_ms": cuda_ms(lambda: plain_masked_softmax(
-                            s, adj, p_dtype=dtype, **skw), runs=10)},
-                "bwd": {"ms": cuda_ms(lambda: masked_softmax_bwd(s, dp, adj, **skw)),
-                        "plain_ms": cuda_ms(lambda: plain_masked_softmax_bwd(s, dp, adj, **skw),
-                                            runs=10)},
-            }
+            kernel = {"fwd": lambda: masked_softmax(s, adj, p_dtype=dtype, **skw),
+                      "bwd": lambda: masked_softmax_bwd(s, dp, adj, **skw)}
+            library = {"fwd": lambda: torch.softmax(masked, -1),
+                       "bwd": lambda: torch.ops.aten._softmax_backward_data(
+                           dp32, p32, -1, torch.float32)}
+            plain = {"fwd": lambda: plain_masked_softmax(s, adj, p_dtype=dtype, **skw),
+                     "bwd": lambda: plain_masked_softmax_bwd(s, dp, adj, **skw)}
             for kind in ("fwd", "bwd"):
                 bound_ms, bound_by = softmax_bound(kind, name, model)
-                softmax[kind][key] = {**cases[kind], "library_ms": library[kind],
-                                      "bound_ms": bound_ms, "bound_by": bound_by}
+                softmax[kind][key] = {
+                    "ms": cuda_ms(kernel[kind]), "device_ms": device_seconds(kernel[kind]) * 1e3,
+                    "plain_ms": cuda_ms(plain[kind], runs=10),
+                    "library_ms": cuda_ms(library[kind]),
+                    "library_device_ms": device_seconds(library[kind]) * 1e3,
+                    "bound_ms": bound_ms, "bound_by": bound_by}
             del s, dp, masked, p32, dp32
             # the whole hybrid attention against the fused kernels, per call,
             # shifted blocks' dual mask (the models' larger share)
@@ -1595,29 +1788,30 @@ def phase_banded_timings() -> dict:
             name = dtype_name(dtype)
             q, k, v, do = banded_inputs(model, dtype)
             kw = dict(scale=BANDED_SCALE)
-            cases = {
-                "fwd": {
-                    "ms": cuda_ms(lambda: banded_attention(q, k, v, band, **kw)),
-                    "nondiagonal_band_ms": cuda_ms(
-                        lambda: banded_attention(q, k, v, spatial, **kw)),
-                    "plain_ms": cuda_ms(lambda: plain_banded_attention(q, k, v, band, **kw),
-                                        runs=10)},
-                "bwd": {
-                    "ms": cuda_ms(lambda: banded_attention_bwd(q, k, v, do, band, **kw)),
-                    "nondiagonal_band_ms": cuda_ms(
-                        lambda: banded_attention_bwd(q, k, v, do, spatial, **kw)),
-                    "plain_ms": cuda_ms(
-                        lambda: plain_banded_attention_bwd(q, k, v, do, band, **kw), runs=5)},
-            }
+            kernel = {
+                "fwd": lambda b: lambda: banded_attention(q, k, v, b, **kw),
+                "bwd": lambda b: lambda: banded_attention_bwd(q, k, v, do, b, **kw)}
+            plain = {
+                "fwd": (lambda: plain_banded_attention(q, k, v, band, **kw), 10),
+                "bwd": (lambda: plain_banded_attention_bwd(q, k, v, do, band, **kw), 5)}
             # the reference's dense masked attention over the whole F·V
             # sequence, through the memory-efficient backend: the dense score
             # matrix alone would take 15-19 GB
-            library = sdpa_ms(q, k, v, do, dense.to(dtype)[None, None], scale=BANDED_SCALE,
-                              runs=5, backends=[SDPBackend.EFFICIENT_ATTENTION])
-            for kind, lib in zip(("fwd", "bwd"), library):
+            sdpa = dict(scale=BANDED_SCALE, runs=5, backends=[SDPBackend.EFFICIENT_ATTENTION])
+            mask = dense.to(dtype)[None, None]
+            library = sdpa_ms(q, k, v, do, mask, **sdpa)
+            library_device = sdpa_ms(q, k, v, do, mask, **sdpa, timer=functools.partial(
+                device_seconds, calls=2, repeats=3))
+            for i, kind in enumerate(("fwd", "bwd")):
                 bound_ms, bound_by = banded_bound(kind, name, model, band)
-                out[kind][f"{model}/{name}"] = {**cases[kind], "library_ms": lib,
-                                                "bound_ms": bound_ms, "bound_by": bound_by}
+                identity, nondiagonal = kernel[kind](band), kernel[kind](spatial)
+                out[kind][f"{model}/{name}"] = {
+                    "ms": cuda_ms(identity), "device_ms": device_seconds(identity) * 1e3,
+                    "nondiagonal_band_ms": cuda_ms(nondiagonal),
+                    "nondiagonal_band_device_ms": device_seconds(nondiagonal) * 1e3,
+                    "plain_ms": cuda_ms(plain[kind][0], runs=plain[kind][1]),
+                    "library_ms": library[i], "library_device_ms": library_device[i],
+                    "bound_ms": bound_ms, "bound_by": bound_by}
             del q, k, v, do
             torch.cuda.empty_cache()
     emit("banded_timings", shapes={m: [*BANDED_SHAPE[m], BANDED_DH] for m in BANDED_MODELS},
@@ -1625,12 +1819,15 @@ def phase_banded_timings() -> dict:
          note="library_ms: scaled_dot_product_attention (memory-efficient backend) over the "
               "whole F·V sequence with the dense block-tridiagonal additive mask (its backward "
               "as fwd+bwd minus fwd), timed only; nondiagonal_band_ms: the kernel under the "
-              "spatial plane as prev/next")
+              "spatial plane as prev/next; *device_ms: the card's time with its queue kept "
+              "full (profiling.device_seconds)")
     return out
 
 
 def device_table(prof, top: int = 12) -> dict:
-    """Device time of a profiled region, summed by kernel name."""
+    """Device time of a profiled region, summed by kernel name. Ranges that
+    code annotated (``Optimizer.step#AdamW.step``) span kernels already
+    counted and are left out."""
     import torch
 
     rows = []
@@ -1638,7 +1835,8 @@ def device_table(prof, top: int = 12) -> dict:
         dev_us = getattr(ev, "device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "cuda_time_total", 0)
-        if dev_us and ev.device_type == torch.autograd.DeviceType.CUDA:
+        if (dev_us and ev.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(ev, "is_user_annotation", False)):
             rows.append((dev_us, ev.key, ev.count))
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
@@ -2220,6 +2418,8 @@ def main() -> int:
                   for n, r in report.items()})
     wide_kernels = wide_ptxas(report)
     emit("build_wide_kernels", ptxas=wide_kernels)
+    redesigned = redesigned_ptxas(report)
+    emit("build_redesigned_kernels", ptxas=redesigned)
 
     fwd_errors = phase_kernel()
     bwd_errors = phase_backward()
@@ -2237,6 +2437,7 @@ def main() -> int:
         banded_serve_launches = phase_banded_serve(Path(tmp))
     banded_train_launches = phase_banded_train()
     softmax_fwd_errors, softmax_bwd_errors = phase_masked_softmax()
+    edge_errors = phase_edge_cases()
     phase_windowed_forward()
     with tempfile.TemporaryDirectory() as tmp:
         windowed_serve_launches = phase_windowed_serve(Path(tmp))
@@ -2278,11 +2479,17 @@ def main() -> int:
                       ":129 (_fwd_kernel)",
                       banded_serve_launches, banded_timings, banded_fwd_errors, "WGATE/float32")
     bfwd["train_launches"] = banded_train_launches["fwd"]
+    bfwd["edge_cases_max_abs_err"] = edge_errors["banded_fwd"]
     bbwd = case_entry("bwd", banded_attention.KERNEL_BWD,
                       "sl_hwgat_tpu/ops/pallas_banded.py:427 (_bwd_kernel_packed); "
                       ":146 (_bwd_kernel)",
                       banded_train_launches["bwd"], banded_timings, banded_bwd_errors,
                       "WGATE/float32")
+    bbwd["edge_cases_max_abs_err"] = edge_errors["banded_bwd"]
+    blocks = redesigned_blocks()
+    bbwd.update(design=REDESIGNED[banded_attention.KERNEL_BWD],
+                ptxas=redesigned.get(banded_attention.KERNEL_BWD),
+                block=blocks[banded_attention.KERNEL_BWD])
     softmax_timings = windowed_timings["masked_softmax"]
     sfwd = case_entry("fwd", hybrid_attention.KERNEL,
                       "sl_hwgat_tpu/ops/hybrid_attention.py:46 (_softmax_fwd_kernel); "
@@ -2293,10 +2500,15 @@ def main() -> int:
     sfwd["bench_launches"] = bench_launches[hybrid_attention.KERNEL]
     sfwd["softmax_only_max_abs_err"] = probe_errors["softmax_only"]["softmax_only"]
     sfwd["softmax_only_library"] = probe_timings["softmax_only"]
+    sfwd["edge_cases_max_abs_err"] = edge_errors["softmax_fwd"]
+    sfwd.update(design=REDESIGNED[hybrid_attention.KERNEL],
+                ptxas=redesigned.get(hybrid_attention.KERNEL),
+                block=blocks[hybrid_attention.KERNEL])
     sbwd = case_entry("bwd", hybrid_attention.KERNEL_BWD,
                       "sl_hwgat_tpu/ops/hybrid_attention.py:61 (_softmax_bwd_kernel)",
                       trained["masked_softmax_bwd"], softmax_timings, softmax_bwd_errors,
                       "HWGATE/float32")
+    sbwd["edge_cases_max_abs_err"] = edge_errors["softmax_bwd"]
     stream, relay, mm = probes.KERNELS
     new = [probe_entry(stream, STREAM_REPLACES, bench_launches[stream],
                        probe_timings[stream], "copy_bf16", probe_errors[stream]),

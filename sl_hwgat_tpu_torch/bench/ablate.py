@@ -1,14 +1,17 @@
-"""Where the time of the window-attention kernels for wide units goes.
+"""Where the time of a kernel goes, by source variants that leave one phase out.
 
-    python -m sl_hwgat_tpu_torch.bench.ablate
+    python -m sl_hwgat_tpu_torch.bench.ablate [wide|banded|softmax] [--parent DIR]
 
-Builds variants of ``csrc/window_attention_{fwd,bwd}.cu`` (with
-``csrc/window_attention_wide.cuh``) that each leave one phase out, under
-``build/ablate/<variant>/``, and prints one JSON line: the card's time
-(``profiling.device_seconds``) of K1 and K2 at HGATE's batch-16 call (3072
-units of 58 tokens × dh 64, single mask, no pruning), f32 and bf16 in and
-out, for each variant. A variant's output is wrong by design; only its time
-is read. The variants:
+Builds variants of a kernel's sources that each leave one phase out, under
+``build/ablate/<variant>/``, and prints one JSON line of the card's times
+(``profiling.device_seconds``) of every variant. A variant's output is wrong
+by design; only its time is read. The time a phase takes is about ``full``
+minus its variant's. It needs a card and ``nvcc``, as ``chip_smoke.py`` does.
+
+``wide`` (the default): K1 and K2 for wide units
+(``csrc/window_attention_{fwd,bwd}.cu`` with ``window_attention_wide.cuh``)
+at HGATE's batch-16 call (3072 units of 58 tokens × dh 64, single mask, no
+pruning), f32 and bf16 in and out:
 
 - ``full``: the kernels as they are;
 - ``no_scores``: the kept scores are not computed (a stand-in value each);
@@ -16,24 +19,62 @@ is read. The variants:
 - ``no_av``: K1's A·V product is skipped (bf16 and f32 alike);
 - ``no_qk_staging``: K1 writes ones in place of the scaled q and k tiles.
 
-The time a phase takes is about ``full`` minus its variant's. It needs a card
-and ``nvcc``, as ``chip_smoke.py`` does.
+``banded``: the banded backward (``csrc/banded_attention_bwd.cu``) at WGATE's
+and GATE's batch-16 calls (512 planes × 192 frames × 16 joints, 128 × 192 ×
+29; dh 16), f32 and bf16, under the models' band (K8) and, ``full`` only,
+under the spatial plane as prev/next too (K9):
+
+- ``full``: the kernel as it is;
+- ``no_column``: the column phase (dK, dV) is skipped;
+- ``no_d``: the dP dots are skipped (a stand-in value each, so D and dS
+  still flow);
+- ``no_scores``: every score dot is replaced by a stand-in value.
+
+The variants follow the source's design, told by a line only that design
+holds (``BANDED_DESIGNS``), so the same command ablates the kernel of an
+older checkout.
+
+``softmax``: K7's forward (``csrc/masked_softmax_fwd.cu``) at HWGATE's
+(12288 × 32 × 32) and HGATE's (3072 × 58 × 58) f32 scores, single mask, no
+pruning, P in f32 and bf16, beside ``torch.softmax`` over the same masked
+scores (timed only):
+
+- ``full``: the kernel as it is;
+- ``no_softmax``: P is the raw scores (the loads, mask lookups and stores
+  alone).
+
+``--parent DIR``: DIR holds another checkout of the repository (for
+example ``git archive`` of the parent commit). Its ``full`` kernel is built
+too and timed in turns with this one (parent, this, this, parent) on the
+same inputs, and ``bit_equal`` says whether the two give the same bits.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import shutil
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from sl_hwgat_tpu_torch.graphs.adjacency import hgate_block_adj
+from sl_hwgat_tpu_torch.graphs.adjacency import (
+    additive_mask,
+    hgate_block_adj,
+    window_adj,
+    windowed_block_adj,
+)
+from sl_hwgat_tpu_torch.graphs.skeleton import BODY29_EDGES, edges_to_dense
+from sl_hwgat_tpu_torch.models.wgate import make_band
 from sl_hwgat_tpu_torch.ops import _build
+from sl_hwgat_tpu_torch.ops import banded_attention as ba
+from sl_hwgat_tpu_torch.ops import hybrid_attention as ha
 from sl_hwgat_tpu_torch.ops import window_attention as wa
+from sl_hwgat_tpu_torch.ops.attention import masked_scores, unit_allowed
 from sl_hwgat_tpu_torch.utils import profiling
 
 UNITS, TOKENS, DH, SCALE = 3072, 58, 64, 0.125
@@ -62,45 +103,111 @@ VARIANTS = {
         "  for (int i = tid; i < 2 * kTileElems<float>; i += kThreads) qs[i] = 1.f;\n")]},
 }
 
+BANDED_HEADER, BANDED_BWD = "banded_attention_common.cuh", "banded_attention_bwd.cu"
+# (design, a line only its banded_attention_bwd.cu holds, its variants as
+# VARIANTS gives them, but each text may occur more than once)
+BANDED_DESIGNS = (
+    # every score recomputed in each pass and in the column phase
+    ("recompute", "    const RowStats st = row_stats(qr, keys, b, nv, scale);\n", {
+        "full": {},
+        "no_column": {BANDED_BWD: [("  // Column phase: key j of frame f.\n",
+                                    "  if (nv > 0) return;\n")]},
+        "no_d": {BANDED_BWD: [(
+            "        dsum += prob(dot(qr, keys + e) * scale, st) * dot(dor, vals + e);\n",
+            "        dsum += 1e-3f * e;\n")]},
+        "no_scores": {
+            BANDED_HEADER: [("dot(qr, keys + (p * v + j) * kDH)", "(1e-3f * (p * v + j))")],
+            BANDED_BWD: [("dot(qr, keys + e)", "(1e-4f * e)"), ("dot(kr, qi)", "(1e-4f * r)")]},
+    }),
+    # each score and dP once, A and dS cached by edge rank
+    ("cache", "      if (e < cap) B.ca[e * stride + r] = s;\n", {
+        "full": {},
+        "no_column": {BANDED_BWD: [("  float out[kDH];\n  column<T, false>",
+                                    "  if (nv > 0) return;\n  float out[kDH];\n"
+                                    "  column<T, false>")]},
+        "no_d": {BANDED_BWD: [("      const float dp = Staged<T>::dot(dor, B.vs, kr);\n",
+                               "      const float dp = 1e-3f * e;\n")]},
+        "no_scores": {BANDED_BWD: [(
+            "      const float s = Staged<T>::dot(qr, B.ks, kr0 + p * nv + __ffs(bb) - 1) * "
+            "B.scale;\n", "      const float s = 1e-3f * e;\n")]},
+    }),
+)
+SOFTMAX_FWD = "masked_softmax_fwd.cu"
+SOFTMAX_VARIANTS = {
+    "full": {},
+    # P = the raw scores: loads, mask lookups and stores without the softmax
+    "no_softmax": {SOFTMAX_FWD: [(
+        "    masked_softmax_row<kLanes, kMap>(x, B.l, n, B.allowed(masks, plane, r), prune_u, "
+        "zero_quirk,\n                                     a);\n",
+        "    for (int c = 0; c < kPer; ++c) a[c] = x[c] + (B.allowed(masks, plane, r) & 1);\n")]},
+}
+BANDED_SHAPES = {"WGATE": (512, 192, 16), "GATE": (128, 192, 29)}
+BANDED_DH, BANDED_SCALE = 16, 0.25
+SOFTMAX_SHAPES = {"HWGATE": (12288, 32), "HGATE": (3072, 58)}
 
-def build_variant(name: str, edits: dict) -> list[subprocess.Popen]:
-    """Copy the sources into ``build/ablate/<name>``, apply ``edits`` and
-    start nvcc on both kernels; returns the two processes."""
+
+def build_variant(name: str, edits: dict, sources, csrc: Path = _build.CSRC_DIR,
+                  count_once: bool = True) -> list[subprocess.Popen]:
+    """Copy the sources of ``csrc`` into ``build/ablate/<name>``, apply
+    ``edits`` and start nvcc on each of ``sources``; returns the processes."""
     out = ABLATE_DIR / name
     out.mkdir(parents=True, exist_ok=True)
-    for path in _build.CSRC_DIR.iterdir():
+    for path in Path(csrc).iterdir():
         shutil.copy(path, out / path.name)
     for fname, replacements in edits.items():
         text = (out / fname).read_text()
         for old, new in replacements:
-            if old not in text:
-                raise ValueError(f"{name}: {fname} no longer holds {old.strip()[:60]!r}")
+            if old not in text or (count_once and text.count(old) != 1):
+                raise ValueError(f"{name}: {fname} no longer holds {old.strip()[:60]!r} once")
             text = text.replace(old, new)
         (out / fname).write_text(text)
     return [subprocess.Popen([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
                               str(out / f"lib{src}.so"), str(out / f"{src}.cu")],
                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            for src in (wa.KERNEL, wa.KERNEL_BWD)]
+            for src in sources]
 
 
-def entry(name: str, src: str):
-    fn = getattr(ctypes.CDLL(str(ABLATE_DIR / name / f"lib{src}.so")), src)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [_build._CTYPES[t] for t in wa._ARGTYPES[src]]
-    return fn
-
-
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("bench.ablate: no CUDA device", file=sys.stderr)
-        return 1
-    jobs = {name: build_variant(name, edits) for name, edits in VARIANTS.items()}
+def wait(jobs: dict) -> bool:
+    """Wait for every build of ``jobs`` ({variant: processes}); False (and a
+    message) if one failed."""
+    ok = True
     for name, procs in jobs.items():
         for proc in procs:
             _, err = proc.communicate()
             if proc.returncode != 0:
                 print(f"bench.ablate: {name} failed to build\n{err[-3000:]}", file=sys.stderr)
-                return 1
+                ok = False
+    return ok
+
+
+def entry(name: str, src: str, argtypes=None):
+    fn = getattr(ctypes.CDLL(str(ABLATE_DIR / name / f"lib{src}.so")), src)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_build._CTYPES[t] for t in (argtypes or wa._ARGTYPES[src])]
+    return fn
+
+
+def device_ms(call) -> float:
+    if call() != 0:
+        raise RuntimeError("launch failed")
+    torch.cuda.synchronize()
+    return profiling.device_seconds(call, calls=20) * 1e3
+
+
+def in_turns(calls: dict, rounds: int = 2) -> dict:
+    """{name: [device ms, ...]} of the calls timed in turns: a, b, b, a, ..."""
+    names, times = list(calls), {n: [] for n in calls}
+    for i in range(rounds):
+        for n in (names if i % 2 == 0 else names[::-1]):
+            times[n].append(device_ms(calls[n]))
+    return times
+
+
+def run_wide(parent) -> dict:
+    jobs = {name: build_variant(name, edits, (wa.KERNEL, wa.KERNEL_BWD))
+            for name, edits in VARIANTS.items()}
+    if not wait(jobs):
+        return {}
     masks = wa.device_masks(hgate_block_adj(), None, "cuda")
     rng = np.random.default_rng(0)
     times = {}
@@ -121,14 +228,143 @@ def main() -> int:
                                    None, None, UNITS, TOKENS, DH, code, *mode),
             }
             for kind, call in calls.items():
-                if call() != 0:
-                    raise RuntimeError(f"{name} {kind}: launch failed")
+                times[f"{name}/{kind}/{str(dtype).split('.')[1]}"] = device_ms(call)
+    return {"device_ms": times, "shape": [UNITS, TOKENS, DH]}
+
+
+def banded_design(csrc: Path):
+    """(design, variants) of the banded backward in ``csrc``."""
+    text = (Path(csrc) / BANDED_BWD).read_text()
+    for design, marker, variants in BANDED_DESIGNS:
+        if marker in text:
+            return design, variants
+    raise ValueError(f"{csrc / BANDED_BWD}: no known design")
+
+
+def banded_bands() -> dict:
+    """{model: (the model's band, the spatial plane as all three)}."""
+    spatial = {"WGATE": window_adj(window_size=16),
+               "GATE": edges_to_dense(BODY29_EDGES, 29, self_loops=False)}
+    return {m: (make_band(a), np.stack([additive_mask(a)] * 3)) for m, a in spatial.items()}
+
+
+def banded_call(fn, design: str, tensors, band, planes, frames, joints, code):
+    """A launch of the banded backward ``fn`` of ``design`` on ``tensors``
+    (q, k, v, dO, dq, dk, dv)."""
+    ptrs = [t.data_ptr() for t in tensors]
+    bits = ba._bits(band, "cuda").data_ptr()
+    stream = torch.cuda.current_stream().cuda_stream
+    if design == "recompute":
+        return lambda: fn(*ptrs, bits, planes, frames, joints, BANDED_DH, code, BANDED_SCALE,
+                          stream)
+    return lambda: fn(*ptrs, bits, planes, frames, joints, BANDED_DH, code,
+                      ba.edges_per_row(band), BANDED_SCALE, stream)
+
+
+# the C signature of the "recompute" design's entry: no edges_per_row
+RECOMPUTE_ARGTYPES = ["p"] * 8 + ["ll", "i", "i", "i", "i", "f", "p"]
+
+
+def banded_argtypes(design: str):
+    return RECOMPUTE_ARGTYPES if design == "recompute" else ba._ARGTYPES[ba.KERNEL_BWD]
+
+
+def run_banded(parent) -> dict:
+    design, variants = banded_design(_build.CSRC_DIR)
+    builds = {(name, design, _build.CSRC_DIR): edits for name, edits in variants.items()}
+    if parent is not None:
+        pcsrc = Path(parent) / "sl_hwgat_tpu_torch" / "csrc"
+        builds[("parent", banded_design(pcsrc)[0], pcsrc)] = {}
+    jobs = {name: build_variant(name, edits, (ba.KERNEL_BWD,), csrc, count_once=False)
+            for (name, _, csrc), edits in builds.items()}
+    if not wait(jobs):
+        return {}
+    fns = {name: (entry(name, ba.KERNEL_BWD, banded_argtypes(d)), d) for name, d, _ in builds}
+    rng = np.random.default_rng(0)
+    times, paired, equal = {}, {}, {}
+    for model, (planes, frames, joints) in BANDED_SHAPES.items():
+        band, spatial = banded_bands()[model]
+        base = [rng.normal(size=(planes, frames * joints, BANDED_DH)).astype(np.float32)
+                for _ in range(4)]
+        for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+            case = f"{model}/{str(dtype).split('.')[1]}"
+            inputs = [torch.from_numpy(x * (0.2 if i >= 2 else 1.0)).cuda().to(dtype)
+                      for i, x in enumerate(base)]
+            outs = {name: [torch.empty_like(inputs[0]) for _ in range(3)] for name in fns}
+            calls = {name: banded_call(fn, d, inputs + outs[name], band, planes, frames,
+                                       joints, code) for name, (fn, d) in fns.items()}
+            for name in variants:
+                times[f"{name}/{case}"] = device_ms(calls[name])
+            fn, d = fns["full"]
+            times[f"full/{case}/nondiagonal_band"] = device_ms(banded_call(
+                fn, d, inputs + outs["full"], spatial, planes, frames, joints, code))
+            if parent is not None:
+                paired[case] = in_turns({"parent": calls["parent"], "full": calls["full"]})
+                calls["parent"]()
+                calls["full"]()
                 torch.cuda.synchronize()
-                times[f"{name}/{kind}/{str(dtype).split('.')[1]}"] = \
-                    profiling.device_seconds(call, calls=20) * 1e3
+                equal[case] = all(torch.equal(a, b) for a, b in zip(outs["parent"],
+                                                                    outs["full"]))
+    out = {"design": design, "device_ms": times,
+           "shapes": {m: [*s, BANDED_DH] for m, s in BANDED_SHAPES.items()}}
+    if parent is not None:
+        out.update(parent_design=fns["parent"][1], paired_device_ms=paired, bit_equal=equal)
+    return out
+
+
+def run_softmax(parent) -> dict:
+    builds = {name: (_build.CSRC_DIR, edits) for name, edits in SOFTMAX_VARIANTS.items()}
+    if parent is not None:
+        builds["parent"] = (Path(parent) / "sl_hwgat_tpu_torch" / "csrc", {})
+    jobs = {name: build_variant(name, edits, (ha.KERNEL,), csrc)
+            for name, (csrc, edits) in builds.items()}
+    if not wait(jobs):
+        return {}
+    fns = {name: entry(name, ha.KERNEL, ha._ARGTYPES[ha.KERNEL]) for name in builds}
+    rng = np.random.default_rng(0)
+    times, paired, equal = {}, {}, {}
+    for model, (units, n) in SOFTMAX_SHAPES.items():
+        adj = windowed_block_adj(2)[0] if model == "HWGATE" else hgate_block_adj()
+        stack = 4 if model == "HWGATE" else 2
+        masks = wa.device_masks(adj, None, "cuda", wide=True)
+        s = torch.from_numpy(rng.normal(size=(units, n, n)).astype(np.float32)).cuda()
+        masked = masked_scores(s, unit_allowed(adj, None, None, units, stack, s.device),
+                               zero_quirk=True, prune_u=None)
+        for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+            case = f"{model}/{str(dtype).split('.')[1]}"
+            outs = {name: torch.empty(s.shape, dtype=dtype, device="cuda") for name in fns}
+            stream = torch.cuda.current_stream().cuda_stream
+            calls = {name: (lambda fn=fn, p=outs[name]: fn(
+                s.data_ptr(), p.data_ptr(), masks.data_ptr(), None, None, units, n, code, 1, 0,
+                stack, 0, 0, 0, stream)) for name, fn in fns.items()}
+            for name in SOFTMAX_VARIANTS:
+                times[f"{name}/{case}"] = device_ms(calls[name])
+            times[f"torch.softmax/{case}"] = profiling.device_seconds(
+                lambda: torch.softmax(masked, -1), calls=20) * 1e3
+            if parent is not None:
+                paired[case] = in_turns({"parent": calls["parent"], "full": calls["full"]})
+                equal[case] = torch.equal(outs["parent"], outs["full"])
+    out = {"device_ms": times, "scores": {m: [u, n, n] for m, (u, n) in SOFTMAX_SHAPES.items()}}
+    if parent is not None:
+        out.update(paired_device_ms=paired, bit_equal=equal)
+    return out
+
+
+def main(argv=None) -> int:
+    if not torch.cuda.is_available():
+        print("bench.ablate: no CUDA device", file=sys.stderr)
+        return 1
+    parser = argparse.ArgumentParser(prog="python -m sl_hwgat_tpu_torch.bench.ablate")
+    parser.add_argument("kernel", nargs="?", default="wide", choices=("wide", "banded", "softmax"))
+    parser.add_argument("--parent", type=Path, default=None,
+                        help="another checkout whose kernel is timed in turns with this one")
+    args = parser.parse_args(argv)
+    out = {"wide": run_wide, "banded": run_banded, "softmax": run_softmax}[args.kernel](args.parent)
+    if not out:
+        return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
-    print(json.dumps({"device_ms": times, "shape": [UNITS, TOKENS, DH],
+    print(json.dumps({"kernel": args.kernel, **out,
                       "nvidia_smi": smi.stdout.strip().splitlines()[0]}), flush=True)
     return 0
 

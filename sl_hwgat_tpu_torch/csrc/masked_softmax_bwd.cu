@@ -10,8 +10,10 @@
 //
 // Bound on an H100 SXM: bytes. A call reads S (4 bytes) and dP (4 or 2) and
 // writes dS (4) once per entry: 151 / 126 MB at HWGATE's 12288 x 32 x 32,
-// 45 / 38 us at 3.35 TB/s. One warp per row, as the forward: coalesced loads
-// of the row, warp shuffles for the reductions, one coalesced store.
+// 45 / 38 us at 3.35 TB/s. Rows are laid over the lanes as the forward lays
+// them (a row per 8 or 16 lanes, four columns a lane by the n-chosen map,
+// 128 / n units a block), which the shared row routine fixes; the row sum
+// adds one more group reduction.
 
 #include "masked_softmax_common.cuh"
 
@@ -19,64 +21,70 @@ namespace {
 
 using namespace msoft;
 
-constexpr int kWarps = 8;  // rows per block
 
-template <typename TP, int kCols>
-__global__ void __launch_bounds__(kWarps * 32)
+template <typename TP, int kLanes, int kMap>
+__global__ void __launch_bounds__(kThreads)
 masked_softmax_bwd_kernel(const float* __restrict__ s, const TP* __restrict__ dp,
                           float* __restrict__ ds, const unsigned long long* __restrict__ masks,
                           const int* __restrict__ sel, const float* __restrict__ prune_u,
-                          long long rows, int n, int zero_quirk, int dual, int stack,
-                          int per_group, int groups, long long unit_offset) {
-  const long long row = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (row >= rows) return;  // uniform over the warp
-  const int lane = threadIdx.x & 31;
-  const long long unit = row / n;
-  const int i = static_cast<int>(row - unit * n);
-  const float* sr = s + row * n;
-  const TP* dpr = dp + row * n;
-
-  float x[kCols], d[kCols];
+                          long long units, int n, int zero_quirk, int dual, int stack,
+                          int per_group, int groups, long long unit_offset, int vec) {
+  __shared__ int plane[kMinRows];
+  const auto B = BlockRows<kLanes>::of(blockIdx.x, units, n);
+  B.planes(plane, dual, sel, stack, per_group, groups, unit_offset);
+  __syncthreads();
+  for (int base = B.first(); base < B.rows(); base += B.kStep) {
+    const int r = base + B.g;
+    float x[kPer] = {}, d[kPer] = {};
+    if (r < B.rows()) {
+      load_cols<kLanes, kMap>(s + B.offset(r), B.l, n, vec, x);
+      load_cols<kLanes, kMap>(dp + B.offset(r), B.l, n, vec, d);
+    }
+    float a[kPer];
+    const unsigned pass = masked_softmax_row<kLanes, kMap>(x, B.l, n, B.allowed(masks, plane, r),
+                                                           prune_u, zero_quirk, a);
+    float rowsum = 0.f;
 #pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-    const int j = lane + 32 * c;
-    x[c] = j < n ? __ldg(sr + j) : 0.f;
-    d[c] = j < n ? wattn::to_float(dpr[j]) : 0.f;
+    for (int c = 0; c < kPer; ++c) rowsum += d[c] * a[c];
+    rowsum = group_sum<kLanes>(rowsum);
+#pragma unroll
+    for (int c = 0; c < kPer; ++c) x[c] = ((pass >> c) & 1u) ? a[c] * (d[c] - rowsum) : 0.f;
+    if (r < B.rows()) store_cols<kLanes, kMap>(ds + B.offset(r), B.l, n, vec, x);
   }
-  const unsigned long long allowed =
-      row_mask(masks, unit, i, n, dual, sel, stack, per_group, groups, unit_offset);
-  float a[kCols];
-  const unsigned pass = masked_softmax_row<kCols>(x, lane, n, allowed, prune_u, zero_quirk, a);
-
-  float rowsum = 0.f;
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) rowsum += d[c] * a[c];
-  rowsum = warp_sum(rowsum);
-  float* dsr = ds + row * n;
-#pragma unroll
-  for (int c = 0; c < kCols; ++c)
-    if (lane + 32 * c < n) dsr[lane + 32 * c] = ((pass >> c) & 1u) ? a[c] * (d[c] - rowsum) : 0.f;
 }
 
 struct Args {
   const float* s; const void* dp; float* ds; const unsigned long long* masks; const int* sel;
-  const float* prune_u; long long rows; int n; int zero_quirk; int dual; int stack;
+  const float* prune_u; long long units; int n; int zero_quirk; int dual; int stack;
   int per_group; int groups; long long unit_offset; cudaStream_t stream;
 };
 
-template <typename TP, int kCols>
+template <typename TP, int kLanes, int kMap>
 cudaError_t launch(const Args& a) {
-  const long long blocks = (a.rows + kWarps - 1) / kWarps;
-  masked_softmax_bwd_kernel<TP, kCols><<<static_cast<unsigned>(blocks), kWarps * 32, 0,
-                                         a.stream>>>(
-      a.s, static_cast<const TP*>(a.dp), a.ds, a.masks, a.sel, a.prune_u, a.rows, a.n,
-      a.zero_quirk, a.dual, a.stack, a.per_group, a.groups, a.unit_offset);
+  const int upb = units_per_block(a.n);
+  const long long blocks = (a.units + upb - 1) / upb;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int vec = reinterpret_cast<uintptr_t>(a.s) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(a.dp) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(a.ds) % 16 == 0;
+  masked_softmax_bwd_kernel<TP, kLanes, kMap><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                                a.stream>>>(
+      a.s, static_cast<const TP*>(a.dp), a.ds, a.masks, a.sel, a.prune_u, a.units, a.n,
+      a.zero_quirk, a.dual, a.stack, a.per_group, a.groups, a.unit_offset, vec);
   return cudaGetLastError();
 }
 
+template <typename TP, int kLanes>
+cudaError_t launch_map(const Args& a) {
+  const int map = column_map(a.n);
+  return map == kQuads ? launch<TP, kLanes, kQuads>(a)
+         : map == kPairs ? launch<TP, kLanes, kPairs>(a)
+                         : launch<TP, kLanes, kSingles>(a);
+}
+
 template <typename TP>
-cudaError_t launch_cols(const Args& a) {
-  return a.n <= 32 ? launch<TP, 1>(a) : launch<TP, 2>(a);
+cudaError_t launch_lanes(const Args& a) {
+  return a.n <= 32 ? launch_map<TP, 8>(a) : launch_map<TP, 16>(a);
 }
 
 }  // namespace
@@ -94,9 +102,9 @@ extern "C" int masked_softmax_bwd(const void* s, const void* dp, void* ds, const
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const float*>(s), dp, static_cast<float*>(ds),
                static_cast<const unsigned long long*>(masks), static_cast<const int*>(sel),
-               static_cast<const float*>(prune_u), units * n, n, zero_quirk, dual, stack,
+               static_cast<const float*>(prune_u), units, n, zero_quirk, dual, stack,
                per_group, groups, unit_offset, static_cast<cudaStream_t>(stream)};
-  if (dp_dtype == 0) return static_cast<int>(launch_cols<float>(a));
-  if (dp_dtype == 1) return static_cast<int>(launch_cols<__nv_bfloat16>(a));
+  if (dp_dtype == 0) return static_cast<int>(launch_lanes<float>(a));
+  if (dp_dtype == 1) return static_cast<int>(launch_lanes<__nv_bfloat16>(a));
   return static_cast<int>(cudaErrorInvalidValue);
 }

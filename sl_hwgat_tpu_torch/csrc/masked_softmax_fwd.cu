@@ -20,10 +20,20 @@
 //
 // Bound on an H100 SXM: bytes. A call reads S (4 bytes) and writes P (4 or
 // 2 bytes) once per entry: 100.7 / 75.5 MB at HWGATE's 12288 x 32 x 32,
-// 30 / 23 us at 3.35 TB/s; a few dozen operations per entry are far below
-// the card's rate. The design reads each score once with coalesced loads
-// (a warp reads a whole row), keeps the row in registers through both
-// softmaxes (warp shuffles for the max and sum), and writes P once.
+// 30 / 23 us at 3.35 TB/s. The design before this one (a warp per row, one
+// column a lane) ran the row's reductions, exps and divisions with 32 lanes
+// for 32 (or 58) entries and issued about as many instructions as the bytes
+// allowed time for (0.082 ms at HWGATE's shape, 0.056 at HGATE's, on an
+// NVIDIA H100 80GB HBM3 at 700 W). Here a row takes 8 lanes (16 for n > 32),
+// four columns a lane (masked_softmax_common.cuh): a warp works 4 (2) rows
+// at once, the reductions take 3 (4) shuffle steps, P is the exp times one
+// reciprocal of the sum, and each lane loads and stores its columns 16 bytes
+// (HGATE's unaligned 58-float rows: 8) at a time, bf16 P 4 bytes. A
+// block of 8 warps takes 128 / n whole units and looks up each unit's mask
+// plane once. Staging whole units in shared memory by cp.async (coalesced,
+// whatever n) and loading two row groups a warp ahead were both slower on
+// that card: the registers they cost took warps away (bench/ablate.py
+// softmax times the kernel and its no-softmax variant).
 
 #include "masked_softmax_common.cuh"
 
@@ -31,54 +41,59 @@ namespace {
 
 using namespace msoft;
 
-constexpr int kWarps = 8;  // rows per block
-
-template <typename TP, int kCols>
-__global__ void __launch_bounds__(kWarps * 32)
+template <typename TP, int kLanes, int kMap>
+__global__ void __launch_bounds__(kThreads)
 masked_softmax_fwd_kernel(const float* __restrict__ s, TP* __restrict__ p,
                           const unsigned long long* __restrict__ masks,
                           const int* __restrict__ sel, const float* __restrict__ prune_u,
-                          long long rows, int n, int zero_quirk, int dual, int stack,
-                          int per_group, int groups, long long unit_offset) {
-  const long long row = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (row >= rows) return;  // uniform over the warp
-  const int lane = threadIdx.x & 31;
-  const long long unit = row / n;
-  const int i = static_cast<int>(row - unit * n);
-  const float* sr = s + row * n;
-
-  float x[kCols];
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) x[c] = lane + 32 * c < n ? __ldg(sr + lane + 32 * c) : 0.f;
-  const unsigned long long allowed =
-      row_mask(masks, unit, i, n, dual, sel, stack, per_group, groups, unit_offset);
-  float a[kCols];
-  masked_softmax_row<kCols>(x, lane, n, allowed, prune_u, zero_quirk, a);
-  TP* pr = p + row * n;
-#pragma unroll
-  for (int c = 0; c < kCols; ++c)
-    if (lane + 32 * c < n) pr[lane + 32 * c] = wattn::from_float<TP>(a[c]);
+                          long long units, int n, int zero_quirk, int dual, int stack,
+                          int per_group, int groups, long long unit_offset, int vec) {
+  __shared__ int plane[kMinRows];
+  const auto B = BlockRows<kLanes>::of(blockIdx.x, units, n);
+  B.planes(plane, dual, sel, stack, per_group, groups, unit_offset);
+  __syncthreads();
+  for (int base = B.first(); base < B.rows(); base += B.kStep) {
+    const int r = base + B.g;
+    float x[kPer] = {};
+    if (r < B.rows()) load_cols<kLanes, kMap>(s + B.offset(r), B.l, n, vec, x);
+    float a[kPer];
+    masked_softmax_row<kLanes, kMap>(x, B.l, n, B.allowed(masks, plane, r), prune_u, zero_quirk,
+                                     a);
+    if (r < B.rows()) store_cols<kLanes, kMap>(p + B.offset(r), B.l, n, vec, a);
+  }
 }
 
 struct Args {
   const float* s; void* p; const unsigned long long* masks; const int* sel;
-  const float* prune_u; long long rows; int n; int zero_quirk; int dual; int stack;
+  const float* prune_u; long long units; int n; int zero_quirk; int dual; int stack;
   int per_group; int groups; long long unit_offset; cudaStream_t stream;
 };
 
-template <typename TP, int kCols>
+template <typename TP, int kLanes, int kMap>
 cudaError_t launch(const Args& a) {
-  const long long blocks = (a.rows + kWarps - 1) / kWarps;
-  masked_softmax_fwd_kernel<TP, kCols><<<static_cast<unsigned>(blocks), kWarps * 32, 0,
-                                         a.stream>>>(
-      a.s, static_cast<TP*>(a.p), a.masks, a.sel, a.prune_u, a.rows, a.n, a.zero_quirk, a.dual,
-      a.stack, a.per_group, a.groups, a.unit_offset);
+  const int upb = units_per_block(a.n);
+  const long long blocks = (a.units + upb - 1) / upb;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int vec = reinterpret_cast<uintptr_t>(a.s) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(a.p) % 16 == 0;
+  masked_softmax_fwd_kernel<TP, kLanes, kMap><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                                a.stream>>>(
+      a.s, static_cast<TP*>(a.p), a.masks, a.sel, a.prune_u, a.units, a.n, a.zero_quirk, a.dual,
+      a.stack, a.per_group, a.groups, a.unit_offset, vec);
   return cudaGetLastError();
 }
 
+template <typename TP, int kLanes>
+cudaError_t launch_map(const Args& a) {
+  const int map = column_map(a.n);
+  return map == kQuads ? launch<TP, kLanes, kQuads>(a)
+         : map == kPairs ? launch<TP, kLanes, kPairs>(a)
+                         : launch<TP, kLanes, kSingles>(a);
+}
+
 template <typename TP>
-cudaError_t launch_cols(const Args& a) {
-  return a.n <= 32 ? launch<TP, 1>(a) : launch<TP, 2>(a);
+cudaError_t launch_lanes(const Args& a) {
+  return a.n <= 32 ? launch_map<TP, 8>(a) : launch_map<TP, 16>(a);
 }
 
 }  // namespace
@@ -94,10 +109,19 @@ extern "C" int masked_softmax_fwd(const void* s, void* p, const void* masks, con
       (dual && sel == nullptr && (per_group <= 0 || groups <= 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const float*>(s), p, static_cast<const unsigned long long*>(masks),
-               static_cast<const int*>(sel), static_cast<const float*>(prune_u), units * n, n,
+               static_cast<const int*>(sel), static_cast<const float*>(prune_u), units, n,
                zero_quirk, dual, stack, per_group, groups, unit_offset,
                static_cast<cudaStream_t>(stream)};
-  if (p_dtype == 0) return static_cast<int>(launch_cols<float>(a));
-  if (p_dtype == 1) return static_cast<int>(launch_cols<__nv_bfloat16>(a));
+  if (p_dtype == 0) return static_cast<int>(launch_lanes<float>(a));
+  if (p_dtype == 1) return static_cast<int>(launch_lanes<__nv_bfloat16>(a));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The units and threads of one block of masked_softmax_fwd (and of
+// masked_softmax_bwd) for n-token units. Returns a cudaError_t.
+extern "C" int masked_softmax_fwd_block(int n, int* units, int* threads) {
+  if (n < 1 || n > 64) return static_cast<int>(cudaErrorInvalidValue);
+  *units = units_per_block(n);
+  *threads = kThreads;
+  return 0;
 }

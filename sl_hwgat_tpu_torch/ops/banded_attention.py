@@ -76,6 +76,13 @@ def check_band(band, frames: int) -> None:
         raise ValueError("band has a query row with no edge in some frame")
 
 
+def edges_per_row(band) -> int:
+    """The most edges a query row has under ``band``, over its three planes
+    (a row inside the clip; rows of the first and last frame have fewer).
+    The backward kernel sizes its cache of A and dS per row by it."""
+    return int(band_edges(band).sum(axis=(0, 2)).max())
+
+
 def _bits(band, device) -> torch.Tensor:
     """(6, 32) int32 on ``device``: rows 0-2 bit j of word i set where plane
     p has the edge (i, j); rows 3-5 the transpose (bit i of word j)."""
@@ -149,7 +156,7 @@ def _kernel_bwd(q, k, v, do, band, *, scale):
         err = _build.function(KERNEL_BWD, _ARGTYPES[KERNEL_BWD])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), _bits(band, q.device).data_ptr(), planes, frames,
-            nv, HEAD_DIM, _DTYPE_CODE[q.dtype], float(scale),
+            nv, HEAD_DIM, _DTYPE_CODE[q.dtype], edges_per_row(band), float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL_BWD} launch failed: cudaError {err}")
@@ -161,8 +168,9 @@ def _kernel_bwd(q, k, v, do, band, *, scale):
 _ARGTYPES = {
     # q, k, v, o, bits, planes, frames, joints, dh, in_dtype, out_dtype, scale, stream
     KERNEL: ["p"] * 5 + ["ll", "i", "i", "i", "i", "i", "f", "p"],
-    # q, k, v, do, dq, dk, dv, bits, planes, frames, joints, dh, dtype, scale, stream
-    KERNEL_BWD: ["p"] * 8 + ["ll", "i", "i", "i", "i", "f", "p"],
+    # q, k, v, do, dq, dk, dv, bits, planes, frames, joints, dh, dtype,
+    # edges_per_row, scale, stream
+    KERNEL_BWD: ["p"] * 8 + ["ll", "i", "i", "i", "i", "i", "f", "p"],
 }
 
 

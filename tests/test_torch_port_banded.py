@@ -43,9 +43,11 @@ from sl_hwgat_tpu_torch.ops.attention import (
 )
 from sl_hwgat_tpu_torch.ops.banded_attention import (
     _bits,
+    band_edges,
     banded_attention,
     banded_attention_bwd,
     check_band,
+    edges_per_row,
     plain_banded_attention,
     plain_banded_attention_bwd,
 )
@@ -267,3 +269,100 @@ def test_the_kernels_contract_is_checked_on_every_device():
     with pytest.raises(ValueError, match="no edge"):
         banded_attention(q, q, q, hole, scale=SCALE)
     check_band(identity_band(SPATIAL["gate29"]()), frames=2)
+
+
+# The cases at the edges of the kernels' contracts that the chip run holds
+# the CUDA kernels at (beside these plain versions): V = 32 with every edge
+# of the self plane (K8) or of all three planes (K9: 96 edges a row, more
+# than the backward kernel caches), over 5 or 6 frames (the kernels take 4
+# frames of 32 joints a block); and GATE's 29 joints in a one-frame clip.
+# The JAX kernels take these frame counts with Vp = 128. (K9's dK and dV
+# there depart from banded_frame_attention's at an odd frame count of 5 or
+# more, by up to 0.2, so K9 is held at 6 frames; the plain version is held
+# at 5 against banded_frame_attention below.)
+EDGE_CASES = {
+    "k8_full_self_v32": (lambda: identity_band(np.ones((32, 32), np.float32)), 5, "k8"),
+    "k9_full_v32": (lambda: np.zeros((3, 32, 32), np.float32), 6, "k9"),
+    "k8_gate29_one_frame": (lambda: identity_band(SPATIAL["gate29"]()), 1, "k8"),
+    "k9_gate29_one_frame": (lambda: spatial_band(SPATIAL["gate29"]()), 1, "k9"),
+}
+
+
+@pytest.mark.parametrize("case,dtype", [(c, d) for c in sorted(EDGE_CASES)
+                                        for d in ("float32", "bfloat16")
+                                        if EDGE_CASES[c][2] == "k8" or d == "float32"])
+def test_plain_versions_match_k8_and_k9_vjp_at_the_edge_cases(case, dtype):
+    make, frames, kernel = EDGE_CASES[case]
+    band = make()
+    q, k, v, do = inputs(band.shape[1], frames=frames, seed=11)
+    v, do = 0.2 * v, 0.2 * do
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    entry = pallas_packed_banded_attention if kernel == "k8" else pallas_banded_frame_attention
+    out, vjp = jax.vjp(lambda a, b, c: entry(a, b, c, band, scale=SCALE, vp=128),
+                       *j(q, k, v, dtype=jdt))
+    fwd_tol, grad_tol = (FWD, GRAD) if dtype == "float32" else (BF16, BF16)
+    tq, tk, tv, tdo = (x.to(tdt) for x in token_major(q, k, v, do))
+    close(plain_banded_attention(tq, tk, tv, band, scale=SCALE).reshape(q.shape), out, fwd_tol)
+    for g, w in zip(plain_banded_attention_bwd(tq, tk, tv, tdo, band, scale=SCALE),
+                    vjp(jnp.asarray(do))):
+        assert g.dtype == tdt
+        close(g.float().reshape(q.shape), w, grad_tol)
+
+
+def test_plain_backward_matches_jax_banded_vjp_under_a_full_band_over_5_frames():
+    band = np.zeros((3, 32, 32), np.float32)
+    q, k, v, do = inputs(32, frames=5, seed=12)
+    _, vjp = jax.vjp(lambda a, b, c: jax_attention.banded_frame_attention(
+        a, b, c, jnp.asarray(band), scale=SCALE), *j(q, k, v))
+    tq, tk, tv, tdo = token_major(q, k, v, do)
+    for g, w in zip(plain_banded_attention_bwd(tq, tk, tv, tdo, band, scale=SCALE),
+                    vjp(jnp.asarray(do))):
+        close(g.reshape(q.shape), w, GRAD)
+
+
+@pytest.mark.parametrize("make", [
+    lambda: identity_band(SPATIAL["wgate16"]()), lambda: identity_band(SPATIAL["gate29"]()),
+    lambda: spatial_band(SPATIAL["wgate16"]()), lambda: np.zeros((3, 32, 32), np.float32),
+    lambda: np.where(np.random.default_rng(12).random((3, 23, 23)) < 0.3, 0.0,
+                     -1e4).astype(np.float32),
+], ids=["wgate16", "gate29", "wgate16_spatial", "full_v32", "random_v23"])
+def test_edge_ranks_from_the_band_bits_follow_the_row_order(make):
+    """The backward kernel caches a row's edges by rank: the popcount of the
+    lower bits of the edge's plane word, after the earlier planes' counts
+    (the prev plane absent in the first frame). From the (6, 32) words of
+    ``_bits``, that rank is the edge's place in the row's (plane, joint)
+    order of ``band_edges``, from the column words as well; and
+    ``edges_per_row`` is the longest row."""
+    band = make()
+    e = band_edges(band)
+    nv = e.shape[1]
+    words = [int(w) for w in _bits(band, "cpu").numpy().view(np.uint32).ravel()]
+    row, col = words[:96], words[96:]
+    assert edges_per_row(band) == max(int(e[:, i].sum()) for i in range(nv))
+    for first in (True, False):
+        for i in range(nv):
+            order = [(p, jj) for p in range(3) if not (first and p == 0)
+                     for jj in range(nv) if e[p, i, jj]]
+            for rank, (p, jj) in enumerate(order):
+                assert col[p * 32 + jj] >> i & 1
+                below = row[p * 32 + i] & ((1 << jj) - 1)
+                got = bin(below).count("1")
+                if p > 0 and not first:
+                    got += bin(row[i]).count("1")
+                if p == 2:
+                    got += bin(row[32 + i]).count("1")
+                assert got == rank, (i, p, jj)
+
+
+def test_ablation_variants_apply_to_the_banded_backward_source():
+    from sl_hwgat_tpu_torch.bench import ablate
+    from sl_hwgat_tpu_torch.ops import _build
+
+    design, variants = ablate.banded_design(_build.CSRC_DIR)
+    assert design == "cache" and set(variants) == {"full", "no_column", "no_d", "no_scores"}
+    for edits in variants.values():
+        for fname, replacements in edits.items():
+            text = (_build.CSRC_DIR / fname).read_text()
+            for old, _ in replacements:
+                assert old in text, (fname, old)
+    assert ablate.main(["banded"]) == 1  # no card here

@@ -38,6 +38,7 @@ from sl_hwgat_tpu_torch.ops.hybrid_attention import (
     masked_softmax,
     masked_softmax_bwd,
     plain_masked_softmax,
+    plain_masked_softmax_bwd,
 )
 from sl_hwgat_tpu_torch.ops.window_attention import make_sel
 from sl_hwgat_tpu_torch.train.loop import make_steps
@@ -150,6 +151,53 @@ def test_masked_softmax_and_backward_match_jax(geometry, dual, prune_u):
     np.testing.assert_allclose(leaf.grad.numpy(), ds.numpy(), atol=2e-6)
     np.testing.assert_array_equal(
         masked_softmax_bwd(st, torch.from_numpy(dp), adj, **wkw).numpy(), ds.numpy())
+
+
+def _random_adj(n, seed):
+    r = np.random.default_rng(seed)
+    a = r.random((n, n)) < 3.0 / n
+    return (a | a.T | np.eye(n, dtype=bool)).astype(np.float32)
+
+
+# (tokens, padded tokens, adj): HGATE's units, and 33 tokens (odd: the
+# kernel's rows and units lose their 16-byte alignment there)
+RAGGED = {"hgate58": (58, 64, ADJ58), "odd33": (33, 33, _random_adj(33, 4))}
+
+
+@pytest.mark.parametrize("geometry", sorted(RAGGED))
+def test_masked_softmax_and_backward_match_jax_at_a_ragged_unit_count(geometry):
+    """37 units, one a supertile, under the dual mask through a seeded
+    ``sel`` and with pruning at u = 0.3: the case the chip run holds K7 at."""
+    n, np_, adj = RAGGED[geometry]
+    units, stack, prune_u = 37, 1, 0.3
+    tail = _tail(adj, 6)
+    r = np.random.default_rng(13)
+    s = (2.0 * r.normal(size=(units, n, n))).astype(np.float32)
+    s[:, 0, :3] = 0.0
+    dp = r.normal(size=(units, n, n)).astype(np.float32)
+    sel = (r.random(units) < 0.5).astype(np.int32)
+    s_t = _jax_supertiles(s, np_, stack, r.normal(size=(units, np_, np_)).astype(np.float32))
+    dp_t = _jax_supertiles(dp, np_, stack, r.normal(size=s_t.shape).astype(np.float32))
+    static = (True, (_cache_adj(adj), (_cache_adj(tail), 1, 2), True), (n, np_, stack, np_))
+
+    def f(x):
+        return jax_hybrid._masked_softmax(x, jnp.asarray([prune_u], jnp.float32),
+                                          jnp.asarray(sel), *static, "float32")
+
+    p_jax, vjp = jax.vjp(f, jnp.asarray(s_t))
+    p_blocks, _, _ = _diag_blocks(np.asarray(p_jax), n, np_, stack)
+    ds_blocks, _, _ = _diag_blocks(np.asarray(vjp(jnp.asarray(dp_t))[0]), n, np_, stack)
+    st, dpt, selt = torch.from_numpy(s), torch.from_numpy(dp), torch.from_numpy(sel)
+    kw = dict(stack=stack, prune_u=prune_u, tail_adj=tail, units_per_group=1, groups=2,
+              sel=selt)
+    p = plain_masked_softmax(st, adj, **kw)
+    np.testing.assert_allclose(p.numpy(), p_blocks, atol=1e-6)
+    ds = plain_masked_softmax_bwd(st, dpt, adj, **kw)
+    np.testing.assert_allclose(ds.numpy(), ds_blocks, atol=2e-5)
+    np.testing.assert_array_equal(masked_softmax(st, adj, **kw).numpy(), p.numpy())
+    np.testing.assert_array_equal(masked_softmax_bwd(st, dpt, adj, **kw).numpy(), ds.numpy())
+    bf = plain_masked_softmax(st, adj, p_dtype=torch.bfloat16, **kw)
+    assert torch.equal(bf, p.to(torch.bfloat16))
 
 
 def test_masked_softmax_stores_p_in_the_given_type():
@@ -284,3 +332,16 @@ def test_unknown_attn_impl_raises(build):
         with pytest.raises(ValueError, match="'auto', 'pallas', 'hybrid'"):
             build(impl)
     assert build("hybrid") is not None
+
+
+def test_ablation_variants_apply_to_the_masked_softmax_source():
+    from sl_hwgat_tpu_torch.bench import ablate
+    from sl_hwgat_tpu_torch.ops import _build
+
+    assert set(ablate.SOFTMAX_VARIANTS) == {"full", "no_softmax"}
+    for edits in ablate.SOFTMAX_VARIANTS.values():
+        for fname, replacements in edits.items():
+            text = (_build.CSRC_DIR / fname).read_text()
+            for old, _ in replacements:
+                assert text.count(old) == 1, (fname, old)
+    assert ablate.main(["softmax"]) == 1  # no card here
