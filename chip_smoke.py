@@ -9,7 +9,7 @@ Phases, each printing one JSON line (any failure ends the run non-zero):
               one process per source, all at once; every instantiation of
               the K1/K2 kernels for units of up to 64 tokens must take at
               most 128 registers and spill nothing, and no instantiation of
-              K7's forward or K8's backward may spill.
+              K7's forward, K8's forward or backward or K2 may spill.
 3. kernel   — the forward window-attention kernel against its plain PyTorch
               version at the flagship shape (12288 units × 32 tokens × dh 64)
               and at HGATE's (3072 units × 58 tokens × dh 64, two units to a
@@ -67,11 +67,12 @@ Phases, each printing one JSON line (any failure ends the run non-zero):
               through K7 against the fused kernel (one function); the
               autograd Function's gradient equals a direct backward call.
     edge cases — the banded kernels under a full band (V = 32, 96 edges a
-              row, 64 planes × 37 frames: not a multiple of the 4 frames a
+              row, 64 planes × 37 frames: not a multiple of the frames a
               block) and at GATE's 29 joints in one-frame clips, the backward
               repeating bit for bit; K7 forward and backward at 37 units of
               58 and of 33 tokens (stack 1), dual mask through a seeded sel,
-              prune 0.3; f32 and bf16, the bars above.
+              prune 0.3; K1 and K2 at 96 units of 32 tokens × dh 32, single
+              and dual mask, prune 0.3; f32 and bf16, the bars above.
 14. windowed forward — HWGATE with attn_impl="hybrid", and HGATE on its
               default (K1/K2 at 58 tokens) and hybrid paths, at FDMSE-ISL,
               batch 16, f32 and bf16: logits against the plain path, 8
@@ -87,8 +88,8 @@ Phases, each printing one JSON line (any failure ends the run non-zero):
 17. timings  — CUDA-event medians of every kernel, its plain version and its
               library yardstick (masked scaled_dot_product_attention, or
               torch.softmax over masked scores for K7; timed, never called by
-              the port), for K1/K2 at 58 tokens, K7 and K8/K9 also the card's
-              time of the kernel and of the yardstick; the hybrid attention
+              the port), for K1/K2 at 32 and 58 tokens, K7 and K8/K9 also the
+              card's time of the kernel and of the yardstick; the hybrid attention
               against the fused kernels per call; the eval forward and the
               train step of each model and path; a torch.profiler table of
               one eval forward and one train step of each (annotated ranges
@@ -204,9 +205,10 @@ def wide_ptxas(report: dict) -> dict:
     return wide
 
 
-# the kernels redesigned last, K7's forward and K8's backward: their sources
-# and what the kernels line says of their design. The build phase fails if
-# any of their instantiations spills.
+# the kernels redesigned since the first designs: K7's forward and K8's
+# backward, then K2 at 32 tokens and K8's forward; their sources and what the
+# kernels line says of their design. The build phase fails if any of their
+# instantiations spills.
 REDESIGNED = {
     "masked_softmax_fwd": (
         "a row per 8 lanes (16 for n > 32), four columns a lane by a map n alone fixes "
@@ -226,6 +228,25 @@ REDESIGNED = {
         "in (plane, joint) order as the forward), dQ of its own rows; column phase: dK then "
         "dV of each own key row gathered from the cache (no atomics); rows with more edges "
         "than the cache's 32 recompute the rest from the kept (max, sum, D)"),
+    "window_attention_bwd": (
+        "32-token units (HWGATE): one warp per unit (4 a block in f32, 1 in bf16), its rows "
+        "staged by cp.async in the warp's own shared memory; row phase, a lane per query row: "
+        "A and its pass bits from K1's attention_row (f32 keys, sums in j order, so prune "
+        "decisions match the forward's), dA and dS; then 16-row strips. f32: K and V staged, "
+        "dA as FMA chains over d, dQ, dV and dK in 4 x 8 register tiles from swizzled T(A) and "
+        "dS tiles, dO then Q staged over K's rows (sums over m ascending from 0: the "
+        "one-lane-per-row design's bits). bf16: q, k, v, dO staged; dA, dQ, dV and dK on "
+        "mma.sync m16n8k16 (f32 sums, ldmatrix, .trans for the transposed operands), A meeting "
+        "dA on the accumulator layout through a shared f32 tile. Units of up to 64 tokens: the "
+        "wide design (wide_design)"),
+    "banded_attention_fwd": (
+        "a block of 128 threads owns 128/V frames of a plane (8 at V = 16, 4 at 29): q of its "
+        "frames and k, v of its frames ±1 staged in q's type by cp.async, 16-byte chunks "
+        "swizzled per row; a thread per query row computes each edge's score once (f32 dot in d "
+        "order), caching the scores, then exp(s − max), in shared memory by edge rank; A·V "
+        "reads each term once; max then sum in (plane, joint) order as before, so o is the "
+        "earlier design's bit for bit; rows with more edges than the cache's 32 recompute the "
+        "rest"),
 }
 
 
@@ -247,7 +268,7 @@ def redesigned_blocks() -> dict:
     """{source: {case: ...}}: one block of each REDESIGNED kernel at the main
     paths' shapes, as its launcher sizes it: K7's units and threads, K8's
     dynamic shared memory and threads (under each model's band and the
-    non-diagonal one)."""
+    non-diagonal one), K2's at 32 tokens by head dim and type."""
     import ctypes
 
     from sl_hwgat_tpu_torch.ops import _build
@@ -262,17 +283,22 @@ def redesigned_blocks() -> dict:
         return dict(zip(names, (first.value, second.value)))
 
     softmax = _build.load("masked_softmax_fwd").masked_softmax_fwd_block
-    banded = _build.load("banded_attention_bwd").banded_attention_bwd_block
+    window = _build.load("window_attention_bwd").window_attention_bwd_block
     out = {"masked_softmax_fwd": {
                m: block(softmax, ("units", "threads"), n)
                for m, (_, n, _) in WINDOW_SHAPE.items()},
-           "banded_attention_bwd": {}}
-    for model, kinds in banded_bands().items():
-        for kind, band in kinds.items():
-            for code, name in enumerate(("float32", "bfloat16")):
-                out["banded_attention_bwd"][f"{model}/{kind}/{name}"] = block(
-                    banded, ("dynamic_smem_bytes", "threads"), band.shape[1], code,
-                    edges_per_row(band))
+           "window_attention_bwd": {
+               f"dh{dh}/{name}": block(window, ("dynamic_smem_bytes", "threads"), dh, code)
+               for dh in (32, 64) for code, name in enumerate(("float32", "bfloat16"))}}
+    for src in ("banded_attention_fwd", "banded_attention_bwd"):
+        fn = getattr(_build.load(src), f"{src}_block")
+        out[src] = {}
+        for model, kinds in banded_bands().items():
+            for kind, band in kinds.items():
+                for code, name in enumerate(("float32", "bfloat16")):
+                    out[src][f"{model}/{kind}/{name}"] = block(
+                        fn, ("dynamic_smem_bytes", "threads"), band.shape[1], code,
+                        edges_per_row(band))
     return out
 
 
@@ -1184,9 +1210,11 @@ def phase_masked_softmax():
 # frame count that is not a multiple of the frames per block, and GATE's 29
 # joints in one-frame clips; K7 at a ragged unit count (stack 1) under the
 # dual mask through a seeded `sel`, with pruning, at HGATE's 58 tokens and
-# at 33 (odd: rows and units not 16-byte aligned).
+# at 33 (odd: rows and units not 16-byte aligned); K1 and K2 at 32-token
+# units with head dim 32, which no model's main path takes.
 EDGE_BANDED = {"full_band": (64, 37, 32), "one_frame": (128, 1, 29)}  # planes, frames, joints
 EDGE_UNITS, EDGE_TOKENS = 37, (58, 33)
+EDGE_WINDOW = (96, TOKENS, 32)  # units, tokens, head dim
 
 
 def phase_edge_cases():
@@ -1210,7 +1238,15 @@ def phase_edge_cases():
         plain_masked_softmax_bwd,
     )
 
-    errors = {"banded_fwd": {}, "banded_bwd": {}, "softmax_fwd": {}, "softmax_bwd": {}}
+    from sl_hwgat_tpu_torch.ops.window_attention import (
+        plain_window_attention,
+        plain_window_attention_bwd,
+        window_attention,
+        window_attention_bwd,
+    )
+
+    errors = {"banded_fwd": {}, "banded_bwd": {}, "softmax_fwd": {}, "softmax_bwd": {},
+              "window_fwd": {}, "window_bwd": {}}
     bands = {"full_band": np.zeros((3, 32, 32), np.float32),
              "one_frame": banded_bands()["GATE"]["identity"]}
     for label, (planes, frames, joints) in EDGE_BANDED.items():
@@ -1265,9 +1301,34 @@ def phase_edge_cases():
             if not (diff - tol["atol"] - tol["rtol"] * want.abs()).max().item() <= 0:
                 raise AssertionError(f"masked softmax backward vs plain {case}: max abs err "
                                      f"{errors['softmax_bwd'][case]} over {tol}")
+    adj, tail = masks()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    base = [torch.randn(*EDGE_WINDOW, generator=g, device="cuda") for _ in range(4)]
+    detail = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = dtype_name(dtype)
+        q, k, v, do = base[0].to(dtype), base[1].to(dtype), (base[2] * 0.2).to(dtype), \
+            base[3].to(dtype)
+        for dual in (False, True):
+            kw = dict(scale=EDGE_WINDOW[2]**-0.5, stack=4, prune_u=torch.full((1,), 0.3,
+                                                                              device="cuda"))
+            if dual:
+                kw.update(tail_adj=tail, units_per_group=8, groups=2)
+            case = f"dh{EDGE_WINDOW[2]}/{name}/{'dual' if dual else 'single'}/prune=0.3"
+            got = window_attention(q, k, v, adj, out_dtype=dtype, **kw)
+            want = plain_window_attention(q, k, v, adj, out_dtype=dtype, **kw)
+            torch.cuda.synchronize()
+            errors["window_fwd"][case] = (got.float() - want.float()).abs().max().item()
+            if not errors["window_fwd"][case] <= TOL[name]:
+                raise AssertionError(f"kernel vs plain {case}: max abs err "
+                                     f"{errors['window_fwd'][case]} > {TOL[name]}")
+            errors["window_bwd"][case] = check_gradients(
+                detail, case, window_attention_bwd(q, k, v, do, adj, **kw),
+                plain_window_attention_bwd(q, k, v, do, adj, **kw), dtype)
     emit("edge_cases", banded={k: [*v, BANDED_DH] for k, v in EDGE_BANDED.items()},
          masked_softmax={"units": EDGE_UNITS, "tokens": list(EDGE_TOKENS), "stack": 1,
                          "dual_mask": "sel", "prune_u": 0.3},
+         window_attention={"shape": list(EDGE_WINDOW), "stack": 4, "prune_u": 0.3},
          tolerance={"fwd": TOL, "bwd": BWD_TOL}, max_abs_err=errors,
          banded_bwd_repeats_bit_for_bit=True)
     return errors
@@ -1696,24 +1757,37 @@ def phase_timings():
         for dual in (False, True):
             kw = attention_kwargs(dual, None, tail)
             case = "dual" if dual else "single"
+
+            def k1():
+                return window_attention(q, k, v, adj, out_dtype=dtype, **kw)
+
+            def k2():
+                return window_attention_bwd(q, k, v, do, adj, **kw)
+
             fwd[case] = {
-                "ms": cuda_ms(lambda: window_attention(q, k, v, adj, out_dtype=dtype, **kw)),
+                "ms": cuda_ms(k1), "device_ms": device_seconds(k1) * 1e3,
                 "plain_ms": cuda_ms(
                     lambda: plain_window_attention(q, k, v, adj, out_dtype=dtype, **kw), runs=20),
             }
             bwd[case] = {
-                "ms": cuda_ms(lambda: window_attention_bwd(q, k, v, do, adj, **kw)),
+                "ms": cuda_ms(k2), "device_ms": device_seconds(k2) * 1e3,
                 "plain_ms": cuda_ms(
                     lambda: plain_window_attention_bwd(q, k, v, do, adj, **kw), runs=10),
             }
-        library_fwd, library_bwd = sdpa_ms(q, k, v, do, additive.to(dtype)[None, None])
-        for kind, cases, library in (("fwd", fwd, library_fwd), ("bwd", bwd, library_bwd)):
+        mask = additive.to(dtype)[None, None]
+        library = sdpa_ms(q, k, v, do, mask)
+        library_device = sdpa_ms(q, k, v, do, mask, timer=device_seconds)
+        for kind, cases, lib, lib_device in (("fwd", fwd, library[0], library_device[0]),
+                                             ("bwd", bwd, library[1], library_device[1])):
             bound_ms, bound_by = bound(kind, name)
-            kernels[kind][name] = {"cases": cases, "library_ms": library, "bound_ms": bound_ms,
+            kernels[kind][name] = {"cases": cases, "library_ms": lib,
+                                   "library_device_ms": lib_device, "bound_ms": bound_ms,
                                    "bound_by": bound_by}
     emit("timings", shape=[UNITS, TOKENS, HEAD_DIM], kernels=kernels,
          note="library_ms: scaled_dot_product_attention with the plain adjacency as an "
-              "additive mask (its backward as fwd+bwd minus fwd), timed only")
+              "additive mask (its backward as fwd+bwd minus fwd), timed only; device_ms and "
+              "library_device_ms: the card's time with its queue kept full "
+              "(profiling.device_seconds)")
 
     results = {}
     for name in ("HWGATE", *BANDED_MODELS):
@@ -2467,6 +2541,7 @@ def main() -> int:
     fwd["fused_probes_library"] = probe_timings["fused"]
     fwd["wide_design"] = WIDE_DESIGN
     fwd["wide_ptxas"] = {n: r for n, r in wide_kernels.items() if "fwd" in n}
+    fwd["edge_cases_max_abs_err"] = edge_errors["window_fwd"]
     bwd = kernel_entry("bwd", window_attention.KERNEL_BWD,
                        "sl_hwgat_tpu/ops/pallas_attention.py:295 (_bwd_kernel)",
                        train_launches["bwd"] + trained["window_attention_bwd"], timings,
@@ -2474,19 +2549,26 @@ def main() -> int:
     bwd["hgate_train_launches"] = trained["window_attention_bwd"]
     bwd["wide_design"] = WIDE_DESIGN
     bwd["wide_ptxas"] = {n: r for n, r in wide_kernels.items() if "bwd" in n}
+    bwd["edge_cases_max_abs_err"] = edge_errors["window_bwd"]
+    blocks = redesigned_blocks()
+    bwd.update(design=REDESIGNED[window_attention.KERNEL_BWD],
+               ptxas=redesigned.get(window_attention.KERNEL_BWD),
+               block=blocks[window_attention.KERNEL_BWD])
     bfwd = case_entry("fwd", banded_attention.KERNEL,
                       "sl_hwgat_tpu/ops/pallas_banded.py:408 (_fwd_kernel_packed); "
                       ":129 (_fwd_kernel)",
                       banded_serve_launches, banded_timings, banded_fwd_errors, "WGATE/float32")
     bfwd["train_launches"] = banded_train_launches["fwd"]
     bfwd["edge_cases_max_abs_err"] = edge_errors["banded_fwd"]
+    bfwd.update(design=REDESIGNED[banded_attention.KERNEL],
+                ptxas=redesigned.get(banded_attention.KERNEL),
+                block=blocks[banded_attention.KERNEL])
     bbwd = case_entry("bwd", banded_attention.KERNEL_BWD,
                       "sl_hwgat_tpu/ops/pallas_banded.py:427 (_bwd_kernel_packed); "
                       ":146 (_bwd_kernel)",
                       banded_train_launches["bwd"], banded_timings, banded_bwd_errors,
                       "WGATE/float32")
     bbwd["edge_cases_max_abs_err"] = edge_errors["banded_bwd"]
-    blocks = redesigned_blocks()
     bbwd.update(design=REDESIGNED[banded_attention.KERNEL_BWD],
                 ptxas=redesigned.get(banded_attention.KERNEL_BWD),
                 block=blocks[banded_attention.KERNEL_BWD])

@@ -1,6 +1,6 @@
 """Where the time of a kernel goes, by source variants that leave one phase out.
 
-    python -m sl_hwgat_tpu_torch.bench.ablate [wide|banded|softmax] [--parent DIR]
+    python -m sl_hwgat_tpu_torch.bench.ablate [wide|banded|softmax|window32|banded_fwd] [--parent DIR]
 
 Builds variants of a kernel's sources that each leave one phase out, under
 ``build/ablate/<variant>/``, and prints one JSON line of the card's times
@@ -42,6 +42,37 @@ scores (timed only):
 - ``full``: the kernel as it is;
 - ``no_softmax``: P is the raw scores (the loads, mask lookups and stores
   alone).
+
+``window32``: K2 for HWGATE's 32-token units (``csrc/window_attention_bwd.cu``)
+at its batch-16 call (12288 units × 32 tokens × dh 64, no pruning), f32 and
+bf16, single mask; with ``--parent``, single and dual mask in turns:
+
+- ``full``: the kernel as it is;
+- ``no_column``: the dV, dK and dQ products are skipped;
+- ``no_da``: the dO·Vᵀ product is skipped (a stand-in value each, so dS
+  still flows);
+- ``no_scores``: the scores of ``attention_row`` (``window_attention_common.cuh``,
+  which K1 shares) are stand-in values;
+- ``eight_warps``: at most 8 warps an SM instead of 12 (the f32 kernel may
+  then take 255 registers).
+
+The JSON line of these two modes also gives ptxas's registers and spills
+of every variant built.
+
+``banded_fwd``: the banded forward (``csrc/banded_attention_fwd.cu``) at
+WGATE's and GATE's batch-16 calls, f32 and bf16 in, f32 out (the models'
+call), under the models' band and, ``full`` only, under the spatial plane
+as prev/next too (K9):
+
+- ``full``: the kernel as it is;
+- ``no_stats``: the max and sum passes over a row's edges are skipped;
+- ``no_av``: the A·V products are skipped (the probabilities are still
+  computed);
+- ``threads_64``, ``threads_256``: blocks of 64 or 256 threads instead of
+  128 (each block takes threads / V frames).
+
+Like ``banded``, ``window32`` and ``banded_fwd`` tell the source's design by
+a line only it holds (``WINDOW32_DESIGNS``, ``BANDED_FWD_DESIGNS``).
 
 ``--parent DIR``: DIR holds another checkout of the repository (for
 example ``git archive`` of the parent commit). Its ``full`` kernel is built
@@ -141,6 +172,87 @@ SOFTMAX_VARIANTS = {
         "zero_quirk,\n                                     a);\n",
         "    for (int c = 0; c < kPer; ++c) a[c] = x[c] + (B.allowed(masks, plane, r) & 1);\n")]},
 }
+WINDOW_BWD, WINDOW_COMMON = "window_attention_bwd.cu", "window_attention_common.cuh"
+# (design, a line only the 32-token K2 of that design holds, its variants)
+WINDOW32_DESIGNS = (
+    # one warp per unit, a lane per query row, then a lane per column pair
+    ("lane", "  column_product<T, DH, false>(k + base, dst, dq + base, lane, scale);\n", {
+        "full": {},
+        "no_column": {WINDOW_BWD: [(
+            "  column_product<T, DH, true>(dout + base, at, dv + base, lane, 1.f);\n"
+            "  column_product<T, DH, true>(q + base, dst, dk + base, lane, scale);\n"
+            "  column_product<T, DH, false>(k + base, dst, dq + base, lane, scale);\n",
+            "  dq[base + lane] = from_float<T>(at[lane] + dst[lane]);\n")]},
+        "no_da": {WINDOW_BWD: [("  for (int h = 0; h < DH; h += 32) {\n",
+                                "  for (int j = 0; j < kN; ++j) ds[j] = 1e-3f * j;\n"
+                                "  for (int h = 0; h < 0; h += 32) {\n")]},
+        "no_scores": {WINDOW_COMMON: [("      s[j] = acc;\n", "      s[j] = qr[j] + 1e-3f * j;\n")]},
+    }),
+    # a lane per query row for A (attention_row), then 16-row strips of
+    # register tiles (f32) or tensor-core products (bf16)
+    ("strips", "  stage_unit<float, DH, DH>(dout, kf, lane);\n", {
+        "full": {},
+        "no_column": {WINDOW_BWD: [
+            ("  constexpr int kHalves = DH / 32;\n",
+             "  if (DH > 0) {\n    dq[lane] = at[lane] + dst[lane];\n    return;\n  }\n"
+             "  constexpr int kHalves = DH / 32;\n"),
+            ("    uint32_t p[kN / 16][4];\n    wide::to_a_operand(ds, p);\n"
+             "    float acc[DH / 8][4];\n    wide::strip_ab<S>(p, kt, lane, acc);\n"
+             "    wide::store_strip<DH>(dq, acc, r0, lane, kN, scale);\n",
+             "    wide::store_strip<DH>(dq, ds, r0, lane, kN, scale);\n"),
+            ("  for (int r0 = 0; r0 < kN; r0 += 16) {\n    float acc[DH / 8][4];\n",
+             "  if (DH > 0) return;\n"
+             "  for (int r0 = 0; r0 < kN; r0 += 16) {\n    float acc[DH / 8][4];\n")]},
+        "no_da": {WINDOW_BWD: [
+            ("  for (int h = 0; h < DH; h += 16) {  // dO's row 16 columns at a time\n",
+             "  for (int j = 0; j < kN; ++j) ds[j] = 1e-3f * j;\n"
+             "  for (int h = 0; h < 0; h += 16) {\n"),
+            ("  wide::strip_abt<DH, S>(dot, vt, 0, lane, da[0]);\n"
+             "  wide::strip_abt<DH, S>(dot, vt, 16, lane, da[1]);\n",
+             "  for (int st = 0; st < 2; ++st)\n    for (int j = 0; j < kN / 8; ++j)\n"
+             "      for (int c = 0; c < 4; ++c) da[st][j][c] = 1e-3f * (j + c + lane);\n")]},
+        "no_scores": {WINDOW_COMMON: [("      s[j] = acc;\n", "      s[j] = qr[j] + 1e-3f * j;\n")]},
+        # at most 8 warps an SM instead of 12 (f32: 255 registers a thread)
+        "eight_warps": {WINDOW_BWD: [("                                 : 12 / kWarps<T>;",
+                                      "                                 : 8 / kWarps<T>;")]},
+    }),
+)
+WINDOW32_UNITS = 12288
+BANDED_FWD = "banded_attention_fwd.cu"
+# (design, a line only its banded_attention_fwd.cu holds, its variants)
+BANDED_FWD_DESIGNS = (
+    # three dots and two exps per edge: the max pass, the sum pass, A.V
+    ("recompute", "  const RowStats st = row_stats(qr, keys, b, nv, scale);\n", {
+        "full": {},
+        "no_stats": {BANDED_FWD: [("  const RowStats st = row_stats(qr, keys, b, nv, scale);\n",
+                                   "  const RowStats st{qr[0], 1.f + qr[1] * qr[1]};\n")]},
+        "no_av": {BANDED_FWD: [("      if (p == 1) axpy(round_to<T>(a), vals + e, self);\n"
+                                "      else axpy(a, vals + e, band);\n",
+                                "      self[p] += a;\n")]},
+    }),
+    # each score once, the scores and then the exps cached by edge rank
+    ("cache", "      if (e < cap) cache[e * stride + r] = s;\n", {
+        "full": {},
+        "no_stats": {BANDED_FWD: [
+            ("  float m = -INFINITY;\n  int e = 0;\n#pragma unroll\n  for (int p = 0; p < 3; ++p)\n"
+             "    for (uint32_t bb = b(p); bb; bb &= bb - 1, ++e) {\n"
+             "      const float s = S::dot(qr, ks, kr0 + p * nv + __ffs(bb) - 1) * scale;\n"
+             "      m = fmaxf(m, s);\n      if (e < cap) cache[e * stride + r] = s;\n    }\n",
+             "  const float m = qr[0];\n  int e = 0;\n"),
+            ("  float sum = 0.f;\n  e = 0;\n#pragma unroll\n  for (int p = 0; p < 3; ++p)\n"
+             "    for (uint32_t bb = b(p); bb; bb &= bb - 1, ++e) {\n      float s;\n",
+             "  float sum = 1.f + qr[1] * qr[1];\n  e = 0;\n#pragma unroll\n"
+             "  for (int p = 0; p < 0; ++p)\n"
+             "    for (uint32_t bb = b(p); bb; bb &= bb - 1, ++e) {\n      float s;\n")]},
+        "no_av": {BANDED_FWD: [("      if (p == 1) S::axpy(round_to<T>(a), vs, kr, self);\n"
+                                "      else S::axpy(a, vs, kr, band);\n",
+                                "      self[p] += a;\n")]},
+        # other block sizes: 64 and 256 threads (256 / V frames, half the halo)
+        **{f"threads_{t}": {BANDED_FWD: [("constexpr int kFwdThreads = 128;",
+                                          f"constexpr int kFwdThreads = {t};")]}
+           for t in (64, 256)},
+    }),
+)
 BANDED_SHAPES = {"WGATE": (512, 192, 16), "GATE": (128, 192, 29)}
 BANDED_DH, BANDED_SCALE = 16, 0.25
 SOFTMAX_SHAPES = {"HWGATE": (12288, 32), "HGATE": (3072, 58)}
@@ -167,23 +279,27 @@ def build_variant(name: str, edits: dict, sources, csrc: Path = _build.CSRC_DIR,
             for src in sources]
 
 
-def wait(jobs: dict) -> bool:
-    """Wait for every build of ``jobs`` ({variant: processes}); False (and a
-    message) if one failed."""
-    ok = True
+def wait(jobs: dict) -> dict | None:
+    """Wait for every build of ``jobs`` ({variant: processes}); {variant:
+    ptxas's register and spill lines}, or None (and a message) if one
+    failed."""
+    ok, ptxas = True, {}
     for name, procs in jobs.items():
         for proc in procs:
             _, err = proc.communicate()
             if proc.returncode != 0:
                 print(f"bench.ablate: {name} failed to build\n{err[-3000:]}", file=sys.stderr)
                 ok = False
-    return ok
+            ptxas.setdefault(name, []).extend(
+                ln.split(":", 1)[-1].strip() for ln in err.splitlines()
+                if "registers" in ln or "spill stores" in ln)
+    return ptxas if ok else None
 
 
 def entry(name: str, src: str, argtypes=None):
     fn = getattr(ctypes.CDLL(str(ABLATE_DIR / name / f"lib{src}.so")), src)
     fn.restype = ctypes.c_int
-    fn.argtypes = [_build._CTYPES[t] for t in (argtypes or wa._ARGTYPES[src])]
+    fn.argtypes = [_build._CTYPES[t] for t in (argtypes or {**wa._ARGTYPES, **ba._ARGTYPES}[src])]
     return fn
 
 
@@ -204,41 +320,62 @@ def in_turns(calls: dict, rounds: int = 2) -> dict:
 
 
 def run_wide(parent) -> dict:
-    jobs = {name: build_variant(name, edits, (wa.KERNEL, wa.KERNEL_BWD))
-            for name, edits in VARIANTS.items()}
+    builds = {name: (_build.CSRC_DIR, edits) for name, edits in VARIANTS.items()}
+    if parent is not None:
+        builds["parent"] = (Path(parent) / "sl_hwgat_tpu_torch" / "csrc", {})
+    jobs = {name: build_variant(name, edits, (wa.KERNEL, wa.KERNEL_BWD), csrc)
+            for name, (csrc, edits) in builds.items()}
     if not wait(jobs):
         return {}
     masks = wa.device_masks(hgate_block_adj(), None, "cuda")
     rng = np.random.default_rng(0)
-    times = {}
+    times, pairs, equal = {}, {}, {}
     for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
         q, k, v, do = (torch.from_numpy(rng.normal(size=(UNITS, TOKENS, DH)).astype(np.float32))
                        .cuda().to(dtype) for _ in range(4))
-        o, dq, dk, dv = (torch.empty_like(q) for _ in range(4))
+        outs = {name: [torch.empty_like(q) for _ in range(4)] for name in builds}  # o, dq, dk, dv
         stream = torch.cuda.current_stream().cuda_stream
         mode = (SCALE, 1, 0, 2, 0, 0, 0, stream)  # scale, zero quirk, single mask, stack 2
-        for name in VARIANTS:
+        calls = {}
+        for name in builds:
             fwd, bwd = entry(name, wa.KERNEL), entry(name, wa.KERNEL_BWD)
-            calls = {
-                "fwd": lambda: fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                   masks.data_ptr(), None, None, UNITS, TOKENS, DH, code, code,
-                                   *mode),
-                "bwd": lambda: bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                                   dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), masks.data_ptr(),
-                                   None, None, UNITS, TOKENS, DH, code, *mode),
+            o, dq, dk, dv = (t.data_ptr() for t in outs[name])
+            calls[name] = {
+                "fwd": lambda fwd=fwd, o=o: fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o,
+                                                masks.data_ptr(), None, None, UNITS, TOKENS, DH,
+                                                code, code, *mode),
+                "bwd": lambda bwd=bwd, dq=dq, dk=dk, dv=dv: bwd(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq, dk, dv,
+                    masks.data_ptr(), None, None, UNITS, TOKENS, DH, code, *mode),
             }
-            for kind, call in calls.items():
+        for name in VARIANTS:
+            for kind, call in calls[name].items():
                 times[f"{name}/{kind}/{str(dtype).split('.')[1]}"] = device_ms(call)
-    return {"device_ms": times, "shape": [UNITS, TOKENS, DH]}
+        if parent is not None:
+            for kind in ("fwd", "bwd"):
+                case = f"{kind}/{str(dtype).split('.')[1]}"
+                pairs[case], equal[case] = paired(
+                    {n: calls[n][kind] for n in ("parent", "full")},
+                    {n: outs[n][:1] if kind == "fwd" else outs[n][1:] for n in ("parent", "full")})
+    out = {"device_ms": times, "shape": [UNITS, TOKENS, DH]}
+    if parent is not None:
+        out.update(paired_device_ms=pairs, bit_equal=equal)
+    return out
+
+
+def design_of(csrc: Path, fname: str, designs):
+    """(design, variants) of the kernel in ``csrc``/``fname``: the first of
+    ``designs`` whose marker line the source holds."""
+    text = (Path(csrc) / fname).read_text()
+    for design, marker, variants in designs:
+        if marker in text:
+            return design, variants
+    raise ValueError(f"{Path(csrc) / fname}: no known design")
 
 
 def banded_design(csrc: Path):
     """(design, variants) of the banded backward in ``csrc``."""
-    text = (Path(csrc) / BANDED_BWD).read_text()
-    for design, marker, variants in BANDED_DESIGNS:
-        if marker in text:
-            return design, variants
-    raise ValueError(f"{csrc / BANDED_BWD}: no known design")
+    return design_of(csrc, BANDED_BWD, BANDED_DESIGNS)
 
 
 def banded_bands() -> dict:
@@ -261,27 +398,13 @@ def banded_call(fn, design: str, tensors, band, planes, frames, joints, code):
                       ba.edges_per_row(band), BANDED_SCALE, stream)
 
 
-# the C signature of the "recompute" design's entry: no edges_per_row
-RECOMPUTE_ARGTYPES = ["p"] * 8 + ["ll", "i", "i", "i", "i", "f", "p"]
-
-
-def banded_argtypes(design: str):
-    return RECOMPUTE_ARGTYPES if design == "recompute" else ba._ARGTYPES[ba.KERNEL_BWD]
-
-
 def run_banded(parent) -> dict:
-    design, variants = banded_design(_build.CSRC_DIR)
-    builds = {(name, design, _build.CSRC_DIR): edits for name, edits in variants.items()}
-    if parent is not None:
-        pcsrc = Path(parent) / "sl_hwgat_tpu_torch" / "csrc"
-        builds[("parent", banded_design(pcsrc)[0], pcsrc)] = {}
-    jobs = {name: build_variant(name, edits, (ba.KERNEL_BWD,), csrc, count_once=False)
-            for (name, _, csrc), edits in builds.items()}
-    if not wait(jobs):
+    fns, _ = variant_builds(BANDED_DESIGNS, parent, BANDED_BWD, ba.KERNEL_BWD)
+    if not fns:
         return {}
-    fns = {name: (entry(name, ba.KERNEL_BWD, banded_argtypes(d)), d) for name, d, _ in builds}
+    design, variants = banded_design(_build.CSRC_DIR)
     rng = np.random.default_rng(0)
-    times, paired, equal = {}, {}, {}
+    times, pairs, equal = {}, {}, {}
     for model, (planes, frames, joints) in BANDED_SHAPES.items():
         band, spatial = banded_bands()[model]
         base = [rng.normal(size=(planes, frames * joints, BANDED_DH)).astype(np.float32)
@@ -292,23 +415,18 @@ def run_banded(parent) -> dict:
                       for i, x in enumerate(base)]
             outs = {name: [torch.empty_like(inputs[0]) for _ in range(3)] for name in fns}
             calls = {name: banded_call(fn, d, inputs + outs[name], band, planes, frames,
-                                       joints, code) for name, (fn, d) in fns.items()}
+                                       joints, code) for name, (d, fn) in fns.items()}
             for name in variants:
                 times[f"{name}/{case}"] = device_ms(calls[name])
-            fn, d = fns["full"]
+            d, fn = fns["full"]
             times[f"full/{case}/nondiagonal_band"] = device_ms(banded_call(
                 fn, d, inputs + outs["full"], spatial, planes, frames, joints, code))
             if parent is not None:
-                paired[case] = in_turns({"parent": calls["parent"], "full": calls["full"]})
-                calls["parent"]()
-                calls["full"]()
-                torch.cuda.synchronize()
-                equal[case] = all(torch.equal(a, b) for a, b in zip(outs["parent"],
-                                                                    outs["full"]))
+                pairs[case], equal[case] = paired(calls, outs)
     out = {"design": design, "device_ms": times,
            "shapes": {m: [*s, BANDED_DH] for m, s in BANDED_SHAPES.items()}}
     if parent is not None:
-        out.update(parent_design=fns["parent"][1], paired_device_ms=paired, bit_equal=equal)
+        out.update(parent_design=fns["parent"][0], paired_device_ms=pairs, bit_equal=equal)
     return out
 
 
@@ -322,7 +440,7 @@ def run_softmax(parent) -> dict:
         return {}
     fns = {name: entry(name, ha.KERNEL, ha._ARGTYPES[ha.KERNEL]) for name in builds}
     rng = np.random.default_rng(0)
-    times, paired, equal = {}, {}, {}
+    times, pairs, equal = {}, {}, {}
     for model, (units, n) in SOFTMAX_SHAPES.items():
         adj = windowed_block_adj(2)[0] if model == "HWGATE" else hgate_block_adj()
         stack = 4 if model == "HWGATE" else 2
@@ -332,9 +450,9 @@ def run_softmax(parent) -> dict:
                                zero_quirk=True, prune_u=None)
         for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
             case = f"{model}/{str(dtype).split('.')[1]}"
-            outs = {name: torch.empty(s.shape, dtype=dtype, device="cuda") for name in fns}
+            outs = {name: [torch.empty(s.shape, dtype=dtype, device="cuda")] for name in fns}
             stream = torch.cuda.current_stream().cuda_stream
-            calls = {name: (lambda fn=fn, p=outs[name]: fn(
+            calls = {name: (lambda fn=fn, p=outs[name][0]: fn(
                 s.data_ptr(), p.data_ptr(), masks.data_ptr(), None, None, units, n, code, 1, 0,
                 stack, 0, 0, 0, stream)) for name, fn in fns.items()}
             for name in SOFTMAX_VARIANTS:
@@ -342,12 +460,125 @@ def run_softmax(parent) -> dict:
             times[f"torch.softmax/{case}"] = profiling.device_seconds(
                 lambda: torch.softmax(masked, -1), calls=20) * 1e3
             if parent is not None:
-                paired[case] = in_turns({"parent": calls["parent"], "full": calls["full"]})
-                equal[case] = torch.equal(outs["parent"], outs["full"])
+                pairs[case], equal[case] = paired(calls, outs)
     out = {"device_ms": times, "scores": {m: [u, n, n] for m, (u, n) in SOFTMAX_SHAPES.items()}}
     if parent is not None:
-        out.update(paired_device_ms=paired, bit_equal=equal)
+        out.update(paired_device_ms=pairs, bit_equal=equal)
     return out
+
+
+def variant_builds(csrc_designs, parent, fname: str, src: str) -> dict:
+    """({name: (design, entry)}, {name: ptxas lines}) of this checkout's
+    variants of ``src`` and, with ``parent``, the parent's ``full`` kernel,
+    built in parallel; ({}, {}) if a build failed."""
+    design, variants = design_of(_build.CSRC_DIR, fname, csrc_designs)
+    builds = {(name, design, _build.CSRC_DIR): edits for name, edits in variants.items()}
+    if parent is not None:
+        pcsrc = Path(parent) / "sl_hwgat_tpu_torch" / "csrc"
+        builds[("parent", design_of(pcsrc, fname, csrc_designs)[0], pcsrc)] = {}
+    jobs = {name: build_variant(name, edits, (src,), csrc, count_once=False)
+            for (name, _, csrc), edits in builds.items()}
+    ptxas = wait(jobs)
+    if ptxas is None:
+        return {}, {}
+    return {name: (d, entry(name, src, argtypes=_ARGTYPES_OF.get((src, d))))
+            for name, d, _ in builds}, ptxas
+
+
+def paired(calls: dict, outs: dict) -> tuple[dict, bool]:
+    """(parent and full timed in turns, whether their outputs are equal bit
+    for bit after one more call each)."""
+    times = in_turns({"parent": calls["parent"], "full": calls["full"]})
+    calls["parent"]()
+    calls["full"]()
+    torch.cuda.synchronize()
+    return times, all(torch.equal(a, b) for a, b in zip(outs["parent"], outs["full"]))
+
+
+def run_window32(parent) -> dict:
+    from sl_hwgat_tpu_torch.models.hwgate import shift_tail_mask
+
+    fns, ptxas = variant_builds(WINDOW32_DESIGNS, parent, WINDOW_BWD, wa.KERNEL_BWD)
+    if not fns:
+        return {}
+    adj = windowed_block_adj(2)[0]
+    masks = wa.device_masks(adj, adj * shift_tail_mask(16, 2, 1), "cuda")
+    # (dual, stack, units per temporal group, groups, unit offset): stage 0 at batch 16
+    modes = {"single": (0, 4, 0, 0, 0), "dual": (1, 4, 8, 96, 0)}
+    rng = np.random.default_rng(0)
+    shape = (WINDOW32_UNITS, 32, 64)
+    base = [rng.normal(size=shape).astype(np.float32) * (0.2 if i == 2 else 1.0)
+            for i in range(4)]
+    times, pairs, equal = {}, {}, {}
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        q, k, v, do = (torch.from_numpy(x).cuda().to(dtype) for x in base)
+        outs = {name: [torch.empty_like(q) for _ in range(3)] for name in fns}
+        stream = torch.cuda.current_stream().cuda_stream
+        for mode, mask_args in modes.items():
+            calls = {name: (lambda fn=fn, o=outs[name]: fn(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                *(t.data_ptr() for t in o), masks.data_ptr(), None, None, shape[0], shape[1],
+                shape[2], code, 0.125, 1, *mask_args, stream)) for name, (_, fn) in fns.items()}
+            case = f"{str(dtype).split('.')[1]}/{mode}"
+            if mode == "single":
+                for name in fns:
+                    if name != "parent":
+                        times[f"{name}/{case}"] = device_ms(calls[name])
+            if parent is not None:
+                pairs[case], equal[case] = paired(calls, outs)
+    out = {"design": fns["full"][0], "device_ms": times, "shape": list(shape), "ptxas": ptxas}
+    if parent is not None:
+        out.update(parent_design=fns["parent"][0], paired_device_ms=pairs, bit_equal=equal)
+    return out
+
+
+def run_banded_fwd(parent) -> dict:
+    fns, ptxas = variant_builds(BANDED_FWD_DESIGNS, parent, BANDED_FWD, ba.KERNEL)
+    if not fns:
+        return {}
+    rng = np.random.default_rng(0)
+    times, pairs, equal = {}, {}, {}
+    for model, (planes, frames, joints) in BANDED_SHAPES.items():
+        bands = dict(zip(("band", "nondiagonal_band"), banded_bands()[model]))
+        base = [rng.normal(size=(planes, frames * joints, BANDED_DH)).astype(np.float32)
+                for _ in range(3)]
+        for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+            inputs = [torch.from_numpy(x * (0.2 if i == 2 else 1.0)).cuda().to(dtype)
+                      for i, x in enumerate(base)]
+            outs = {name: [torch.empty(inputs[0].shape, device="cuda")] for name in fns}
+            for kind, band in bands.items():
+                case = f"{model}/{str(dtype).split('.')[1]}" + ("" if kind == "band" else f"/{kind}")
+                calls = {name: banded_fwd_call(fn, d, inputs + outs[name], band, planes, frames,
+                                               joints, code) for name, (d, fn) in fns.items()}
+                for name in fns:
+                    if name != "parent" and (kind == "band" or name == "full"):
+                        times[f"{name}/{case}"] = device_ms(calls[name])
+                if parent is not None:
+                    pairs[case], equal[case] = paired(calls, outs)
+    out = {"design": fns["full"][0], "device_ms": times,
+           "shapes": {m: [*s, BANDED_DH] for m, s in BANDED_SHAPES.items()}, "ptxas": ptxas}
+    if parent is not None:
+        out.update(parent_design=fns["parent"][0], paired_device_ms=pairs, bit_equal=equal)
+    return out
+
+
+def banded_fwd_call(fn, design: str, tensors, band, planes, frames, joints, code):
+    """A launch of the banded forward ``fn`` of ``design`` on ``tensors``
+    (q, k, v, o), f32 out."""
+    ptrs = [t.data_ptr() for t in tensors]
+    bits = ba._bits(band, "cuda").data_ptr()
+    stream = torch.cuda.current_stream().cuda_stream
+    if design == "recompute":
+        return lambda: fn(*ptrs, bits, planes, frames, joints, BANDED_DH, code, 0, BANDED_SCALE,
+                          stream)
+    return lambda: fn(*ptrs, bits, planes, frames, joints, BANDED_DH, code, 0,
+                      ba.edges_per_row(band), BANDED_SCALE, stream)
+
+
+# C signatures of older designs' entries that differ from the wrappers' own:
+# neither "recompute" design took edges_per_row
+_ARGTYPES_OF = {(ba.KERNEL, "recompute"): ["p"] * 5 + ["ll", "i", "i", "i", "i", "i", "f", "p"],
+                (ba.KERNEL_BWD, "recompute"): ["p"] * 8 + ["ll", "i", "i", "i", "i", "f", "p"]}
 
 
 def main(argv=None) -> int:
@@ -355,11 +586,13 @@ def main(argv=None) -> int:
         print("bench.ablate: no CUDA device", file=sys.stderr)
         return 1
     parser = argparse.ArgumentParser(prog="python -m sl_hwgat_tpu_torch.bench.ablate")
-    parser.add_argument("kernel", nargs="?", default="wide", choices=("wide", "banded", "softmax"))
+    parser.add_argument("kernel", nargs="?", default="wide",
+                        choices=("wide", "banded", "softmax", "window32", "banded_fwd"))
     parser.add_argument("--parent", type=Path, default=None,
                         help="another checkout whose kernel is timed in turns with this one")
     args = parser.parse_args(argv)
-    out = {"wide": run_wide, "banded": run_banded, "softmax": run_softmax}[args.kernel](args.parent)
+    out = {"wide": run_wide, "banded": run_banded, "softmax": run_softmax,
+           "window32": run_window32, "banded_fwd": run_banded_fwd}[args.kernel](args.parent)
     if not out:
         return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -49,19 +49,6 @@ namespace {
 
 using namespace battn;
 
-// 16 bytes from device memory into shared memory without a register or a
-// wait (cp.async, sm_80 and later); both addresses 16-byte aligned.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-// Wait for this thread's copies; a __syncthreads() after it shows all of the
-// block's.
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // Threads of a block: (128 / V + 2) * V query rows rounded up to warps, at
 // most 192 for V <= 32. The kernel carries no __launch_bounds__: under
 // __launch_bounds__(192) ptxas held the bf16 build to 80 registers with a
@@ -81,80 +68,6 @@ __host__ __device__ __forceinline__ int key_rows(int nv) {
 __host__ __device__ __forceinline__ int block_threads(int nv) {
   return (query_rows(nv) + 31) / 32 * 32;
 }
-
-// Staged token rows of kDH elements of T in shared memory: chunk c (16
-// bytes) of row r sits at chunk c ^ swizzle(r) of the row, so that the same
-// chunk of eight consecutive rows covers all 32 banks.
-template <typename T>
-struct Staged {
-  static constexpr int kChunks = kDH * static_cast<int>(sizeof(T)) / 16;  // 4 (f32), 2 (bf16)
-  static constexpr int kEpc = 16 / static_cast<int>(sizeof(T));           // elements per chunk
-  static constexpr int kShift = kChunks == 4 ? 1 : 2;
-
-  __device__ static __forceinline__ int chunk(int r, int c) {
-    return r * kChunks + (c ^ ((r >> kShift) & (kChunks - 1)));
-  }
-
-  // Row r -> kDH floats.
-  __device__ static __forceinline__ void row(const uint4* rows, int r, float (&x)[kDH]) {
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c)
-      load16(reinterpret_cast<const T*>(rows + chunk(r, c)), x + c * kEpc);
-  }
-
-  // a . row r in f32, in d order (as battn::dot), a chunk at a time.
-  __device__ static __forceinline__ float dot(const float (&a)[kDH], const uint4* rows, int r) {
-    float acc = 0.f;
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      float t[kEpc];
-      load16(reinterpret_cast<const T*>(rows + chunk(r, c)), t);
-#pragma unroll
-      for (int e = 0; e < kEpc; ++e) acc = fmaf(a[c * kEpc + e], t[e], acc);
-    }
-    return acc;
-  }
-
-  // row a of `ra` . row b of `rb`, in d order.
-  __device__ static __forceinline__ float dot(const uint4* ra, int a, const uint4* rb, int b) {
-    float acc = 0.f;
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      float s[kEpc], t[kEpc];
-      load16(reinterpret_cast<const T*>(ra + chunk(a, c)), s);
-      load16(reinterpret_cast<const T*>(rb + chunk(b, c)), t);
-#pragma unroll
-      for (int e = 0; e < kEpc; ++e) acc = fmaf(s[e], t[e], acc);
-    }
-    return acc;
-  }
-
-  // acc += w * row r.
-  __device__ static __forceinline__ void axpy(float w, const uint4* rows, int r,
-                                              float (&acc)[kDH]) {
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      float t[kEpc];
-      load16(reinterpret_cast<const T*>(rows + chunk(r, c)), t);
-#pragma unroll
-      for (int e = 0; e < kEpc; ++e) acc[c * kEpc + e] = fmaf(w, t[e], acc[c * kEpc + e]);
-    }
-  }
-
-  // Frames [first, last] (clipped to [0, frames)) of a plane into rows
-  // starting at `dst`, frame `first` at row 0, by cp.async.
-  __device__ static __forceinline__ void stage(const T* __restrict__ plane, int first, int last,
-                                               int frames, int nv, uint4* dst) {
-    const int lo = first < 0 ? 0 : first;
-    const int hi = last >= frames ? frames - 1 : last;
-    if (hi < lo) return;
-    const int r0 = (lo - first) * nv;
-    const T* src = plane + static_cast<long long>(lo) * nv * kDH;
-    const int n = (hi - lo + 1) * nv * kChunks;
-    for (int e = threadIdx.x; e < n; e += blockDim.x)
-      cp_async16(dst + chunk(r0 + e / kChunks, e % kChunks), src + e * kEpc);
-  }
-};
 
 // Shared memory of one block, in bytes: q, dO (query rows) and k, v (key
 // rows) in T; the band bits (6 x 32 words); (max, sum, D) of every query row

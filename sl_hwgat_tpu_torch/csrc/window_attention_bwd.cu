@@ -20,24 +20,36 @@
 //
 // Bound on an H100 SXM: bytes. A call reads q, k, v, dO and writes dq, dk,
 // dv once: 7 * U * 32 * DH elements, 352 MB in bf16 at U = 12288, DH = 64
-// (105 us at 3.35 TB/s), against 8.05 GFLOP (8 us on the bf16 tensor cores,
-// 120 us as f32 on the CUDA cores, which is what this kernel uses).
+// (105 us at 3.35 TB/s), against 8.05 GFLOP (8 us on the bf16 tensor cores);
+// in f32 705 MB (210 us) against 120 us of f32 CUDA-core work.
 //
-// Work split: one warp per unit, kWarps units per block, no block barriers,
-// and one 8 KB buffer of shared memory per warp, used three times in turn:
-//   Row phase, lane i owns query row i: K (f32) in the buffer, scores of row
-//   i as broadcast reads, A and its passthrough bits; then V (f32) in the
-//   buffer, dA of row i (dO row i read in 32-column halves, which keeps the
-//   registers at 128), dS of row i. Then T(A) and dS go into the buffer as
-//   two 32 x 32 tiles, XOR-swizzled so that the row writes hit 32 banks.
-//   Column phase, lane d owns columns d and d + 32: dV = T(A)^T dO,
-//   dK = dS^T Q and dQ = dS K, each with the source's columns in registers
-//   (coalesced loads), the tile's entries as broadcast reads, and coalesced
-//   stores.
-// At 128 registers and 32 KB per block, four blocks (16 warps) fit an SM.
-// ptxas spills 100-260 bytes per thread to stay at 128; left alone it takes
-// 228-242 registers, which fits only two blocks per SM, and the kernel is
-// slower for it.
+// Units of 32 tokens (window_attention_bwd_kernel, HWGATE): one warp per
+// unit, kWarps units per block, no block barriers; each warp stages its
+// unit in its own shared memory by cp.async.
+//   Row phase, lane i owns query row i: A and its pass bits from K1's own
+//   routine (attention_row of window_attention_common.cuh, keys as f32 rows),
+//   so the forward's A, prune decisions included, comes out bit for bit.
+//   Then dA = dO V^T and dS = T(A o (dA - rowsum(dA o A)) o pass).
+//   Product phase, on two 16-row strips of the unit's outputs:
+//   dV = T(A)^T dO, dK = T((dS^T Q) * scale), dQ = T((dS K) * scale).
+// f32 (4 warps a block, 16 KB a warp, 3 blocks an SM): K and V staged, dO's
+// row read by its lane; dA as f32 FMA chains over d (V's rows read as
+// broadcasts), dS per row; T(A) and dS into swizzled 32 x 32 f32 tiles over
+// V; the products in 4 x 8 register tiles (tile_product_of of
+// window_attention_wide.cuh): dQ against K, then dV against dO and dK
+// against Q, each staged in turn over K's rows. Every sum runs over m (or d)
+// ascending by fused multiply-adds from 0, so dq, dk and dv are those of the
+// one-lane-per-row design before it, bit for bit.
+// bf16 (a warp a block, 26 KB a warp, 8 blocks an SM): q, k, v and dO
+// staged as bf16 tiles with 16 bytes of row padding, K also as f32 rows for
+// the scores. dA runs on the tensor cores (mma.sync m16n8k16, f32 sums) on
+// the accumulator layout, where A meets it through a shared f32 tile (its
+// sign bit set where no gradient passes); dS then stays in registers as
+// dQ's A operand, and goes as a bf16 tile, with T(A), to dV and dK
+// (ldmatrix.trans).
+// The products, 80% of the FMAs, take 4 x 8 register tiles or the tensor
+// cores instead of one 32-wide column array a lane, so nothing spills.
+//
 // Units of up to 64 tokens (window_attention_bwd_wide_kernel, HGATE's 58):
 // one block of 4 warps per unit; q, k, v and dO staged in shared memory by
 // cp.async beside the f32 score tiles of the forward (70 KB in bf16, 102 KB
@@ -62,100 +74,86 @@ namespace {
 
 using namespace wattn;
 
-constexpr int kWarps = 4;
-constexpr int kMinBlocks = 4;  // per SM: caps the registers at 128
+// 32-token units a block, one a warp.
+template <typename T> constexpr int kWarps = std::is_same<T, float>::value ? 4 : 1;
+constexpr int kTStride = kN + 8;   // bf16 32 x 32 tiles: 16 bytes of row padding
+constexpr int kXStride = kN + 4;   // the f32 A tile of the bf16 path
 
-// Floats of shared memory per warp: K, then V, then the two tiles.
-template <int DH> constexpr int kBufFloats = kN * DH > 2 * kN * kN ? kN * DH : 2 * kN * kN;
+// Rows of a bf16 tile of DH columns: 16 bytes of padding.
+template <int DH> constexpr int kRowStride = DH + 8;
 
-// Entry (r, c) of a swizzled 32 x 32 tile.
-__device__ __forceinline__ int tile_at(int r, int c) { return r * kN + (c ^ r); }
+// Shared memory of one warp, bytes. f32: K (f32 rows, DH apart), whose
+// space dO and then Q take over once dQ is done; V, whose space the T(A) and
+// dS tiles take over. bf16: the q, k, v, dO tiles, then K as f32 rows, whose
+// space the f32 A tile and the T(A) tile take over (dS takes V's).
+template <typename T, int DH>
+constexpr int kWarpBytes =
+    std::is_same<T, float>::value
+        ? 4 * (kN * DH + (kN * DH > 2 * kN * kN ? kN * DH : 2 * kN * kN))
+        : 4 * kN * kRowStride<DH> * 2 +
+              (kN * DH * 4 > kN * kXStride * 4 + kN * kTStride * 2 ? kN * DH * 4
+                                                                   : kN * kXStride * 4 +
+                                                                         kN * kTStride * 2);
+template <typename T, int DH> constexpr int kBlockBytes = kWarps<T> * kWarpBytes<T, DH>;
+// Blocks an SM holds by shared memory (228 KB, 1 KB of it reserved per
+// block), at most 12 warps' worth, so that a thread may take 168 registers.
+template <typename T, int DH>
+constexpr int kBlocksPerSm = 233472 / (kBlockBytes<T, DH> + 1024) < 12 / kWarps<T>
+                                 ? 233472 / (kBlockBytes<T, DH> + 1024)
+                                 : 12 / kWarps<T>;
 
-// out[r, d] = T(scale * sum_m tile(r, m) src[m, d]) for every row r, where
-// tile(r, m) is the tile's entry (r, m), or (m, r) when kTranspose: lane
-// owns columns lane + 32c, src's columns are in registers.
-template <typename T, int DH, bool kTranspose>
-__device__ __forceinline__ void column_product(const T* __restrict__ src, const float* tile,
-                                               T* __restrict__ out, int lane, float scale) {
-  constexpr int kCols = DH / 32;
-  float col[kN][kCols];
+// The unit's 32 rows of DH elements (device memory, rows DH apart) into a
+// shared tile of rows S elements apart, by cp.async: 16-byte chunks, one
+// lane after another.
+template <typename T, int DH, int S>
+__device__ __forceinline__ void stage_unit(const T* __restrict__ src, T* dst, int lane) {
+  constexpr int kEpc = 16 / sizeof(T), kChunks = DH / kEpc;
 #pragma unroll
-  for (int m = 0; m < kN; ++m)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) col[m][c] = to_float(src[m * DH + c * 32 + lane]);
-  for (int r = 0; r < kN; ++r) {
-    float acc[kCols];
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[c] = 0.f;
-#pragma unroll
-    for (int m = 0; m < kN; ++m) {
-      const float t = tile[kTranspose ? tile_at(m, r) : tile_at(r, m)];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[c] = fmaf(t, col[m][c], acc[c]);
-    }
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) out[r * DH + c * 32 + lane] = from_float<T>(acc[c] * scale);
-  }
+  for (int c = lane; c < kN * kChunks; c += 32)
+    wide::cp_async16(dst + c / kChunks * S + c % kChunks * kEpc, src + c * kEpc);
 }
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
-window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v, const T* __restrict__ dout,
-                            T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
-                            const uint32_t* __restrict__ masks,
-                            const int* __restrict__ sel,
-                            const float* __restrict__ prune_u, long long units,
-                            float scale, int zero_quirk, int dual, int stack,
-                            int per_group, int groups, long long unit_offset) {
-  constexpr int kEpv = 16 / sizeof(T);  // elements per 16-byte load
-  __shared__ __align__(16) float smem[kWarps][kBufFloats<DH>];
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long unit = static_cast<long long>(blockIdx.x) * kWarps + warp;
-  if (unit >= units) return;
-  const long long base = unit * kN * DH;
-  const long long row = base + static_cast<long long>(lane) * DH;
-  float* buf = smem[warp];
-
-  // Scores, prune, mask and softmax of row `lane` against K, recomputed as
-  // the forward computes them.
-  stage_rows<T, DH, 32>(k + base, buf, lane, kN);
+// One 32-token unit in f32 (pointers at the unit's first row).
+template <int DH, typename AllowedRow>
+__device__ __forceinline__ void unit_bwd(const float* __restrict__ q, const float* __restrict__ k,
+                                         const float* __restrict__ v,
+                                         const float* __restrict__ dout, float* __restrict__ dq,
+                                         float* __restrict__ dk, float* __restrict__ dv,
+                                         unsigned char* smem, int lane, float scale,
+                                         const float* __restrict__ prune_u,
+                                         AllowedRow allowed_row, int zero_quirk) {
+  float* kf = reinterpret_cast<float*>(smem);  // K: the keys and dQ's B; then dO, then Q
+  float* vf = kf + kN * DH;                    // V, then the T(A) and dS tiles
+  stage_unit<float, DH, DH>(k, kf, lane);
+  stage_unit<float, DH, DH>(v, vf, lane);
   float a[kN];
   uint32_t pass;
   {
     float qr[DH];
-    load_scaled_row<T, DH>(q + row, scale, qr);
+    load_scaled_row<float, DH>(q + lane * DH, scale, qr);
+    wide::cp_async_wait_all();
     __syncwarp();
-    const auto allowed_row = [&] {
-      return masks[mask_plane(unit, dual, sel, stack, per_group, groups, unit_offset) * kN +
-                   lane];
-    };
     float sum;
-    pass = attention_row<kN, DH>(qr, buf, kN, prune_u, allowed_row, zero_quirk, a, sum);
+    pass = attention_row<kN, DH>(qr, kf, kN, prune_u, allowed_row, zero_quirk, a, sum);
 #pragma unroll
     for (int j = 0; j < kN; ++j) a[j] = a[j] / sum;
   }
 
-  // dA row `lane` = dO row . V rows, then dS in place. K is dead in every lane.
-  __syncwarp();
-  stage_rows<T, DH, 32>(v + base, buf, lane, kN);
-  __syncwarp();
+  // dA row `lane` = dO row . V rows (d ascending from 0), then dS in place.
   float ds[kN];
 #pragma unroll
   for (int j = 0; j < kN; ++j) ds[j] = 0.f;
 #pragma unroll
-  for (int h = 0; h < DH; h += 32) {
-    float dor[32];
+  for (int h = 0; h < DH; h += 16) {  // dO's row 16 columns at a time
+    float dor[16];
 #pragma unroll
-    for (int c = 0; c < 32 / kEpv; ++c) load16(dout + row + h + c * kEpv, dor + c * kEpv);
+    for (int c = 0; c < 4; ++c) load16(dout + lane * DH + h + c * 4, dor + c * 4);
 #pragma unroll
     for (int j = 0; j < kN; ++j) {
-      const float4* vr = reinterpret_cast<const float4*>(buf + j * DH + h);
+      const float4* vr = reinterpret_cast<const float4*>(vf + j * DH + h);
       float acc = ds[j];
 #pragma unroll
-      for (int d4 = 0; d4 < 8; ++d4) {
+      for (int d4 = 0; d4 < 4; ++d4) {
         const float4 vv = vr[d4];
         acc = fmaf(dor[4 * d4], vv.x, acc);
         acc = fmaf(dor[4 * d4 + 1], vv.y, acc);
@@ -171,23 +169,193 @@ window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int j = 0; j < kN; ++j) {
     const float g = a[j] * (ds[j] - rowsum);
-    ds[j] = round_to<T>(((pass >> j) & 1u) ? g : 0.f);
+    ds[j] = ((pass >> j) & 1u) ? g : 0.f;
   }
 
-  // V is dead in every lane: T(A) and dS into their tiles.
-  float* at = buf;
-  float* dst = buf + kN * kN;
+  // V is dead in every lane: T(A) and dS into their tiles, row `lane`.
+  float* at = vf;
+  float* dst = vf + kN * kN;
   __syncwarp();
 #pragma unroll
-  for (int j = 0; j < kN; ++j) {
-    at[tile_at(lane, j)] = round_to<T>(a[j]);
-    dst[tile_at(lane, j)] = ds[j];
+  for (int c = 0; c < kN; c += 4) {
+    const int i = wide::Swizzled32::at(lane, c);
+    *reinterpret_cast<float4*>(at + i) = make_float4(a[c], a[c + 1], a[c + 2], a[c + 3]);
+    *reinterpret_cast<float4*>(dst + i) = make_float4(ds[c], ds[c + 1], ds[c + 2], ds[c + 3]);
   }
   __syncwarp();
 
-  column_product<T, DH, true>(dout + base, at, dv + base, lane, 1.f);
-  column_product<T, DH, true>(q + base, dst, dk + base, lane, scale);
-  column_product<T, DH, false>(k + base, dst, dq + base, lane, scale);
+  // dQ, then dV, then dK, each as two 16-row strips of 4 x 8 register tiles;
+  // dO and then Q take K's rows.
+  constexpr int kHalves = DH / 32;
+  float acc[4][4 * kHalves];
+#pragma unroll 1
+  for (int r0 = 0; r0 < kN; r0 += 16) {
+    wide::tile_product_of<false, kN, kHalves>(wide::Swizzled32{dst}, wide::Shared<DH>{kf}, r0,
+                                             lane, acc);
+    wide::store_tile_of<false, DH>(dq, acc, r0, lane, kN, scale);
+  }
+  __syncwarp();  // K is dead in every lane
+  stage_unit<float, DH, DH>(dout, kf, lane);
+  wide::cp_async_wait_all();
+  __syncwarp();
+#pragma unroll 1
+  for (int r0 = 0; r0 < kN; r0 += 16) {
+    wide::tile_product_of<true, kN, kHalves>(wide::Swizzled32{at}, wide::Shared<DH>{kf}, r0,
+                                            lane, acc);
+    wide::store_tile_of<true, DH>(dv, acc, r0, lane, kN, 1.f);
+  }
+  __syncwarp();  // dO is dead in every lane
+  stage_unit<float, DH, DH>(q, kf, lane);
+  wide::cp_async_wait_all();
+  __syncwarp();
+#pragma unroll 1
+  for (int r0 = 0; r0 < kN; r0 += 16) {
+    wide::tile_product_of<true, kN, kHalves>(wide::Swizzled32{dst}, wide::Shared<DH>{kf}, r0,
+                                            lane, acc);
+    wide::store_tile_of<true, DH>(dk, acc, r0, lane, kN, scale);
+  }
+}
+
+// One 32-token unit in bf16 (pointers at the unit's first row).
+template <int DH, typename AllowedRow>
+__device__ __forceinline__ void unit_bwd(const __nv_bfloat16* __restrict__ q,
+                                         const __nv_bfloat16* __restrict__ k,
+                                         const __nv_bfloat16* __restrict__ v,
+                                         const __nv_bfloat16* __restrict__ dout,
+                                         __nv_bfloat16* __restrict__ dq,
+                                         __nv_bfloat16* __restrict__ dk,
+                                         __nv_bfloat16* __restrict__ dv, unsigned char* smem,
+                                         int lane, float scale, const float* __restrict__ prune_u,
+                                         AllowedRow allowed_row, int zero_quirk) {
+  using bf16 = __nv_bfloat16;
+  constexpr int S = kRowStride<DH>;
+  bf16* qt = reinterpret_cast<bf16*>(smem);
+  bf16* kt = qt + kN * S;
+  bf16* vt = kt + kN * S;
+  bf16* dot = vt + kN * S;
+  float* kf = reinterpret_cast<float*>(dot + kN * S);  // K as f32 rows, DH apart
+  float* ax = kf;  // then A, row r at r * kXStride, sign bit set where no gradient passes
+  bf16* at = reinterpret_cast<bf16*>(ax + kN * kXStride);  // T(A), kTStride apart
+  bf16* dst = vt;  // dS, kTStride apart, once V is dead
+  stage_unit<bf16, DH, S>(q, qt, lane);
+  stage_unit<bf16, DH, S>(k, kt, lane);
+  stage_unit<bf16, DH, S>(v, vt, lane);
+  stage_unit<bf16, DH, S>(dout, dot, lane);
+  wide::cp_async_wait_all();
+  __syncwarp();
+#pragma unroll
+  for (int c = lane; c < kN * DH / 8; c += 32) {
+    const int r = c / (DH / 8), x = (c % (DH / 8)) * 8;
+    float t[8];
+    load16(kt + r * S + x, t);
+    *reinterpret_cast<float4*>(kf + r * DH + x) = make_float4(t[0], t[1], t[2], t[3]);
+    *reinterpret_cast<float4*>(kf + r * DH + x + 4) = make_float4(t[4], t[5], t[6], t[7]);
+  }
+  __syncwarp();
+  float a[kN];
+  uint32_t pass;
+  {
+    float qr[DH];
+    load_scaled_row<bf16, DH>(qt + lane * S, scale, qr);
+    float sum;
+    pass = attention_row<kN, DH>(qr, kf, kN, prune_u, allowed_row, zero_quirk, a, sum);
+#pragma unroll
+    for (int j = 0; j < kN; ++j) a[j] = a[j] / sum;
+  }
+
+  // K's f32 rows are dead in every lane: A with its pass signs, and T(A).
+  __syncwarp();
+#pragma unroll
+  for (int c = 0; c < kN; c += 4) {
+    float x[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      x[e] = __uint_as_float(__float_as_uint(a[c + e]) | (((pass >> (c + e)) & 1u) ? 0u : 0x80000000u));
+    *reinterpret_cast<float4*>(ax + lane * kXStride + c) = make_float4(x[0], x[1], x[2], x[3]);
+  }
+#pragma unroll
+  for (int c = 0; c < kN; c += 8)
+    *reinterpret_cast<uint4*>(at + lane * kTStride + c) =
+        make_uint4(wide::pack_bf16(a[c], a[c + 1]), wide::pack_bf16(a[c + 2], a[c + 3]),
+                   wide::pack_bf16(a[c + 4], a[c + 5]), wide::pack_bf16(a[c + 6], a[c + 7]));
+
+  // dA = dO V^T on the accumulator layout, both strips.
+  float da[2][kN / 8][4];
+  wide::strip_abt<DH, S>(dot, vt, 0, lane, da[0]);
+  wide::strip_abt<DH, S>(dot, vt, 16, lane, da[1]);
+  __syncwarp();  // A's tiles are complete; V is dead in every lane
+
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int st = 0; st < 2; ++st) {
+    float(&ds)[kN / 8][4] = da[st];
+    const int r0 = 16 * st;
+    // dS = T(A o (dA - rowsum(dA o A)) o pass)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float* arow = ax + (r0 + g + 8 * h) * kXStride + 2 * t;
+      float av[kN / 8][2];
+      float rowsum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j) {
+        const float2 x = *reinterpret_cast<const float2*>(arow + 8 * j);
+        av[j][0] = x.x;
+        av[j][1] = x.y;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) rowsum += ds[j][2 * h + e] * fabsf(av[j][e]);
+      }
+      rowsum = wide::quad_sum(rowsum);
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float g2 = fabsf(av[j][e]) * (ds[j][2 * h + e] - rowsum);
+          ds[j][2 * h + e] = round_to<bf16>(__float_as_uint(av[j][e]) >> 31 ? 0.f : g2);
+        }
+    }
+    // dQ = T((dS K) * scale) for the strip's query rows.
+    uint32_t p[kN / 16][4];
+    wide::to_a_operand(ds, p);
+    float acc[DH / 8][4];
+    wide::strip_ab<S>(p, kt, lane, acc);
+    wide::store_strip<DH>(dq, acc, r0, lane, kN, scale);
+    wide::write_strip<bf16, kTStride>(dst, ds, r0, lane);
+  }
+  __syncwarp();  // the dS tile is complete
+
+  // dV = T(A)^T dO and dK = T((dS^T Q) * scale) for key rows r0 .. r0 + 15.
+#pragma unroll 1
+  for (int r0 = 0; r0 < kN; r0 += 16) {
+    float acc[DH / 8][4];
+    wide::strip_atb<kN / 16, kTStride, S>(at, dot, r0, lane, acc);
+    wide::store_strip<DH>(dv, acc, r0, lane, kN, 1.f);
+    wide::strip_atb<kN / 16, kTStride, S>(dst, qt, r0, lane, acc);
+    wide::store_strip<DH>(dk, acc, r0, lane, kN, scale);
+  }
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(kWarps<T> * 32, kBlocksPerSm<T, DH>)
+window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, const T* __restrict__ dout,
+                            T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
+                            const uint32_t* __restrict__ masks,
+                            const int* __restrict__ sel,
+                            const float* __restrict__ prune_u, long long units,
+                            float scale, int zero_quirk, int dual, int stack,
+                            int per_group, int groups, long long unit_offset) {
+  extern __shared__ __align__(16) unsigned char unit_smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long unit = static_cast<long long>(blockIdx.x) * kWarps<T> + warp;
+  if (unit >= units) return;
+  const long long base = unit * kN * DH;
+  const auto allowed_row = [&] {
+    return masks[mask_plane(unit, dual, sel, stack, per_group, groups, unit_offset) * kN + lane];
+  };
+  unit_bwd<DH>(q + base, k + base, v + base, dout + base, dq + base, dk + base, dv + base,
+               unit_smem + warp * kWarpBytes<T, DH>, lane, scale, prune_u, allowed_row,
+               zero_quirk);
 }
 
 // Units of n <= 64 tokens, DH = 64: one block of wide::kThreads per unit,
@@ -308,8 +476,14 @@ struct Args {
 
 template <typename T, int DH>
 cudaError_t launch(const Args& a) {
-  const long long blocks = (a.units + kWarps - 1) / kWarps;
-  window_attention_bwd_kernel<T, DH><<<static_cast<unsigned>(blocks), kWarps * 32, 0, a.stream>>>(
+  const long long blocks = (a.units + kWarps<T> - 1) / kWarps<T>;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(window_attention_bwd_kernel<T, DH>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               kBlockBytes<T, DH>);
+  if (err != cudaSuccess) return err;
+  window_attention_bwd_kernel<T, DH><<<static_cast<unsigned>(blocks), kWarps<T> * 32,
+                                       kBlockBytes<T, DH>, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), static_cast<T*>(a.dq), static_cast<T*>(a.dk),
       static_cast<T*>(a.dv), static_cast<const uint32_t*>(a.masks), a.sel, a.prune_u, a.units,
@@ -363,4 +537,16 @@ extern "C" int window_attention_bwd(const void* q, const void* k, const void* v,
   if (dtype == 0) err = launch_dh<float>(dh, a);
   else if (dtype == 1) err = launch_dh<__nv_bfloat16>(dh, a);
   return static_cast<int>(err);
+}
+
+// The dynamic shared memory (bytes) and threads of one block of the
+// 32-token kernel for head dim `dh` and dtype code `dtype`. Returns a
+// cudaError_t.
+extern "C" int window_attention_bwd_block(int dh, int dtype, int* smem, int* threads) {
+  if ((dh != 32 && dh != 64) || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  *smem = dtype == 0 ? (dh == 32 ? kBlockBytes<float, 32> : kBlockBytes<float, 64>)
+                     : (dh == 32 ? kBlockBytes<__nv_bfloat16, 32> : kBlockBytes<__nv_bfloat16, 64>);
+  *threads = (dtype == 0 ? kWarps<float> : kWarps<__nv_bfloat16>) * 32;
+  return 0;
 }

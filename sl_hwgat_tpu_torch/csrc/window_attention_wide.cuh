@@ -129,21 +129,22 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float
 }
 
 // Rows r0 .. r0 + 15 of the accumulator layout (x[j][2h + e] = row
-// r0 + g + 8h, column 8j + 2t + e) into a shared tile, in T.
-template <typename T>
-__device__ __forceinline__ void write_strip(T* tile, const float (&x)[8][4], int r0, int lane) {
+// r0 + g + 8h, column 8j + 2t + e) into a shared tile of rows S elements
+// apart, in T.
+template <typename T, int S = kStride<T>, int kNT>
+__device__ __forceinline__ void write_strip(T* tile, const float (&x)[kNT][4], int r0, int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int h = 0; h < 2; ++h)
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      store2(tile + (r0 + g + 8 * h) * kStride<T> + 8 * j + 2 * t, x[j][2 * h], x[j][2 * h + 1]);
+    for (int j = 0; j < kNT; ++j)
+      store2(tile + (r0 + g + 8 * h) * S + 8 * j + 2 * t, x[j][2 * h], x[j][2 * h + 1]);
 }
 
 // The same rows, times `scale` and rounded to TO, into the unit's rows
-// (kDH apart) in device memory; rows >= n do not exist.
-template <typename TO>
-__device__ __forceinline__ void store_strip(TO* __restrict__ out, const float (&x)[8][4], int r0,
+// (DH apart) in device memory; rows >= n do not exist.
+template <int DH = kDH, typename TO, int kNT>
+__device__ __forceinline__ void store_strip(TO* __restrict__ out, const float (&x)[kNT][4], int r0,
                                             int lane, int n, float scale) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -151,8 +152,8 @@ __device__ __forceinline__ void store_strip(TO* __restrict__ out, const float (&
     const int row = r0 + g + 8 * h;
     if (row < n)
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        store2(out + row * kDH + 8 * j + 2 * t, x[j][2 * h] * scale, x[j][2 * h + 1] * scale);
+      for (int j = 0; j < kNT; ++j)
+        store2(out + row * DH + 8 * j + 2 * t, x[j][2 * h] * scale, x[j][2 * h + 1] * scale);
   }
 }
 
@@ -181,25 +182,26 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void zero(float (&acc)[8][4]) {
+template <int kNT>
+__device__ __forceinline__ void zero(float (&acc)[kNT][4]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < kNT; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
 }
 
 // acc = X[r0 .. r0 + 15] Y^T on the accumulator layout (tile j: Y's rows
-// 8j .. 8j + 7).
+// 8j .. 8j + 7) over kDepth columns; rows S elements apart.
+template <int kDepth = kDH, int S = kStride<__nv_bfloat16>, int kNT>
 __device__ __forceinline__ void strip_abt(const __nv_bfloat16* xs, const __nv_bfloat16* ys,
-                                          int r0, int lane, float (&acc)[8][4]) {
-  constexpr int S = kStride<__nv_bfloat16>;
+                                          int r0, int lane, float (&acc)[kNT][4]) {
   zero(acc);
 #pragma unroll
-  for (int kk = 0; kk < kDH / 16; ++kk) {
+  for (int kk = 0; kk < kDepth / 16; ++kk) {
     uint32_t a[4];
     ldsm_x4(a, xs + (r0 + (lane & 15)) * S + 16 * kk + (lane >> 4) * 8);
 #pragma unroll
-    for (int jp = 0; jp < 4; ++jp) {  // Y rows 16jp .. 16jp + 15: tiles 2jp, 2jp + 1
+    for (int jp = 0; jp < kNT / 2; ++jp) {  // Y rows 16jp .. 16jp + 15: tiles 2jp, 2jp + 1
       uint32_t b[4];
       ldsm_x4(b, ys + (16 * jp + (lane & 7) + ((lane >> 4) << 3)) * S + 16 * kk +
                      ((lane >> 3) & 1) * 8);
@@ -209,12 +211,14 @@ __device__ __forceinline__ void strip_abt(const __nv_bfloat16* xs, const __nv_bf
   }
 }
 
-// The accumulator layout of rows r0 .. r0 + 15 over 64 columns, rounded to
-// bf16, as the A operands of the four k-steps of a product over those
+// The accumulator layout of rows r0 .. r0 + 15 over 16 kKS columns, rounded
+// to bf16, as the A operands of the kKS k-steps of a product over those
 // columns (the register reuse of FlashAttention-2).
-__device__ __forceinline__ void to_a_operand(const float (&x)[8][4], uint32_t (&p)[4][4]) {
+template <int kNT, int kKS>
+__device__ __forceinline__ void to_a_operand(const float (&x)[kNT][4], uint32_t (&p)[kKS][4]) {
+  static_assert(kNT == 2 * kKS, "two accumulator tiles per k-step");
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < kKS; ++kk) {
     p[kk][0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
     p[kk][1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
     p[kk][2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
@@ -222,15 +226,16 @@ __device__ __forceinline__ void to_a_operand(const float (&x)[8][4], uint32_t (&
   }
 }
 
-// acc = P Y: P (16 x 64) as A operands, Y a 64 x 64 tile read across rows.
-__device__ __forceinline__ void strip_ab(const uint32_t (&p)[4][4], const __nv_bfloat16* ys,
-                                         int lane, float (&acc)[8][4]) {
-  constexpr int S = kStride<__nv_bfloat16>;
+// acc = P Y: P (16 x 16 kKS) as A operands, Y a tile of 16 kKS rows, S
+// elements apart, read across rows.
+template <int S = kStride<__nv_bfloat16>, int kKS, int kNT>
+__device__ __forceinline__ void strip_ab(const uint32_t (&p)[kKS][4], const __nv_bfloat16* ys,
+                                         int lane, float (&acc)[kNT][4]) {
   zero(acc);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < kKS; ++kk)
 #pragma unroll
-    for (int jp = 0; jp < 4; ++jp) {  // output columns 16jp .. 16jp + 15
+    for (int jp = 0; jp < kNT / 2; ++jp) {  // output columns 16jp .. 16jp + 15
       uint32_t b[4];
       ldsm_x4_trans(b, ys + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * S + 16 * jp +
                            (lane >> 4) * 8);
@@ -239,21 +244,22 @@ __device__ __forceinline__ void strip_ab(const uint32_t (&p)[4][4], const __nv_b
     }
 }
 
-// acc = X[:, r0 .. r0 + 15]^T Y: the transposed product over the 64 rows
-// of two tiles (dV = A^T dO, dK = dS^T Q), for output rows r0 .. r0 + 15.
+// acc = X[:, r0 .. r0 + 15]^T Y: the transposed product over the 16 kKS
+// rows of two tiles (dV = A^T dO, dK = dS^T Q), for output rows r0 .. r0 +
+// 15; X's rows SX elements apart, Y's SY.
+template <int kKS = kRows / 16, int SX = kStride<__nv_bfloat16>, int SY = SX, int kNT>
 __device__ __forceinline__ void strip_atb(const __nv_bfloat16* xs, const __nv_bfloat16* ys,
-                                          int r0, int lane, float (&acc)[8][4]) {
-  constexpr int S = kStride<__nv_bfloat16>;
+                                          int r0, int lane, float (&acc)[kNT][4]) {
   zero(acc);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < kKS; ++kk) {
     uint32_t a[4];
-    ldsm_x4_trans(a, xs + (16 * kk + (lane & 7) + ((lane >> 4) << 3)) * S + r0 +
+    ldsm_x4_trans(a, xs + (16 * kk + (lane & 7) + ((lane >> 4) << 3)) * SX + r0 +
                          ((lane >> 3) & 1) * 8);
 #pragma unroll
-    for (int jp = 0; jp < 4; ++jp) {
+    for (int jp = 0; jp < kNT / 2; ++jp) {
       uint32_t b[4];
-      ldsm_x4_trans(b, ys + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * S + 16 * jp +
+      ldsm_x4_trans(b, ys + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * SY + 16 * jp +
                            (lane >> 4) * 8);
       mma_bf16(acc[2 * jp], a, b[0], b[1]);
       mma_bf16(acc[2 * jp + 1], a, b[2], b[3]);
@@ -316,6 +322,70 @@ __device__ __forceinline__ int tile_row(int lane, int ii) {
   return kTransA ? 4 * (lane >> 3) + ii : (lane >> 3) + 4 * ii;
 }
 
+// f32 rows of a shared tile, read 4 floats at a time (c a multiple of 4):
+// rows S floats apart (Shared), or a 32 x 32 tile whose 16-byte chunk c / 4
+// of row r sits at chunk (c / 4) ^ (r % 8) (Swizzled32: a lane's row writes
+// and both of tile_product's reads meet no bank conflicts).
+template <int S>
+struct Shared {
+  const float* p;
+  __device__ __forceinline__ float4 ld4(int r, int c) const { return lds4(p + r * S + c); }
+};
+struct Swizzled32 {
+  float* p;
+  __device__ __forceinline__ static int at(int r, int c) {
+    return r * 32 + (((c >> 2) ^ r) & 7) * 4 + (c & 3);
+  }
+  __device__ __forceinline__ float4 ld4(int r, int c) const { return lds4(p + at(r, c)); }
+};
+
+// acc = A B for rows r0 .. r0 + 15 of A (kTransA: of A^T, i.e. A's columns)
+// over the kK rows of B, in 4 x 4 kHalves register tiles: entry [ii][c] is
+// row r0 + tile_row(ii), column 32 (c / 4) + 4cg + c % 4. Each entry is
+// summed one fused multiply-add after another over k = 0 .. kK - 1 from 0.
+template <bool kTransA, int kK, int kHalves, typename TA, typename TB>
+__device__ __forceinline__ void tile_product_of(const TA& as, const TB& bs, int r0, int lane,
+                                                float (&acc)[4][4 * kHalves]) {
+  const int cg = lane & 7;
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+    for (int c = 0; c < 4 * kHalves; ++c) acc[ii][c] = 0.f;
+#pragma unroll 1
+  for (int k = 0; k < kK; k += 4) {
+    float a[4][4];  // a[ii][kk] = A(row ii, k + kk)
+    if (kTransA) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 x = as.ld4(k + kk, r0 + tile_row<true>(lane, 0));
+        a[0][kk] = x.x; a[1][kk] = x.y; a[2][kk] = x.z; a[3][kk] = x.w;
+      }
+    } else {
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) {
+        const float4 x = as.ld4(r0 + tile_row<false>(lane, ii), k);
+        a[ii][0] = x.x; a[ii][1] = x.y; a[ii][2] = x.z; a[ii][3] = x.w;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float4 b[kHalves];
+#pragma unroll
+      for (int hh = 0; hh < kHalves; ++hh) b[hh] = bs.ld4(k + kk, 32 * hh + 4 * cg);
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) {
+        const float x = a[ii][kk];
+#pragma unroll
+        for (int hh = 0; hh < kHalves; ++hh) {
+          float* y = acc[ii] + 4 * hh;
+          y[0] = fmaf(x, b[hh].x, y[0]); y[1] = fmaf(x, b[hh].y, y[1]);
+          y[2] = fmaf(x, b[hh].z, y[2]); y[3] = fmaf(x, b[hh].w, y[3]);
+        }
+      }
+    }
+  }
+}
+
 // acc = A B for rows r0 .. r0 + 15 of A (kTransA: of A^T, i.e. A's columns)
 // over the 64 rows of the tile B, in 4 x 8 register tiles: entry [ii][c] is
 // row r0 + tile_row(ii), column 4cg + c (c < 4) or 32 + 4cg + c - 4.
@@ -374,6 +444,29 @@ __device__ __forceinline__ void store_tile(TO* __restrict__ out, const float (&a
       store4(out + row * kDH + 4 * cg, x[0] * scale, x[1] * scale, x[2] * scale, x[3] * scale);
       store4(out + row * kDH + 32 + 4 * cg, x[4] * scale, x[5] * scale, x[6] * scale,
              x[7] * scale);
+    }
+  }
+}
+
+// store_tile for a register tile of tile_product_of, rows DH apart. The
+// wide kernels keep tile_product and store_tile, the same arithmetic in
+// their own form: routed through the generic pair, ptxas split some of the
+// wide backward's 16-byte stores into 4-byte ones (its SASS) and K2 at 58
+// tokens ran slower; the 32-token backward runs slower with store_tile's
+// form.
+template <bool kTransA, int DH, typename TO, int kC>
+__device__ __forceinline__ void store_tile_of(TO* __restrict__ out, const float (&acc)[4][kC],
+                                              int r0, int lane, int n, float scale) {
+  const int cg = lane & 7;
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) {
+    const int row = r0 + tile_row<kTransA>(lane, ii);
+    if (row < n) {
+      const float* x = acc[ii];
+#pragma unroll
+      for (int hh = 0; hh < kC / 4; ++hh)
+        store4(out + row * DH + 32 * hh + 4 * cg, x[4 * hh] * scale, x[4 * hh + 1] * scale,
+               x[4 * hh + 2] * scale, x[4 * hh + 3] * scale);
     }
   }
 }

@@ -79,7 +79,8 @@ def check_band(band, frames: int) -> None:
 def edges_per_row(band) -> int:
     """The most edges a query row has under ``band``, over its three planes
     (a row inside the clip; rows of the first and last frame have fewer).
-    The backward kernel sizes its cache of A and dS per row by it."""
+    The kernels size their caches per row by it: the forward's of scores
+    and exps, the backward's of A and dS."""
     return int(band_edges(band).sum(axis=(0, 2)).max())
 
 
@@ -135,7 +136,7 @@ def _kernel(q, k, v, band, *, scale, out_dtype):
         err = _build.function(KERNEL, _ARGTYPES[KERNEL])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _bits(band, q.device).data_ptr(), planes, frames, nv, HEAD_DIM,
-            _DTYPE_CODE[q.dtype], _DTYPE_CODE[out_dtype], float(scale),
+            _DTYPE_CODE[q.dtype], _DTYPE_CODE[out_dtype], edges_per_row(band), float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL} launch failed: cudaError {err}")
@@ -166,8 +167,9 @@ def _kernel_bwd(q, k, v, do, band, *, scale):
 
 
 _ARGTYPES = {
-    # q, k, v, o, bits, planes, frames, joints, dh, in_dtype, out_dtype, scale, stream
-    KERNEL: ["p"] * 5 + ["ll", "i", "i", "i", "i", "i", "f", "p"],
+    # q, k, v, o, bits, planes, frames, joints, dh, in_dtype, out_dtype,
+    # edges_per_row, scale, stream
+    KERNEL: ["p"] * 5 + ["ll", "i", "i", "i", "i", "i", "i", "f", "p"],
     # q, k, v, do, dq, dk, dv, bits, planes, frames, joints, dh, dtype,
     # edges_per_row, scale, stream
     KERNEL_BWD: ["p"] * 8 + ["ll", "i", "i", "i", "i", "i", "f", "p"],

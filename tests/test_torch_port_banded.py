@@ -366,3 +366,21 @@ def test_ablation_variants_apply_to_the_banded_backward_source():
             for old, _ in replacements:
                 assert old in text, (fname, old)
     assert ablate.main(["banded"]) == 1  # no card here
+
+
+BANDED_FWD_VARIANTS = ["full", "no_stats", "no_av", "threads_64", "threads_256"]
+
+
+@pytest.mark.parametrize("variant", BANDED_FWD_VARIANTS)
+def test_ablation_variants_apply_to_the_banded_forward_source(variant):
+    from sl_hwgat_tpu_torch.bench import ablate
+    from sl_hwgat_tpu_torch.ops import _build
+
+    design, variants = ablate.design_of(_build.CSRC_DIR, ablate.BANDED_FWD,
+                                        ablate.BANDED_FWD_DESIGNS)
+    assert design == "cache" and set(variants) == set(BANDED_FWD_VARIANTS)
+    for fname, replacements in variants[variant].items():
+        text = (_build.CSRC_DIR / fname).read_text()
+        for old, _ in replacements:
+            assert text.count(old) == 1, (fname, old)
+    assert ablate.main(["banded_fwd"]) == 1  # no card here

@@ -170,6 +170,22 @@ def test_ablation_variants_apply_to_the_kernel_sources(variant):
             assert text.count(old) == 1, (variant, fname, old)
 
 
+WINDOW32_VARIANTS = ["full", "no_column", "no_da", "no_scores", "eight_warps"]
+
+
+@pytest.mark.parametrize("variant", WINDOW32_VARIANTS)
+def test_window32_ablation_variants_apply_to_the_32_token_backward(variant):
+    """``bench.ablate window32`` recognises the 32-token K2's design in the
+    sources and each of its variants' edits finds its text once."""
+    design, variants = port_ablate.design_of(_build.CSRC_DIR, port_ablate.WINDOW_BWD,
+                                             port_ablate.WINDOW32_DESIGNS)
+    assert design == "strips" and set(variants) == set(WINDOW32_VARIANTS)
+    for fname, replacements in variants[variant].items():
+        text = (_build.CSRC_DIR / fname).read_text()
+        for old, _ in replacements:
+            assert text.count(old) == 1, (variant, fname, old)
+
+
 def test_ablation_needs_a_card(capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
