@@ -9,7 +9,8 @@ Phases, each printing one JSON line (any failure ends the run non-zero):
               one process per source, all at once; every instantiation of
               the K1/K2 kernels for units of up to 64 tokens must take at
               most 128 registers and spill nothing, and no instantiation of
-              K7's forward, K8's forward or backward or K2 may spill.
+              K7's forward, K8's forward or backward, K1, K2 or the tile
+              products may spill.
 3. kernel   — the forward window-attention kernel against its plain PyTorch
               version at the flagship shape (12288 units × 32 tokens × dh 64)
               and at HGATE's (3072 units × 58 tokens × dh 64, two units to a
@@ -206,10 +207,31 @@ def wide_ptxas(report: dict) -> dict:
 
 
 # the kernels redesigned since the first designs: K7's forward and K8's
-# backward, then K2 at 32 tokens and K8's forward; their sources and what the
-# kernels line says of their design. The build phase fails if any of their
-# instantiations spills.
+# backward, then K2 at 32 tokens and K8's forward, then K1 at 32 tokens and
+# the tile products; their sources and what the kernels line says of their
+# design. The build phase fails if any of their instantiations spills.
 REDESIGNED = {
+    "window_attention_fwd": (
+        "32-token units (HWGATE): one warp per unit (4 a block), q and v staged by cp.async in "
+        "16-byte chunks in the warp's own shared memory (rows padded by 16 bytes), k as f32 "
+        "rows (bf16 converted, every 16-byte load in flight first); a lane per query row for "
+        "the scores, prune, mask and softmax through attention_row, the routine K2 recomputes "
+        "A with (f32 FMA chains over d, sums in j order, so A and the prune decisions are K2's "
+        "bit for bit); A V on two 16-row strips: f32 in 4 x 8 register tiles over a swizzled "
+        "T(A) tile (sums over j ascending from 0: the lane-per-column design's bits), bf16 on "
+        "mma.sync m16n8k16 (T(A) by ldmatrix, V by ldmatrix.trans, f32 sums) with O through "
+        "shared memory and out in 16-byte chunks. Units of up to 64 tokens: the wide design "
+        "(wide_design)"),
+    "tile_matmul": (
+        "bf16 inputs: a block per tile, a warp per 16-row strip; X, Y, Z staged in bf16 by "
+        "16-byte cp.async (element-wise along the unit stride for other views), rows padded "
+        "by 16 bytes, rows past the tile and depths past K zero; S on mma.sync m16n8k16 with "
+        "f32 sums, 64 columns at a time, rounded to bf16 in registers and fed back as the A "
+        "operand of O += S Z (Z by ldmatrix.trans); O through shared memory, out in 16-byte "
+        "chunks. f32 inputs: exact f32 FMAs, a block of 256 threads per 128-row slice, X and "
+        "64-row chunks of Y staged depth-major, 8 x 4 register tiles of S (three 16-byte loads "
+        "a depth step), S chunks transposed through shared memory, O in 8 x C/16 register "
+        "tiles; every sum over its index ascending from 0"),
     "masked_softmax_fwd": (
         "a row per 8 lanes (16 for n > 32), four columns a lane by a map n alone fixes "
         "(4l..4l+3 for n % 4 == 0; pairs 2l, 2l+1 and 2l+2L, 2l+2L+1 for other even n, "
@@ -264,11 +286,18 @@ def redesigned_ptxas(report: dict) -> dict:
     return out
 
 
+# (rows, depth, columns, mode) of the tile products' main cases
+TILE_BLOCKS = {"matmul_only": (128, 64, 64, 0), "sn256": (256, 64, 64, 0),
+               "K10/WGATE": (128, 16, 16, 0), "K10/GATE": (116, 16, 16, 0),
+               "dot1": (128, 64, 64, 1)}
+
+
 def redesigned_blocks() -> dict:
     """{source: {case: ...}}: one block of each REDESIGNED kernel at the main
     paths' shapes, as its launcher sizes it: K7's units and threads, K8's
     dynamic shared memory and threads (under each model's band and the
-    non-diagonal one), K2's at 32 tokens by head dim and type."""
+    non-diagonal one), K1's and K2's at 32 tokens by head dim and type, the
+    tile products' by case and input type."""
     import ctypes
 
     from sl_hwgat_tpu_torch.ops import _build
@@ -284,12 +313,21 @@ def redesigned_blocks() -> dict:
 
     softmax = _build.load("masked_softmax_fwd").masked_softmax_fwd_block
     window = _build.load("window_attention_bwd").window_attention_bwd_block
+    window_fwd = _build.load("window_attention_fwd").window_attention_fwd_block
+    tiles = _build.load("tile_matmul").tile_matmul_block
     out = {"masked_softmax_fwd": {
                m: block(softmax, ("units", "threads"), n)
                for m, (_, n, _) in WINDOW_SHAPE.items()},
            "window_attention_bwd": {
                f"dh{dh}/{name}": block(window, ("dynamic_smem_bytes", "threads"), dh, code)
-               for dh in (32, 64) for code, name in enumerate(("float32", "bfloat16"))}}
+               for dh in (32, 64) for code, name in enumerate(("float32", "bfloat16"))},
+           "window_attention_fwd": {
+               f"dh{dh}/{name}": block(window_fwd, ("dynamic_smem_bytes", "threads"), dh, code)
+               for dh in (32, 64) for code, name in enumerate(("float32", "bfloat16"))},
+           "tile_matmul": {
+               f"{case}/{name}": block(tiles, ("dynamic_smem_bytes", "threads"), *shape, code)
+               for case, shape in TILE_BLOCKS.items()
+               for code, name in enumerate(("float32", "bfloat16"))}}
     for src in ("banded_attention_fwd", "banded_attention_bwd"):
         fn = getattr(_build.load(src), f"{src}_block")
         out[src] = {}
@@ -2542,6 +2580,10 @@ def main() -> int:
     fwd["wide_design"] = WIDE_DESIGN
     fwd["wide_ptxas"] = {n: r for n, r in wide_kernels.items() if "fwd" in n}
     fwd["edge_cases_max_abs_err"] = edge_errors["window_fwd"]
+    blocks = redesigned_blocks()
+    fwd.update(design=REDESIGNED[window_attention.KERNEL],
+               ptxas=redesigned.get(window_attention.KERNEL),
+               block=blocks[window_attention.KERNEL])
     bwd = kernel_entry("bwd", window_attention.KERNEL_BWD,
                        "sl_hwgat_tpu/ops/pallas_attention.py:295 (_bwd_kernel)",
                        train_launches["bwd"] + trained["window_attention_bwd"], timings,
@@ -2550,7 +2592,6 @@ def main() -> int:
     bwd["wide_design"] = WIDE_DESIGN
     bwd["wide_ptxas"] = {n: r for n, r in wide_kernels.items() if "bwd" in n}
     bwd["edge_cases_max_abs_err"] = edge_errors["window_bwd"]
-    blocks = redesigned_blocks()
     bwd.update(design=REDESIGNED[window_attention.KERNEL_BWD],
                ptxas=redesigned.get(window_attention.KERNEL_BWD),
                block=blocks[window_attention.KERNEL_BWD])
@@ -2598,6 +2639,7 @@ def main() -> int:
                        probe_timings[relay], "xrelay_s0_bf16", probe_errors[relay]),
            probe_entry(mm, MATMUL_REPLACES, bench_launches[mm], probe_timings[mm],
                        "matmul_only/float32", probe_errors[mm])]
+    new[2].update(design=REDESIGNED[mm], ptxas=redesigned.get(mm), block=blocks[mm])
     print(json.dumps({"kernels": [fwd, bwd, bfwd, bbwd, sfwd, sbwd, *new]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

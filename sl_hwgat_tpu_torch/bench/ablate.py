@@ -1,6 +1,7 @@
 """Where the time of a kernel goes, by source variants that leave one phase out.
 
-    python -m sl_hwgat_tpu_torch.bench.ablate [wide|banded|softmax|window32|banded_fwd] [--parent DIR]
+    python -m sl_hwgat_tpu_torch.bench.ablate [wide|banded|softmax|window32|banded_fwd|
+                                               window32_fwd|tile] [--parent DIR]
 
 Builds variants of a kernel's sources that each leave one phase out, under
 ``build/ablate/<variant>/``, and prints one JSON line of the card's times
@@ -71,8 +72,28 @@ as prev/next too (K9):
 - ``threads_64``, ``threads_256``: blocks of 64 or 256 threads instead of
   128 (each block takes threads / V frames).
 
-Like ``banded``, ``window32`` and ``banded_fwd`` tell the source's design by
-a line only it holds (``WINDOW32_DESIGNS``, ``BANDED_FWD_DESIGNS``).
+``window32_fwd``: K1 for HWGATE's 32-token units (``csrc/window_attention_fwd.cu``)
+at the same call as ``window32``, f32 and bf16 in and out, single mask;
+with ``--parent``, single and dual mask in turns:
+
+- ``full``: the kernel as it is;
+- ``no_scores``: the scores of ``attention_row`` are stand-in values;
+- ``no_av``: A.V and its stores are skipped (one value a lane is stored);
+- ``warps_1``, ``warps_2``, ``warps_8``: units a block instead of 4.
+
+``tile``: the tile products (``csrc/tile_matmul.cu``) at ``matmul_only``
+(3072 tiles of 128 x 64, f32 and bf16 in), ``sn256`` (bf16) and K10 at
+WGATE's and GATE's batch-16 calls (f32 and bf16 in, f32 out), beside two
+``torch.matmul`` calls computing the same products (timed only):
+
+- ``full``: the kernel as it is;
+- ``no_second``: the second product, S.Z, is skipped.
+
+The JSON line of these two modes also gives ptxas's registers and spills.
+
+Like ``banded``, ``window32``, ``banded_fwd``, ``window32_fwd`` and ``tile``
+tell the source's design by a line only it holds (``WINDOW32_DESIGNS``,
+``BANDED_FWD_DESIGNS``, ``WINDOW32_FWD_DESIGNS``, ``TILE_DESIGNS``).
 
 ``--parent DIR``: DIR holds another checkout of the repository (for
 example ``git archive`` of the parent commit). Its ``full`` kernel is built
@@ -104,6 +125,7 @@ from sl_hwgat_tpu_torch.models.wgate import make_band
 from sl_hwgat_tpu_torch.ops import _build
 from sl_hwgat_tpu_torch.ops import banded_attention as ba
 from sl_hwgat_tpu_torch.ops import hybrid_attention as ha
+from sl_hwgat_tpu_torch.ops import probes
 from sl_hwgat_tpu_torch.ops import window_attention as wa
 from sl_hwgat_tpu_torch.ops.attention import masked_scores, unit_allowed
 from sl_hwgat_tpu_torch.utils import profiling
@@ -253,6 +275,47 @@ BANDED_FWD_DESIGNS = (
            for t in (64, 256)},
     }),
 )
+WINDOW_FWD = "window_attention_fwd.cu"
+# (design, a line only the 32-token K1 of that design holds, its variants)
+WINDOW32_FWD_DESIGNS = (
+    # a lane per query row (attention_row), then a lane per output column:
+    # V and O by 2- or 4-byte accesses, A.V from a padded probability tile
+    ("lane", "      vr[j][c] = to_float(v[base + j * DH + c * 32 + lane]);\n", {
+        "full": {},
+        "no_scores": {WINDOW_COMMON: [("      s[j] = acc;\n", "      s[j] = qr[j] + 1e-3f * j;\n")]},
+    }),
+    # q staged by cp.async, k as f32 rows, A from attention_row, v over q
+    # once the query rows are in registers; A.V in register tiles (f32) or
+    # on mma.sync (bf16), 16-byte stores
+    ("staged", "  attend_values<DH>(e, sum, ks, vt, o + base, lane);\n", {
+        "full": {},
+        "no_scores": {WINDOW_COMMON: [("      s[j] = acc;\n", "      s[j] = qr[j] + 1e-3f * j;\n")]},
+        # A.V and its stores left out: one value a lane keeps the softmax live
+        "no_av": {WINDOW_FWD: [(
+            "  attend_values<DH>(e, sum, ks, vt, o + base, lane);\n",
+            "  o[base + lane] = from_float<TO>((e[0] + e[kN - 1]) / sum + to_float(vt[lane]));\n")]},
+        **{f"warps_{w}": {WINDOW_FWD: [("constexpr int kWarps = 4;", f"constexpr int kWarps = {w};")]}
+           for w in (1, 2, 8)},
+    }),
+)
+TILE = "tile_matmul.cu"
+# (design, a line only its tile_matmul.cu holds, its variants)
+TILE_DESIGNS = (
+    # f32 FMAs in 4 x 4 tiles a thread for every type, 64-row slices
+    ("simt4x4", "    product_nt(xs, ldx, yz, ldy, k, col0, ms, acc);\n", {"full": {}}),
+    # bf16 on mma.sync (S in registers, fed back as the A operand), f32 in
+    # 8 x 4 register tiles over depth-major X and Y
+    ("mma", "      strip_pz(p, zs + n0 * L.zld + c0, L.zld, lane, acc);\n", {
+        "full": {},
+        # S Z left out: each S chunk's bits folded into the output
+        "no_second": {TILE: [
+            ("        strip_pz(p, zs + n0 * L.zld + c0, L.zld, lane, acc);\n",
+             "        acc[0][0] += __uint_as_float(p[0][0] ^ p[3][3]) + __bfloat162float(zs[lane]);\n"),
+            ("#pragma unroll 4\n    for (int j = 0; j < jn; ++j) {",
+             "    acc[0][0] += stt[threadIdx.x] + zs[threadIdx.x];\n"
+             "#pragma unroll 4\n    for (int j = 0; j < 0; ++j) {")]},
+    }),
+)
 BANDED_SHAPES = {"WGATE": (512, 192, 16), "GATE": (128, 192, 29)}
 BANDED_DH, BANDED_SCALE = 16, 0.25
 SOFTMAX_SHAPES = {"HWGATE": (12288, 32), "HGATE": (3072, 58)}
@@ -299,7 +362,8 @@ def wait(jobs: dict) -> dict | None:
 def entry(name: str, src: str, argtypes=None):
     fn = getattr(ctypes.CDLL(str(ABLATE_DIR / name / f"lib{src}.so")), src)
     fn.restype = ctypes.c_int
-    fn.argtypes = [_build._CTYPES[t] for t in (argtypes or {**wa._ARGTYPES, **ba._ARGTYPES}[src])]
+    fn.argtypes = [_build._CTYPES[t] for t in
+                   (argtypes or {**wa._ARGTYPES, **ba._ARGTYPES, **probes._ARGTYPES}[src])]
     return fn
 
 
@@ -532,6 +596,95 @@ def run_window32(parent) -> dict:
     return out
 
 
+def run_window32_fwd(parent) -> dict:
+    from sl_hwgat_tpu_torch.models.hwgate import shift_tail_mask
+
+    fns, ptxas = variant_builds(WINDOW32_FWD_DESIGNS, parent, WINDOW_FWD, wa.KERNEL)
+    if not fns:
+        return {}
+    adj = windowed_block_adj(2)[0]
+    masks = wa.device_masks(adj, adj * shift_tail_mask(16, 2, 1), "cuda")
+    modes = {"single": (0, 4, 0, 0, 0), "dual": (1, 4, 8, 96, 0)}
+    rng = np.random.default_rng(0)
+    shape = (WINDOW32_UNITS, 32, 64)
+    base = [rng.normal(size=shape).astype(np.float32) for _ in range(3)]
+    times, pairs, equal = {}, {}, {}
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        q, k, v = (torch.from_numpy(x).cuda().to(dtype) for x in base)
+        outs = {name: [torch.empty_like(q)] for name in fns}
+        stream = torch.cuda.current_stream().cuda_stream
+        for mode, mask_args in modes.items():
+            calls = {name: (lambda fn=fn, o=outs[name][0]: fn(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), masks.data_ptr(), None,
+                None, shape[0], shape[1], shape[2], code, code, 0.125, 1, *mask_args, stream))
+                for name, (_, fn) in fns.items()}
+            case = f"{str(dtype).split('.')[1]}/{mode}"
+            for name in fns:
+                if name != "parent" and (mode == "single" or name == "full"):
+                    times[f"{name}/{case}"] = device_ms(calls[name])
+            if parent is not None:
+                pairs[case], equal[case] = paired(calls, outs)
+    out = {"design": fns["full"][0], "device_ms": times, "shape": list(shape), "ptxas": ptxas}
+    if parent is not None:
+        out.update(parent_design=fns["parent"][0], paired_device_ms=pairs, bit_equal=equal)
+    return out
+
+
+# tile_matmul's cases: (planes, tiles, rows, depth, C, in dtype, out dtype)
+# of matmul_only (the bench's 3072 tiles of 128 x 64), sn256 and K10 at
+# WGATE's and GATE's batch-16 calls (tiles of 8 frames x 16 joints and 4 x 29)
+TILE_CASES = {
+    "matmul_only/float32": (1, 3072, 128, 64, 64, torch.float32, torch.float32),
+    "matmul_only/bfloat16": (1, 3072, 128, 64, 64, torch.bfloat16, torch.float32),
+    "sn256/bfloat16": (1, 1536, 256, 64, 64, torch.bfloat16, torch.bfloat16),
+    "K10/WGATE/float32": (512, 24, 128, 16, 16, torch.float32, torch.float32),
+    "K10/WGATE/bfloat16": (512, 24, 128, 16, 16, torch.bfloat16, torch.float32),
+    "K10/GATE/float32": (128, 48, 116, 16, 16, torch.float32, torch.float32),
+    "K10/GATE/bfloat16": (128, 48, 116, 16, 16, torch.bfloat16, torch.float32),
+}
+
+
+def tile_call(fn, x, y, z, out):
+    """A launch of the tile-product entry ``fn`` on (planes, tiles, rows, ·)
+    views: O = round(X·Yᵀ)·Z (mode 0), as ``probes.tile_matmul`` calls it."""
+    planes, tiles, rows, depth = x.shape
+    strides = (ctypes.c_longlong * 16)(*(s for t in (x, y, z, out) for s in t.stride()))
+    codes = [probes._DTYPE_CODE[t.dtype] for t in (x, out)]
+    stream = torch.cuda.current_stream().cuda_stream
+    return lambda: fn(x.data_ptr(), y.data_ptr(), z.data_ptr(), out.data_ptr(),
+                      ctypes.addressof(strides), planes, tiles, rows, depth, out.shape[3], 0,
+                      *codes, stream)
+
+
+def run_tile(parent) -> dict:
+    fns, ptxas = variant_builds(TILE_DESIGNS, parent, TILE, probes.KERNEL_MATMUL)
+    if not fns:
+        return {}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    times, pairs, equal = {}, {}, {}
+    for case, (planes, tiles, rows, depth, cols, dt, out_dt) in TILE_CASES.items():
+        x, y, z = (torch.randn(planes, tiles, rows, depth, generator=g, device="cuda").to(dt)
+                   for _ in range(3))
+        z = z[..., :cols]
+        outs = {name: [torch.empty(planes, tiles, rows, cols, dtype=out_dt, device="cuda")]
+                for name in fns}
+        calls = {name: tile_call(fn, x, y, z, outs[name][0]) for name, (_, fn) in fns.items()}
+        for name in fns:
+            if name != "parent":
+                times[f"{name}/{case}"] = device_ms(calls[name])
+        times[f"torch.bmm/{case}"] = profiling.device_seconds(
+            lambda: torch.matmul(torch.matmul(x, y.transpose(2, 3)), z), calls=20) * 1e3
+        if parent is not None:
+            pairs[case], equal[case] = paired(calls, outs)
+        del x, y, z, outs, calls
+    out = {"design": fns["full"][0], "device_ms": times,
+           "cases": {c: [*s[:5], str(s[5]).split(".")[1], str(s[6]).split(".")[1]]
+                     for c, s in TILE_CASES.items()}, "ptxas": ptxas}
+    if parent is not None:
+        out.update(parent_design=fns["parent"][0], paired_device_ms=pairs, bit_equal=equal)
+    return out
+
+
 def run_banded_fwd(parent) -> dict:
     fns, ptxas = variant_builds(BANDED_FWD_DESIGNS, parent, BANDED_FWD, ba.KERNEL)
     if not fns:
@@ -587,12 +740,14 @@ def main(argv=None) -> int:
         return 1
     parser = argparse.ArgumentParser(prog="python -m sl_hwgat_tpu_torch.bench.ablate")
     parser.add_argument("kernel", nargs="?", default="wide",
-                        choices=("wide", "banded", "softmax", "window32", "banded_fwd"))
+                        choices=("wide", "banded", "softmax", "window32", "banded_fwd",
+                                 "window32_fwd", "tile"))
     parser.add_argument("--parent", type=Path, default=None,
                         help="another checkout whose kernel is timed in turns with this one")
     args = parser.parse_args(argv)
     out = {"wide": run_wide, "banded": run_banded, "softmax": run_softmax,
-           "window32": run_window32, "banded_fwd": run_banded_fwd}[args.kernel](args.parent)
+           "window32": run_window32, "banded_fwd": run_banded_fwd,
+           "window32_fwd": run_window32_fwd, "tile": run_tile}[args.kernel](args.parent)
     if not out:
         return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

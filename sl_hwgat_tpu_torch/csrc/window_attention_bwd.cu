@@ -73,6 +73,7 @@
 namespace {
 
 using namespace wattn;
+using wide::stage_unit;
 
 // 32-token units a block, one a warp.
 template <typename T> constexpr int kWarps = std::is_same<T, float>::value ? 4 : 1;
@@ -101,17 +102,6 @@ template <typename T, int DH>
 constexpr int kBlocksPerSm = 233472 / (kBlockBytes<T, DH> + 1024) < 12 / kWarps<T>
                                  ? 233472 / (kBlockBytes<T, DH> + 1024)
                                  : 12 / kWarps<T>;
-
-// The unit's 32 rows of DH elements (device memory, rows DH apart) into a
-// shared tile of rows S elements apart, by cp.async: 16-byte chunks, one
-// lane after another.
-template <typename T, int DH, int S>
-__device__ __forceinline__ void stage_unit(const T* __restrict__ src, T* dst, int lane) {
-  constexpr int kEpc = 16 / sizeof(T), kChunks = DH / kEpc;
-#pragma unroll
-  for (int c = lane; c < kN * kChunks; c += 32)
-    wide::cp_async16(dst + c / kChunks * S + c % kChunks * kEpc, src + c * kEpc);
-}
 
 // One 32-token unit in f32 (pointers at the unit's first row).
 template <int DH, typename AllowedRow>

@@ -64,23 +64,6 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
   }
 }
 
-// The `rows` x DH rows of one unit -> f32 rows in shared memory, by
-// kThreads threads (tid = 0 .. kThreads-1) with coalesced 16-byte loads and
-// 16-byte stores.
-template <typename T, int DH, int kThreads>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ src, float* dst, int tid,
-                                           int rows) {
-  constexpr int kEpv = 16 / sizeof(T);
-  for (int e = tid; e < rows * DH / kEpv; e += kThreads) {
-    float t[kEpv];
-    load16(src + e * kEpv, t);
-    float4* d = reinterpret_cast<float4*>(dst + e * kEpv);
-#pragma unroll
-    for (int i = 0; i < kEpv / 4; ++i)
-      d[i] = make_float4(t[4 * i], t[4 * i + 1], t[4 * i + 2], t[4 * i + 3]);
-  }
-}
-
 // Query row `row` into registers, scaled in q's type (q * T(scale)).
 template <typename T, int DH>
 __device__ __forceinline__ void load_scaled_row(const T* __restrict__ row, float scale,

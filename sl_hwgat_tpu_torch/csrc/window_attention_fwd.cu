@@ -24,18 +24,33 @@
 //
 // Bound on an H100 SXM: bytes. A call reads q, k, v and writes o once:
 // 4 * U * 32 * DH elements, 201 MB in bf16 at the flagship U = 12288, DH = 64,
-// i.e. 60 us at 3.35 TB/s, against 3.2 GFLOP (3 us on the bf16 tensor cores).
-// The design keeps everything except q/k/v/o on chip: scores, both softmaxes
-// and the masks live in registers and shared memory, and each input byte is
-// read from device memory once, with 16-byte loads. The 32-token kernel's
-// products run on the CUDA cores in f32.
+// i.e. 60 us at 3.35 TB/s, against 3.2 GFLOP (3 us on the bf16 tensor cores,
+// 48 us of f32 FMAs on the CUDA cores). The design keeps everything except
+// q/k/v/o on chip and reads each input byte from device memory once, with
+// 16-byte accesses.
 //
-// Work split, 32-token units: one warp per unit, kWarps units per block,
-// no block-wide barriers. Lane i owns query row i for the scores and both
-// softmaxes; for A V lane d owns output columns d (and d + 32), so the stores
-// coalesce. The score/prune/mask/softmax code of these units is in
-// window_attention_common.cuh, shared with the backward kernel, which
-// recomputes A from it bit for bit.
+// 32-token units (window_attention_fwd_kernel, HWGATE): one warp per unit,
+// kWarps units per block, no block-wide barriers. The warp stages its unit
+// in its own shared memory: q by cp.async in 16-byte chunks, rows padded by
+// 16 bytes, k as f32 rows (bf16 converted on the way, every load in flight
+// first); v by cp.async into q's space once the query rows are in
+// registers, so that its load overlaps the scores. Lane i owns query row i:
+// scores, prune, mask and softmax come from attention_row
+// (window_attention_common.cuh), the routine the backward recomputes A
+// with, so A and the prune decisions are the backward's bit for bit. The
+// scores stay f32 FMA chains over d on the CUDA cores in both types (tensor
+// core sums flip T(A) roundings, which the bf16 dV bar does not absorb).
+// A V runs on two 16-row strips of the unit:
+//   f32: T(A) into a swizzled 32 x 32 f32 tile over K's rows, then 4 x 8
+//        register tiles (tile_product_of of window_attention_wide.cuh) over
+//        j ascending from 0, stored in 16-byte chunks: o is the bits of the
+//        lane-per-column design before it;
+//   bf16: T(A) into a padded bf16 tile, the A operand by ldmatrix, V by
+//        ldmatrix.trans, mma.sync m16n8k16 with f32 sums; O through the
+//        warp's shared memory and out in 16-byte chunks.
+// The design before it (a lane per output column, V by 2- or 4-byte loads,
+// A V on the CUDA cores from a probability tile) spent ~1,500 shared loads
+// a lane per unit; this one 550-710, 512 of them the scores' broadcasts.
 // Units of up to 64 tokens (window_attention_fwd_wide_kernel, HGATE's 58):
 // one block of 4 warps per unit, each on 16 query rows; the scaled q and k
 // staged in shared memory as f32 tiles, v by cp.async (43 KB in bf16, 51 KB
@@ -57,8 +72,109 @@
 namespace {
 
 using namespace wattn;
+using wide::stage_unit;
 
-constexpr int kWarps = 4;
+constexpr int kWarps = 4;          // 32-token units a block, one a warp
+constexpr int kTStride = kN + 8;   // the bf16 T(A) tile: rows padded by 16 bytes
+
+// Rows of the staged q, then v, tile: q rows padded by 16 bytes, so that a
+// lane's own row reads meet no bank conflicts; f32 v rows DH apart
+// (tile_product_of reads them as whole rows), bf16 v rows padded by 16
+// bytes (ldmatrix.trans). v takes q's space once the query rows are in
+// registers, so its load overlaps the scores.
+template <typename T, int DH> constexpr int kPad = DH + 16 / static_cast<int>(sizeof(T));
+template <typename T, int DH>
+constexpr int kVStride = std::is_same<T, float>::value ? DH : kPad<T, DH>;
+
+// Shared memory of one warp, bytes: K as f32 rows (then T(A), then, in
+// bf16, O over it and the q/v space), q then v.
+template <typename T, int DH>
+constexpr int kWarpBytes = kN * DH * 4 + kN * kPad<T, DH> * static_cast<int>(sizeof(T));
+template <typename T, int DH> constexpr int kBlockBytes = kWarps * kWarpBytes<T, DH>;
+
+// The unit's K rows as f32 rows, DH apart: by cp.async in f32; in bf16 by
+// 16-byte loads, every one in flight before the first conversion.
+template <int DH>
+__device__ __forceinline__ void stage_keys(const float* __restrict__ src, float* dst, int lane) {
+  stage_unit<float, DH, DH>(src, dst, lane);
+}
+template <int DH>
+__device__ __forceinline__ void stage_keys(const __nv_bfloat16* __restrict__ src, float* dst,
+                                           int lane) {
+  constexpr int kPer = kN * DH / 8 / 32;  // 16-byte chunks a lane
+  uint4 x[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) x[i] = __ldg(reinterpret_cast<const uint4*>(src) + lane + 32 * i);
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    float t[8];
+    load16(reinterpret_cast<const __nv_bfloat16*>(&x[i]), t);
+    float4* d = reinterpret_cast<float4*>(dst + (lane + 32 * i) * 8);
+    d[0] = make_float4(t[0], t[1], t[2], t[3]);
+    d[1] = make_float4(t[4], t[5], t[6], t[7]);
+  }
+}
+
+// A V for a unit in f32: T(A) (row `lane` in e / sum) into the swizzled
+// tile `at` over K's rows, then two 16-row strips of 4 x 8 register tiles.
+template <int DH, typename TO>
+__device__ __forceinline__ void attend_values(const float (&e)[kN], float sum, float* at,
+                                              const float* vt, TO* __restrict__ out, int lane) {
+#pragma unroll
+  for (int c = 0; c < kN; c += 4)
+    *reinterpret_cast<float4*>(at + wide::Swizzled32::at(lane, c)) =
+        make_float4(e[c] / sum, e[c + 1] / sum, e[c + 2] / sum, e[c + 3] / sum);
+  __syncwarp();
+  constexpr int kHalves = DH / 32;
+  float acc[4][4 * kHalves];
+#pragma unroll 1
+  for (int r0 = 0; r0 < kN; r0 += 16) {
+    wide::tile_product_of<false, kN, kHalves>(wide::Swizzled32{at}, wide::Shared<DH>{vt}, r0,
+                                             lane, acc);
+    wide::store_tile_of<false, DH>(out, acc, r0, lane, kN, 1.f);
+  }
+}
+
+// A V for a unit in bf16: T(A) into a padded bf16 tile over K's rows, the A
+// operand by ldmatrix, V by ldmatrix.trans, f32 sums on the tensor cores;
+// then O through the warp's shared memory (over K's rows and the q/v
+// space), out in 16-byte chunks.
+template <int DH, typename TO>
+__device__ __forceinline__ void attend_values(const float (&e)[kN], float sum, float* kspace,
+                                              const __nv_bfloat16* vt, TO* __restrict__ out,
+                                              int lane) {
+  using bf16 = __nv_bfloat16;
+  constexpr int S = kPad<bf16, DH>;
+  bf16* at = reinterpret_cast<bf16*>(kspace);
+#pragma unroll
+  for (int c = 0; c < kN; c += 8)
+    *reinterpret_cast<uint4*>(at + lane * kTStride + c) = make_uint4(
+        wide::pack_bf16(e[c] / sum, e[c + 1] / sum), wide::pack_bf16(e[c + 2] / sum, e[c + 3] / sum),
+        wide::pack_bf16(e[c + 4] / sum, e[c + 5] / sum), wide::pack_bf16(e[c + 6] / sum, e[c + 7] / sum));
+  __syncwarp();
+  float acc[2][DH / 8][4];
+#pragma unroll
+  for (int st = 0; st < 2; ++st) {
+    uint32_t p[kN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kN / 16; ++kk)
+      wide::ldsm_x4(p[kk], at + (16 * st + (lane & 15)) * kTStride + 16 * kk + (lane >> 4) * 8);
+    wide::strip_ab<S>(p, vt, lane, acc[st]);
+  }
+  // O through shared memory: 16-byte stores (from the accumulator layout,
+  // 4- or 8-byte stores, bf16 read 4% slower)
+  constexpr int kEpc = 16 / sizeof(TO), kOS = DH + kEpc;  // O rows: 16 bytes of padding
+  TO* os = reinterpret_cast<TO*>(kspace);
+  __syncwarp();  // every lane is done with the T(A) tile and V
+#pragma unroll
+  for (int st = 0; st < 2; ++st) wide::write_strip<TO, kOS>(os, acc[st], 16 * st, lane);
+  __syncwarp();
+#pragma unroll
+  for (int c = lane; c < kN * DH / kEpc; c += 32) {
+    const int r = c / (DH / kEpc), x = c % (DH / kEpc) * kEpc;
+    *reinterpret_cast<uint4*>(out + r * DH + x) = *reinterpret_cast<const uint4*>(os + r * kOS + x);
+  }
+}
 
 template <typename T, typename TO, int DH>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -69,61 +185,36 @@ window_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const float* __restrict__ prune_u, long long units,
                             float scale, int zero_quirk, int dual, int stack,
                             int per_group, int groups, long long unit_offset) {
-  constexpr int kCols = DH / 32;           // output columns per lane
-  constexpr int kPStride = kN + 1;         // padded row of the probability tile
-  constexpr int kScratch = kN * DH > kN * kPStride ? kN * DH : kN * kPStride;
-  // Per warp: K as f32, later overwritten by the probability tile.
-  __shared__ __align__(16) float scratch[kWarps][kScratch];
-
+  extern __shared__ __align__(16) unsigned char unit_smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const long long unit = static_cast<long long>(blockIdx.x) * kWarps + warp;
   if (unit >= units) return;
   const long long base = unit * kN * DH;
-  float* ks = scratch[warp];
+  float* ks = reinterpret_cast<float*>(unit_smem + warp * kWarpBytes<T, DH>);
+  T* qt = reinterpret_cast<T*>(ks + kN * DH);
+  T* vt = qt;  // once the query rows are in registers
 
-  stage_rows<T, DH, 32>(k + base, ks, lane, kN);
-  float qr[DH];
-  load_scaled_row<T, DH>(q + base + static_cast<long long>(lane) * DH, scale, qr);
+  stage_unit<T, DH, kPad<T, DH>>(q + base, qt, lane);
+  stage_keys<DH>(k + base, ks, lane);
+  wide::cp_async_wait_all();
   __syncwarp();
 
   // Scores, prune, mask and softmax of row `lane`; K rows are broadcast reads.
   float e[kN], sum;
-  const auto allowed_row = [&] {
-    return masks[mask_plane(unit, dual, sel, stack, per_group, groups, unit_offset) * kN + lane];
-  };
-  attention_row<kN, DH>(qr, ks, kN, prune_u, allowed_row, zero_quirk, e, sum);
-
-  // V column(s) of lane into registers (coalesced).
-  float vr[kN][kCols];
-#pragma unroll
-  for (int j = 0; j < kN; ++j)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c)
-      vr[j][c] = to_float(v[base + j * DH + c * 32 + lane]);
-
-  // Probabilities, rounded to v's type, into the warp's scratch (K is dead).
-  __syncwarp();
-  float* ps = scratch[warp];
-#pragma unroll
-  for (int j = 0; j < kN; ++j) ps[lane * kPStride + j] = round_to<T>(e[j] / sum);
-  __syncwarp();
-
-  // O = A V: lane owns columns lane + 32c; probability rows are broadcasts.
-  for (int i = 0; i < kN; ++i) {
-    float acc[kCols];
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[c] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kN; ++j) {
-      const float p = ps[i * kPStride + j];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[c] = fmaf(p, vr[j][c], acc[c]);
-    }
-#pragma unroll
-    for (int c = 0; c < kCols; ++c)
-      o[base + i * DH + c * 32 + lane] = from_float<TO>(acc[c]);
+  {
+    float qr[DH];
+    load_scaled_row<T, DH>(qt + lane * kPad<T, DH>, scale, qr);
+    __syncwarp();  // every query row is in registers: v takes q's space
+    stage_unit<T, DH, kVStride<T, DH>>(v + base, vt, lane);
+    const auto allowed_row = [&] {
+      return masks[mask_plane(unit, dual, sel, stack, per_group, groups, unit_offset) * kN + lane];
+    };
+    attention_row<kN, DH>(qr, ks, kN, prune_u, allowed_row, zero_quirk, e, sum);
   }
+  wide::cp_async_wait_all();
+  __syncwarp();  // K is dead and V in place in every lane
+  attend_values<DH>(e, sum, ks, vt, o + base, lane);
 }
 
 // Units of n <= 64 tokens, DH = 64: one block of wide::kThreads per unit,
@@ -185,7 +276,13 @@ struct Args {
 template <typename T, typename TO, int DH>
 cudaError_t launch(const Args& a) {
   const long long blocks = (a.units + kWarps - 1) / kWarps;
-  window_attention_fwd_kernel<T, TO, DH><<<static_cast<unsigned>(blocks), kWarps * 32, 0, a.stream>>>(
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(window_attention_fwd_kernel<T, TO, DH>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               kBlockBytes<T, DH>);
+  if (err != cudaSuccess) return err;
+  window_attention_fwd_kernel<T, TO, DH><<<static_cast<unsigned>(blocks), kWarps * 32,
+                                           kBlockBytes<T, DH>, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<TO*>(a.o), static_cast<const uint32_t*>(a.masks), a.sel, a.prune_u, a.units,
       a.scale, a.zero_quirk, a.dual, a.stack, a.per_group, a.groups, a.unit_offset);
@@ -241,4 +338,16 @@ extern "C" int window_attention_fwd(const void* q, const void* k, const void* v,
   else if (in_dtype == 1 && out_dtype == 0) err = launch_dh<__nv_bfloat16, float>(dh, a);
   else if (in_dtype == 1 && out_dtype == 1) err = launch_dh<__nv_bfloat16, __nv_bfloat16>(dh, a);
   return static_cast<int>(err);
+}
+
+// The dynamic shared memory (bytes) and threads of one block of the
+// 32-token kernel for head dim `dh` and input dtype code `dtype`. Returns a
+// cudaError_t.
+extern "C" int window_attention_fwd_block(int dh, int dtype, int* smem, int* threads) {
+  if ((dh != 32 && dh != 64) || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  *smem = dtype == 0 ? (dh == 32 ? kBlockBytes<float, 32> : kBlockBytes<float, 64>)
+                     : (dh == 32 ? kBlockBytes<__nv_bfloat16, 32> : kBlockBytes<__nv_bfloat16, 64>);
+  *threads = kWarps * 32;
+  return 0;
 }

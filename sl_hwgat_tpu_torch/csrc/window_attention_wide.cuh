@@ -68,6 +68,17 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// The 32 rows of DH elements of a 32-token unit (device memory, rows DH
+// apart) into a shared tile of rows S elements apart, by cp.async: 16-byte
+// chunks, one lane after another (the 32-token kernels, a warp a unit).
+template <typename T, int DH, int S>
+__device__ __forceinline__ void stage_unit(const T* __restrict__ src, T* dst, int lane) {
+  constexpr int kEpc = 16 / sizeof(T), kChunks = DH / kEpc;
+#pragma unroll
+  for (int c = lane; c < kN * kChunks; c += 32)
+    cp_async16(dst + c / kChunks * S + c % kChunks * kEpc, src + c * kEpc);
+}
+
 // The unit's n rows of src (n x kDH, token-major) into the padded tile dst;
 // rows n .. 63 become zeros.
 template <typename T>

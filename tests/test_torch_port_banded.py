@@ -384,3 +384,25 @@ def test_ablation_variants_apply_to_the_banded_forward_source(variant):
         for old, _ in replacements:
             assert text.count(old) == 1, (fname, old)
     assert ablate.main(["banded_fwd"]) == 1  # no card here
+
+
+TILE_VARIANTS = ["full", "no_second"]
+
+
+@pytest.mark.parametrize("variant", TILE_VARIANTS)
+def test_ablation_variants_apply_to_the_tile_product_source(variant):
+    """``bench.ablate tile`` (the tile products behind K10 and the P-tile
+    probes) recognises the kernel's design, each variant's edits find their
+    text once, and every case it times is one the kernel takes."""
+    from sl_hwgat_tpu_torch.bench import ablate
+    from sl_hwgat_tpu_torch.ops import _build, probes
+
+    design, variants = ablate.design_of(_build.CSRC_DIR, ablate.TILE, ablate.TILE_DESIGNS)
+    assert design == "mma" and set(variants) == set(TILE_VARIANTS)
+    for fname, replacements in variants[variant].items():
+        text = (_build.CSRC_DIR / fname).read_text()
+        for old, _ in replacements:
+            assert text.count(old) == 1, (fname, old)
+    for planes, tiles, rows, depth, cols, _, _ in ablate.TILE_CASES.values():
+        assert cols <= rows <= probes.MAX_ROWS and depth <= probes.MAX_DEPTH
+    assert ablate.main(["tile"]) == 1  # no card here

@@ -51,3 +51,31 @@ def test_the_banded_forward_takes_the_bands_edge_count_before_the_scale():
     had no such argument."""
     new, old = c_signature(ba.KERNEL), ablate._ARGTYPES_OF[(ba.KERNEL, "recompute")]
     assert new[:11] + new[12:] == old and new[11] == "i"
+
+
+# The block helpers that chip_smoke.py reads (``redesigned_blocks``): how
+# many int arguments it passes before the two int* outputs.
+BLOCK_INPUTS = {"masked_softmax_fwd": 1, "window_attention_bwd": 2, "window_attention_fwd": 2,
+                "banded_attention_fwd": 3, "banded_attention_bwd": 3, "tile_matmul": 5}
+
+
+def block_signature(name: str) -> list[str]:
+    text = (_build.CSRC_DIR / f"{name}.cu").read_text()
+    m = re.search(r'extern "C" int ' + name + r"_block\(([^)]*)\)", text)
+    assert m, name
+    return [" ".join(arg.split()[:-1]) for arg in m.group(1).split(",")]
+
+
+@pytest.mark.parametrize("name", sorted(BLOCK_INPUTS))
+def test_block_helpers_take_ints_then_two_outputs(name):
+    assert block_signature(name) == ["int"] * BLOCK_INPUTS[name] + ["int*", "int*"]
+
+
+def test_chip_smoke_reads_a_block_of_every_redesigned_kernel():
+    """Each REDESIGNED source has a block helper, and the tile products'
+    cases give it (rows, depth, columns, mode) before the input type."""
+    import chip_smoke
+
+    assert set(chip_smoke.REDESIGNED) == set(BLOCK_INPUTS)
+    for rows, depth, cols, mode in chip_smoke.TILE_BLOCKS.values():
+        assert cols <= rows <= probes.MAX_ROWS and depth <= probes.MAX_DEPTH and mode in (0, 1)

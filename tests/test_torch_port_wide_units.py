@@ -186,6 +186,22 @@ def test_window32_ablation_variants_apply_to_the_32_token_backward(variant):
             assert text.count(old) == 1, (variant, fname, old)
 
 
+WINDOW32_FWD_VARIANTS = ["full", "no_scores", "no_av", "warps_1", "warps_2", "warps_8"]
+
+
+@pytest.mark.parametrize("variant", WINDOW32_FWD_VARIANTS)
+def test_window32_fwd_ablation_variants_apply_to_the_32_token_forward(variant):
+    """``bench.ablate window32_fwd`` recognises the 32-token K1's design and
+    each of its variants' edits finds its text once."""
+    design, variants = port_ablate.design_of(_build.CSRC_DIR, port_ablate.WINDOW_FWD,
+                                             port_ablate.WINDOW32_FWD_DESIGNS)
+    assert design == "staged" and set(variants) == set(WINDOW32_FWD_VARIANTS)
+    for fname, replacements in variants[variant].items():
+        text = (_build.CSRC_DIR / fname).read_text()
+        for old, _ in replacements:
+            assert text.count(old) == 1, (variant, fname, old)
+
+
 def test_ablation_needs_a_card(capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
