@@ -9,8 +9,8 @@ Phases, each printing one JSON line (any failure ends the run non-zero):
               one process per source, all at once; every instantiation of
               the K1/K2 kernels for units of up to 64 tokens must take at
               most 128 registers and spill nothing, and no instantiation of
-              K7's forward, K8's forward or backward, K1, K2 or the tile
-              products may spill.
+              K7's forward, K8's forward or backward, K1, K2, the tile
+              products, the layout kernel or softmax_probe may spill.
 3. kernel   — the forward window-attention kernel against its plain PyTorch
               version at the flagship shape (12288 units × 32 tokens × dh 64)
               and at HGATE's (3072 units × 58 tokens × dh 64, two units to a
@@ -99,17 +99,28 @@ Phases, each printing one JSON line (any failure ends the run non-zero):
               relayout, tile_matmul) against their plain versions at the
               bench's shapes (12288 units × 32 × 64), f32 and bf16, every mode
               and layout; K10 (banded_packed_mm) at WGATE's and GATE's batch-16
-              shapes; every fused probe through relayout + K1 equal to K1 on
-              plainly permuted inputs; softmax_only through K7. Then main path
-              11: the bench's measure() over entries of every family and K10,
-              counts reset just before and read just after.
+              shapes; the layout kernel (window_attention_into, every
+              instantiation, single mask, dual mask with pruning, a given
+              sel) against its plain version and bit for bit against K1, and
+              softmax_blocks against its plain version; every forward entry
+              in TPU layouts (the fused probes, pallas_t*, pallas_widepre,
+              pair_tscore) one launch of the layout kernel and no other,
+              bit for bit against K1 on plainly permuted inputs and within
+              the bar of its plain version; the
+              gradient entries through relayout + K1 + K2 against plain
+              relayouts; softmax_only one launch of softmax_probe, bit for
+              bit against K7 on the gathered blocks. Then main path 11: the
+              bench's measure() over entries of every family and K10 (the
+              layout kernel's five instantiations and hybrid_bf16's K7
+              among them), counts reset just before and read just after.
 19. bench    — python -m sl_hwgat_tpu_torch.bench.kernel <impl> for one entry
               of each family and K10 (one after another), then
               python -m sl_hwgat_tpu_torch.bench.run; each prints its line,
               and the run's vs_calib must be its paired child's ratio. Then
-              kernel, plain, bound and library ms of the probe kernels, and
-              library ms of the fused probes (masked SDPA) and softmax_only
-              (torch.softmax).
+              kernel, plain, bound and library ms of the probe kernels: the
+              layout kernel on one entry of each instantiation, tsw and the
+              paired entry (library: masked SDPA, token-major), softmax_probe
+              (library: torch.softmax over the masked blocks).
 
 The last lines are the kernels line, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -208,8 +219,10 @@ def wide_ptxas(report: dict) -> dict:
 
 # the kernels redesigned since the first designs: K7's forward and K8's
 # backward, then K2 at 32 tokens and K8's forward, then K1 at 32 tokens and
-# the tile products; their sources and what the kernels line says of their
-# design. The build phase fails if any of their instantiations spills.
+# the tile products, then the fused probes (the layout kernel) and
+# softmax_only (softmax_probe); their sources and what the kernels line
+# says of their design. The build phase fails if any of their
+# instantiations spills.
 REDESIGNED = {
     "window_attention_fwd": (
         "32-token units (HWGATE): one warp per unit (4 a block), q and v staged by cp.async in "
@@ -261,6 +274,25 @@ REDESIGNED = {
         "mma.sync m16n8k16 (f32 sums, ldmatrix, .trans for the transposed operands), A meeting "
         "dA on the accumulator layout through a shared f32 tile. Units of up to 64 tokens: the "
         "wide design (wide_design)"),
+    "window_attention_layout": (
+        "K1's forward at 32-token units (dh 64) on strided views of the TPU layouts, no "
+        "relayout: a warp per unit, 4 a block; each operand a view whose units are "
+        "(a, b, s) leading axes, token-major (features contiguous, a row stride) or "
+        "transposed (tokens contiguous, a feature stride); rows staged as K1 stages them, "
+        "columns by cp.async as dh rows of 32 tokens padded by 16 bytes, lane i reading "
+        "token i (its query row straight into registers; k as f32 rows, each lane starting "
+        "at another 4-feature chunk: no bank conflicts); attention_row and K1's A V (bf16 "
+        "mma.sync, V^T by ldmatrix where V is transposed; f32 4 x 8 register tiles after V's "
+        "columns become rows), so o is K1's bit for bit; o through shared memory, 16-byte "
+        "stores along rows or tokens (f32 O^T chunks swizzled by the feature quad). "
+        "Instantiations: all transposed (f32, bf16), q rows (bf16), q and k rows (bf16), all "
+        "rows (bf16)"),
+    "softmax_probe": (
+        "softmax_only in one pass: a block of 8 warps a (SN, DH) tile; the 64 rows of its two "
+        "diagonal 32 x 32 unit blocks through K7's row routine (masked_softmax_common.cuh: a "
+        "row per 8 lanes, four columns a lane, 16-byte loads and stores), so P is K7's bit "
+        "for bit; the rest of the tile zero-filled with 16-byte stores, consecutive threads "
+        "on consecutive chunks"),
     "banded_attention_fwd": (
         "a block of 128 threads owns 128/V frames of a plane (8 at V = 16, 4 at 29): q of its "
         "frames and k, v of its frames ±1 staged in q's type by cp.async, 16-byte chunks "
@@ -297,7 +329,8 @@ def redesigned_blocks() -> dict:
     paths' shapes, as its launcher sizes it: K7's units and threads, K8's
     dynamic shared memory and threads (under each model's band and the
     non-diagonal one), K1's and K2's at 32 tokens by head dim and type, the
-    tile products' by case and input type."""
+    tile products' by case and input type, the layout kernel's by type and
+    operand forms (bit 0 q … bit 3 o, 1 = transposed), softmax_probe's."""
     import ctypes
 
     from sl_hwgat_tpu_torch.ops import _build
@@ -315,6 +348,8 @@ def redesigned_blocks() -> dict:
     window = _build.load("window_attention_bwd").window_attention_bwd_block
     window_fwd = _build.load("window_attention_fwd").window_attention_fwd_block
     tiles = _build.load("tile_matmul").tile_matmul_block
+    layout = _build.load("window_attention_layout").window_attention_layout_block
+    softmax_probe = _build.load("softmax_probe").softmax_probe_block
     out = {"masked_softmax_fwd": {
                m: block(softmax, ("units", "threads"), n)
                for m, (_, n, _) in WINDOW_SHAPE.items()},
@@ -327,7 +362,14 @@ def redesigned_blocks() -> dict:
            "tile_matmul": {
                f"{case}/{name}": block(tiles, ("dynamic_smem_bytes", "threads"), *shape, code)
                for case, shape in TILE_BLOCKS.items()
-               for code, name in enumerate(("float32", "bfloat16"))}}
+               for code, name in enumerate(("float32", "bfloat16"))},
+           "window_attention_layout": {
+               f"{name}/forms{forms:04b}": block(layout, ("dynamic_smem_bytes", "threads"), code,
+                                                  forms)
+               for code, name, forms in ((0, "float32", 0b1111), (1, "bfloat16", 0b1111),
+                                         (1, "bfloat16", 0b1110), (1, "bfloat16", 0b1100),
+                                         (1, "bfloat16", 0b0000))},
+           "softmax_probe": {"softmax_only": block(softmax_probe, ("tiles", "threads"))}}
     for src in ("banded_attention_fwd", "banded_attention_bwd"):
         fn = getattr(_build.load(src), f"{src}_block")
         out[src] = {}
@@ -2009,15 +2051,17 @@ PROBE_TILES = UNITS // 4  # the bench's 128-token supertiles
 BENCH_PATH = ("floor_purecopy_bf16", "dmaflr_3stream", "mix_floor", "tsw_floor",
               "xrelay_s0pallas_bf16", "xstrided_s2_bf16", "matmul_only", "matmul_only_bf16",
               "floor_sn256_bf16", "tmq_mm", "banded_packed_mm", "banded_packed_mm_bf16",
-              "tmq_fused", "softmax_only")
+              "pallas_obf16", "tmq_fused", "tlay_fused", "mix_fused", "tmx_fused", "lp_fused_bf16",
+              "softmax_only", "hybrid_bf16")
 # the subprocess runs of the bench's entry point: one of each family, and K10
 BENCH_CLI = ("floor_purecopy_bf16", "xrelay_s0pallas_bf16", "matmul_only_bf16",
              "banded_packed_mm_bf16", "tmq_fused", "softmax_only")
-# the fused probes: TPU layouts around K1
-FUSED_PROBES = ("tlay_fused", "tlay_fused_bf16", "mix_fused", "tmx_fused", "tmq_fused",
-                "tmq_bfused", "tsw_fused", "tsw_bstack", "tsw_1_fused", "lp_fused_bf16",
-                "pallas_tbf16", "pallas_tpre_bf16", "pallas_widepre_bf16", "pallas_tbwd_bf16",
-                "pallas_widebwd_bf16")
+# the forward entries in TPU layouts timed beside their plain versions: one
+# of each instantiation, tsw's widened planes and the paired entry's kernel
+LAYOUT_TIMED = ("tmq_fused", "tlay_fused", "mix_fused", "tmx_fused", "lp_fused_bf16", "tsw_fused",
+                "pair_tscore_bf16")
+# the gradient entries in TPU layouts: relayouts around K1 and K2
+LAYOUT_BWD_ENTRIES = ("pallas_tbwd_bf16", "pallas_tsbwd_bf16", "pallas_widebwd_bf16")
 K10_SHAPES = {"WGATE": (512, 192, 16), "GATE": (128, 192, 29)}  # planes, frames, joints
 
 
@@ -2081,6 +2125,46 @@ def plain_relayouts():
         yield
     finally:
         layouts.relayout = kernel
+
+
+# the layout kernel's instantiations: operand forms by layout, and the
+# input types the bench gives them
+LAYOUT_KERNEL_CASES = {"t": ("float32", "bfloat16"), "mix": ("bfloat16",),
+                       "tmx": ("bfloat16",), "pairs": ("bfloat16",)}
+
+
+def layout_case(case: str, q, k, v):
+    """((q, k, v) views, out view, a function giving out's token-major
+    units) of token-major (U, 32, 64) q, k, v laid out as ``case``: "t"
+    transposed supertiles (every operand token-contiguous), "mix"/"tmx" the
+    mixed probes' streams (o transposed), "pairs" lane pairs (every operand
+    feature-contiguous)."""
+    import torch
+
+    from sl_hwgat_tpu_torch.ops import layouts
+
+    u, n, dh = q.shape
+    if case in layouts.STREAM_SETS:
+        views = layouts.stream_set_views(case, *layouts.stream_set(case, q, k, v))
+        out = torch.empty((u // 4, dh, 4 * n), dtype=q.dtype, device=q.device)
+        return views, layouts.t_view(out), lambda: layouts.t_to_units(out, 4)
+    if case == "t":
+        out = torch.empty((u // 4, dh, 4 * n), dtype=q.dtype, device=q.device)
+        return ([layouts.t_view(layouts.units_to_t(x, 4)) for x in (q, k, v)],
+                layouts.t_view(out), lambda: layouts.t_to_units(out, 4))
+    out = torch.empty((u // 8, 4 * n, 2 * dh), dtype=q.dtype, device=q.device)
+    return ([layouts.pair_view(layouts.pack2(x.reshape(-1, 4 * n, dh))) for x in (q, k, v)],
+            layouts.pair_view(out), lambda: layouts.unpack2(out).reshape(u, n, dh))
+
+
+def launched_of(kernel: str, fn):
+    """fn(), which must launch ``kernel`` of the bench's counters once."""
+    from sl_hwgat_tpu_torch.bench import kernel as bench
+
+    out, counts = bench.launches_of(fn)
+    if counts.get(kernel) != 1:
+        raise AssertionError(f"{kernel} was not launched once: {counts}")
+    return out
 
 
 def phase_probes() -> dict:
@@ -2178,10 +2262,67 @@ def phase_probes() -> dict:
         del x, y, z, packed, xt, yt, wide, x128, first, tr, out_t
         torch.cuda.empty_cache()
 
-    # the fused probes: relayout + K1 against K1 on plainly permuted inputs
+    # the layout kernel and softmax_blocks against their plain versions
+    # (1e-5 in f32, 4e-3·max|O| in bf16; 1e-5), the layout kernel also bit
+    # for bit against K1 on the token-major units: every instantiation,
+    # single mask, dual mask with pruning, and an explicit sel
+    from sl_hwgat_tpu_torch.ops import layouts
     from sl_hwgat_tpu_torch.ops import window_attention as window_mod
 
-    for impl in FUSED_PROBES:
+    layout = window_mod.KERNEL_LAYOUT
+    errors[layout], errors[hybrid_attention.KERNEL_BLOCKS] = {}, {}
+    adj = bench.window_adj()
+    units = UNITS  # the bench's shapes: 3072 supertiles, 384 temporal groups of 32 units
+    masks = {"single": {}, "dual_prune": dict(tail_adj=bench.dual_tail(adj), units_per_group=32,
+                                              groups=3, prune_u=0.3),
+             "sel": dict(tail_adj=bench.dual_tail(adj), units_per_group=32, groups=3,
+                         sel=(torch.arange(units // 4, device="cuda") % 3 == 1).int())}
+    for case, dtypes in LAYOUT_KERNEL_CASES.items():
+        for dt in (getattr(torch, name) for name in dtypes):
+            q, k, v = (randn(units, TOKENS, HEAD_DIM, dtype=dt) for _ in range(3))
+            for mask, kw in masks.items():
+                kw = dict(scale=bench.SCALE, stack=4, **kw)
+                views, out, back = layout_case(case, q, k, v)
+                launched_layout = window_mod.window_attention_into.launches
+                window_mod.window_attention_into(*views, adj, out=out, **kw)
+                if window_mod.window_attention_into.launches != launched_layout + 1:
+                    raise AssertionError(f"{case}: the layout kernel was not launched once")
+                got = back()
+                name = f"{case}/{mask}/{dtype_name(dt)}"
+                want = window_mod.plain_window_attention(q, k, v, adj, out_dtype=dt, **kw)
+                check(errors[layout], name, got, want,
+                      atol=(4e-3 * tile_bar(want)) if dt == bf16 else 1e-5)
+                check(errors[layout], f"K1/{name}", got,
+                      window_mod.window_attention(q, k, v, adj, out_dtype=dt, **kw))
+    x = randn(t, sn, dh)
+    blocks = hybrid_attention.KERNEL_BLOCKS
+    check(errors[blocks], "softmax_only_tiles",
+          launched_of(blocks, lambda: hybrid_attention.softmax_blocks(x, adj)),
+          hybrid_attention.plain_softmax_blocks(x, adj), atol=1e-5)
+    del q, k, v, x
+    torch.cuda.empty_cache()
+
+    # the forward entries in TPU layouts: one launch of the layout kernel, no
+    # relayout, o bit for bit K1's on the views' units taken by plain
+    # permutes (reshape copies), and within the bar of its plain version
+    for impl in bench.LAYOUT_ENTRIES:
+        p = bench.inputs(impl, UNITS, device="cuda")
+        with torch.no_grad():
+            _, counts = bench.launches_of(lambda: p.body(p.state))
+            if counts != {layout: 1}:
+                raise AssertionError(f"{impl}: launched {counts}, not the layout kernel once")
+            ((q, k, v, adj_), kw), = p.into_call
+            kw = dict(kw)
+            o = kw.pop("out").reshape(-1, TOKENS, HEAD_DIM)
+            units_ = [z.reshape(-1, TOKENS, HEAD_DIM).contiguous() for z in (q, k, v)]
+            want = window_mod.window_attention(*units_, adj_, out_dtype=o.dtype, **kw)
+            plain = window_mod.plain_window_attention(*units_, adj_, out_dtype=o.dtype, **kw)
+        check(errors["fused"], impl, o, want)
+        check(errors[layout], f"plain/{impl}", o, plain,
+              atol=(4e-3 * tile_bar(plain)) if o.dtype == bf16 else 1e-5)
+        del p, q, k, v, o, units_, want, plain
+    # the gradient entries in TPU layouts: relayouts around K1 and K2
+    for impl in LAYOUT_BWD_ENTRIES:
         p = bench.inputs(impl, UNITS, device="cuda")
         with torch.no_grad():
             before = window_mod.window_attention.launches
@@ -2191,34 +2332,35 @@ def phase_probes() -> dict:
             with plain_relayouts():
                 want = p.body(p.state)
         check(errors["fused"], impl, got, want)
+    # softmax_only: one launch of softmax_probe, P bit for bit K7's on the
+    # gathered unit blocks
     p = bench.inputs("softmax_only", UNITS, device="cuda")
     with torch.no_grad():
-        before = hybrid_attention.masked_softmax.launches
-        got = p.body(p.state)
-        if hybrid_attention.masked_softmax.launches <= before:
-            raise AssertionError("softmax_only: K7 was not launched")
-        kernel = hybrid_attention.masked_softmax
-        hybrid_attention.masked_softmax = hybrid_attention.plain_masked_softmax
-        try:
-            want = p.body(p.state)
-        finally:
-            hybrid_attention.masked_softmax = kernel
-    check(errors["softmax_only"], "softmax_only", got, want, atol=1e-5)
+        got, counts = bench.launches_of(lambda: p.body(p.state))
+        if counts != {blocks: 1}:
+            raise AssertionError(f"softmax_only: launched {counts}, not {blocks} once")
+        want = hybrid_attention.plain_softmax_blocks(
+            p.state.reshape(t, sn, dh), adj, softmax=hybrid_attention.masked_softmax)
+    check(errors["softmax_only"], "softmax_only", got, want.reshape(got.shape))
     del p, got, want
     torch.cuda.empty_cache()
     emit("probes", tiles=[t, sn, dh], k10_shapes={m: list(s) for m, s in K10_SHAPES.items()},
          max_abs_err=errors, launches=probe_counts(),
          note="stream and relayout bit for bit; floors one output ulp; tile products and K10 "
-              "1e-5 / 4e-3 x max|O|; fused probes bit for bit against K1 on plainly permuted "
-              "inputs; softmax_only 1e-5")
+              "1e-5 / 4e-3 x max|O|; the layout kernel 1e-5 / 4e-3 x max|O| against its plain "
+              "version and bit for bit against K1; softmax_blocks 1e-5 against its plain "
+              "version; every forward entry in TPU layouts bit for bit against K1 on plainly "
+              "permuted inputs, the gradient entries against their plain relayouts; "
+              "softmax_only bit for bit against K7 on the gathered blocks")
     return errors
 
 
 def phase_bench_path() -> dict:
     """Main path 11: the kernel bench's ``measure`` (what its command line
     runs) over one or two entries of each family and K10, counts reset just
-    before and read just after; every one of the three probe kernels, K1 and
-    K7 launched."""
+    before and read just after; every one of the three probe kernels, K1,
+    the layout kernel (each of its instantiations), softmax_probe and K7
+    (``hybrid_bf16``) launched."""
     import torch
 
     from sl_hwgat_tpu_torch.bench import kernel as bench
@@ -2232,7 +2374,8 @@ def phase_bench_path() -> dict:
     counts = bench.launches()
     from sl_hwgat_tpu_torch.ops import hybrid_attention, probes, window_attention
 
-    for kernel in (*probes.KERNELS, window_attention.KERNEL, hybrid_attention.KERNEL):
+    for kernel in (*probes.KERNELS, window_attention.KERNEL, window_attention.KERNEL_LAYOUT,
+                   hybrid_attention.KERNEL_BLOCKS, hybrid_attention.KERNEL):
         if not counts.get(kernel):
             raise AssertionError(f"the bench path never launched {kernel}")
     torch.cuda.empty_cache()
@@ -2389,39 +2532,74 @@ def phase_probe_timings() -> dict:
             del q, k, v, qb, kb, vb
         del a, a4
     out["tile_matmul"] = mm
-    # library yardsticks of the fused probes (K1 between relayouts) and of
-    # softmax_only (K7), on their kernels' inputs: masked SDPA on the
-    # token-major q, k, v that the fused probes hand K1 (bf16 in and out),
-    # and torch.softmax over the masked [q_g | q_g] unit blocks that K7 reads
+    # the layout kernel on the bench's forward entries in TPU layouts, and
+    # softmax_probe on softmax_only's tiles. Library yardsticks, timed only:
+    # masked SDPA on the same q, k, v token-major (no layout: it cannot
+    # read them) in the entry's type; torch.softmax over the masked unit
+    # blocks (it writes P of the blocks, not the 100.7 MB output tile)
     from sl_hwgat_tpu_torch.bench import kernel as bench
+    from sl_hwgat_tpu_torch.ops import hybrid_attention
+    from sl_hwgat_tpu_torch.ops import window_attention as window_mod
     from sl_hwgat_tpu_torch.ops.attention import masked_scores, unit_allowed
 
-    d = bench.draws("tmq_fused", UNITS)
-    q, k, v = (torch.from_numpy(d[name]).cuda().to(bf16)[:, None] for name in "qkv")
     adj = bench.window_adj()
-    additive = torch.where(torch.from_numpy(adj) != 0, 0.0, -1e4).cuda().to(bf16)[None, None]
+    d = bench.draws("tmq_fused", UNITS)
+    sdpa = {}
+    for dt in (f32, bf16):
+        q, k, v = (torch.from_numpy(d[name]).cuda().to(dt)[:, None] for name in "qkv")
+        additive = torch.where(torch.from_numpy(adj) != 0, 0.0, -1e4).cuda().to(dt)[None, None]
 
-    def sdpa():
-        return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=additive,
-                                                                scale=bench.SCALE)
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=additive,
+                                                                    scale=bench.SCALE)
 
-    x3 = torch.from_numpy(d["q"]).cuda().reshape(-1, 128, HEAD_DIM)
+        with torch.no_grad():
+            sdpa[dt] = {"library_ms": cuda_ms(library),
+                        "library_device_ms": device_seconds(library) * 1e3}
+        del q, k, v, additive
+    layout = {}
+    for impl in LAYOUT_TIMED:
+        p = bench.inputs(impl, UNITS, device="cuda")
+        with torch.no_grad():
+            p.body(p.state)
+        ((qv, kv, vv, adj_), kw), = p.into_call
+        kw = dict(kw)
+        o = kw.pop("out")
+        units = [z.reshape(-1, TOKENS, HEAD_DIM) for z in (qv, kv, vv)]
+        dt = p.state.dtype
+        nbytes = p.state.nbytes + sum(c.nbytes for c in p.consts) + o.nbytes  # tlay: q = k = v
+        with torch.no_grad():
+            layout[impl] = {**row(lambda: p.body(p.state),
+                                  lambda: window_mod.plain_window_attention(
+                                      *units, adj_, out_dtype=o.dtype, **kw),
+                                  None, nbytes, p.flops, dtype_name(dt), plain_runs=5),
+                            **sdpa[dt]}
+        del p, o, units
+        torch.cuda.empty_cache()
+    out[window_mod.KERNEL_LAYOUT] = layout
+    p = bench.inputs("softmax_only", UNITS, device="cuda")
+    x3 = p.state.reshape(-1, 128, HEAD_DIM)
     blocks = torch.stack([x3[:, :TOKENS, :TOKENS], x3[:, TOKENS:2 * TOKENS, TOKENS:2 * TOKENS]],
                          1).reshape(-1, TOKENS, TOKENS)
     masked = masked_scores(blocks, unit_allowed(adj, None, None, blocks.shape[0], 2, "cuda"),
                            zero_quirk=True, prune_u=None)
     with torch.no_grad():
-        for probe, fn in (("fused", sdpa), ("softmax_only", lambda: torch.softmax(masked, -1))):
-            out[probe] = {"library_ms": cuda_ms(fn), "library_device_ms": device_seconds(fn) * 1e3}
-    del q, k, v, x3, blocks, masked
+        out[hybrid_attention.KERNEL_BLOCKS] = {"softmax_only": row(
+            lambda: hybrid_attention.softmax_blocks(x3, adj),
+            lambda: hybrid_attention.plain_softmax_blocks(x3, adj),
+            lambda: torch.softmax(masked, -1), blocks.nbytes + x3.nbytes, 0, "float32")}
+    del p, x3, blocks, masked
     torch.cuda.empty_cache()
     emit("probe_timings", kernels=out,
          note="library_ms, timed only: Tensor.copy_ into a preallocated tensor (stream), "
               "permute(...).contiguous() (relayout; also its plain version), two torch.bmm "
               "calls (tile products and K10; f32 sums, the operands' type out, so in bf16 "
-              "S and O are bf16); fused: masked scaled_dot_product_attention on the fused "
-              "probes' token-major K1 inputs (bf16); softmax_only: torch.softmax over the "
-              "masked unit blocks that K7 reads")
+              "S and O are bf16); window_attention_layout: masked "
+              "scaled_dot_product_attention on the entry's q, k, v token-major, in its type "
+              "(it reads no TPU layout); softmax_probe: torch.softmax over the masked unit "
+              "blocks (P of the blocks only: it writes no zeros). Bounds: each input byte "
+              "read once and each output byte written once (softmax_probe: the two blocks "
+              "read, the whole tile written)")
     return out
 
 
@@ -2448,9 +2626,11 @@ MATMUL_REPLACES = ("bench_kernel.py:381 (mm_*), :450 (floor_dot1slim, floor_bigm
                    ":515 (tlay_mm), :593 (mix_mm), :685 (tmx_mm), :805 (tmq_mm, tmq_bmm), "
                    ":1248 (matmul_only, matmul_k128, matmul_only_bf16); "
                    "sl_hwgat_tpu/ops/pallas_banded.py:395 (_fwd_kernel_packed_mm, K10)")
-FUSED_REPLACES = ("; bench_kernel.py:515 (tlay_fused), :593 (mix_fused), :685 (tmx_fused), "
-                  ":805 (tmq_fused, tmq_bfused), :951 (tsw_fused, tsw_bstack, tsw_1_fused), "
-                  ":1012 (lp_fused_bf16)")
+LAYOUT_REPLACES = ("sl_hwgat_tpu/ops/pallas_attention.py:356 (_fwd_kernel_t), :676 "
+                   "(_fwd_kernel_ts), :447 (_fwd_kernel_ts_batched), :489 (_fwd_kernel_wide), "
+                   ":571 (_fwd_kernel_wide_batched); bench_kernel.py:515 (tlay_fused), :593 "
+                   "(mix_fused), :685 (tmx_fused), :805 (tmq_fused, tmq_bfused), :951 "
+                   "(tsw_fused, tsw_bstack, tsw_1_fused), :1012 (lp_fused_bf16)")
 
 
 def kernel_entry(kind: str, name: str, replaces: str, launches: int, timings: dict,
@@ -2565,18 +2745,20 @@ def main() -> int:
     phase_bench_cli(repo)
     probe_timings = phase_probe_timings()
 
+    from sl_hwgat_tpu_torch.bench import kernel as bench
     from sl_hwgat_tpu_torch.ops import banded_attention, hybrid_attention, probes, window_attention
 
     # launches of the main paths: the serving bursts and the AdamW/SYNTH runs
     served, trained = windowed_serve_launches, windowed_train_launches
     fwd = kernel_entry("fwd", window_attention.KERNEL,
-                       "sl_hwgat_tpu/ops/pallas_attention.py:241 (_fwd_kernel)" + FUSED_REPLACES,
+                       "sl_hwgat_tpu/ops/pallas_attention.py:241 (_fwd_kernel), :228 "
+                       "(_fwd_kernel_batched)",
                        serve_launches + served["window_attention"], timings, fwd_errors)
     fwd["hgate_serve_launches"] = served["window_attention"]
     fwd["train_launches"] = train_launches["fwd"] + trained["window_attention"]
     fwd["bench_launches"] = bench_launches[window_attention.KERNEL]
-    fwd["fused_probes_max_abs_err"] = max(probe_errors["fused"].values())
-    fwd["fused_probes_library"] = probe_timings["fused"]
+    fwd["gradient_layout_entries_max_abs_err"] = {
+        e: probe_errors["fused"][e] for e in LAYOUT_BWD_ENTRIES}
     fwd["wide_design"] = WIDE_DESIGN
     fwd["wide_ptxas"] = {n: r for n, r in wide_kernels.items() if "fwd" in n}
     fwd["edge_cases_max_abs_err"] = edge_errors["window_fwd"]
@@ -2615,14 +2797,10 @@ def main() -> int:
                 block=blocks[banded_attention.KERNEL_BWD])
     softmax_timings = windowed_timings["masked_softmax"]
     sfwd = case_entry("fwd", hybrid_attention.KERNEL,
-                      "sl_hwgat_tpu/ops/hybrid_attention.py:46 (_softmax_fwd_kernel); "
-                      "bench_kernel.py:1285 (softmax_only)",
+                      "sl_hwgat_tpu/ops/hybrid_attention.py:46 (_softmax_fwd_kernel)",
                       served["masked_softmax"], softmax_timings, softmax_fwd_errors,
                       "HWGATE/float32")
     sfwd["train_launches"] = trained["masked_softmax"]
-    sfwd["bench_launches"] = bench_launches[hybrid_attention.KERNEL]
-    sfwd["softmax_only_max_abs_err"] = probe_errors["softmax_only"]["softmax_only"]
-    sfwd["softmax_only_library"] = probe_timings["softmax_only"]
     sfwd["edge_cases_max_abs_err"] = edge_errors["softmax_fwd"]
     sfwd.update(design=REDESIGNED[hybrid_attention.KERNEL],
                 ptxas=redesigned.get(hybrid_attention.KERNEL),
@@ -2640,6 +2818,17 @@ def main() -> int:
            probe_entry(mm, MATMUL_REPLACES, bench_launches[mm], probe_timings[mm],
                        "matmul_only/float32", probe_errors[mm])]
     new[2].update(design=REDESIGNED[mm], ptxas=redesigned.get(mm), block=blocks[mm])
+    layout, softmax_blocks = window_attention.KERNEL_LAYOUT, hybrid_attention.KERNEL_BLOCKS
+    new.append(probe_entry(layout, LAYOUT_REPLACES, bench_launches[layout],
+                           probe_timings[layout], "tmq_fused", probe_errors[layout]))
+    new[3]["entries_max_abs_err"] = {e: probe_errors["fused"][e] for e in bench.LAYOUT_ENTRIES}
+    new.append(probe_entry(softmax_blocks, "bench_kernel.py:1285 (softmax_only)",
+                           bench_launches[softmax_blocks], probe_timings[softmax_blocks],
+                           "softmax_only", probe_errors[softmax_blocks]))
+    new[4]["softmax_only_max_abs_err"] = probe_errors["softmax_only"]["softmax_only"]
+    for entry in new[3:]:
+        name = entry["name"]
+        entry.update(design=REDESIGNED[name], ptxas=redesigned.get(name), block=blocks[name])
     print(json.dumps({"kernels": [fwd, bwd, bfwd, bbwd, sfwd, sbwd, *new]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,7 @@
 """Where the time of a kernel goes, by source variants that leave one phase out.
 
     python -m sl_hwgat_tpu_torch.bench.ablate [wide|banded|softmax|window32|banded_fwd|
-                                               window32_fwd|tile] [--parent DIR]
+                                               window32_fwd|tile|fused|layout] [--parent DIR]
 
 Builds variants of a kernel's sources that each leave one phase out, under
 ``build/ablate/<variant>/``, and prints one JSON line of the card's times
@@ -95,6 +95,25 @@ Like ``banded``, ``window32``, ``banded_fwd``, ``window32_fwd`` and ``tile``
 tell the source's design by a line only it holds (``WINDOW32_DESIGNS``,
 ``BANDED_FWD_DESIGNS``, ``WINDOW32_FWD_DESIGNS``, ``TILE_DESIGNS``).
 
+``fused`` (needs ``--parent``): the kernel bench's forward entries in TPU
+layouts (``bench.kernel.LAYOUT_ENTRIES``: the fused probes, the forward
+``pallas_t*``/``pallas_widepre_bf16`` entries, the kernel side of
+``pair_tscore_bf16``) and ``softmax_only``, each as
+``bench.kernel`` builds it in this checkout and in the parent's (its
+``bench.kernel`` imported beside this one), timed in turns by their card
+ms (``profiling.device_seconds``) and by events around back-to-back calls
+(the host's launch gaps included), with ``bit_equal`` and this checkout's
+launches per call; then ``window32_fwd`` against the parent (token-major
+K1).
+
+``layout``: the layout kernel (``csrc/window_attention_layout.cu``) on one
+bench entry of each instantiation and ``tlay_fused_bf16``, each variant
+loaded in turn behind ``window_attention_into`` (``--parent`` is not read):
+
+- ``full``: the kernel as it is;
+- ``unbounded``: no minimum of 4 blocks an SM for bf16 (more registers);
+- ``unit_u64``: each unit's offset by 64-bit divisions.
+
 ``--parent DIR``: DIR holds another checkout of the repository (for
 example ``git archive`` of the parent commit). Its ``full`` kernel is built
 too and timed in turns with this one (parent, this, this, parent) on the
@@ -105,10 +124,13 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib
 import json
 import shutil
+import statistics
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -728,6 +750,116 @@ def banded_fwd_call(fn, design: str, tensors, band, planes, frames, joints, code
                       ba.edges_per_row(band), BANDED_SCALE, stream)
 
 
+PACKAGE = "sl_hwgat_tpu_torch"
+
+
+def _own_modules() -> dict:
+    return {n: m for n, m in sys.modules.items() if n == PACKAGE or n.startswith(PACKAGE + ".")}
+
+
+def parent_modules(parent: Path, names=("bench.kernel", "ops._build")) -> list:
+    """The parent checkout's modules ``names`` of the package, imported from
+    ``parent`` beside this checkout's (which stay what ``sys.modules``
+    holds): their functions keep reaching the parent's code and kernels."""
+    own = _own_modules()
+    for name in own:
+        del sys.modules[name]
+    sys.path.insert(0, str(parent))
+    try:
+        return [importlib.import_module(f"{PACKAGE}.{n}") for n in names]
+    finally:
+        sys.path.remove(str(parent))
+        for name in _own_modules():
+            del sys.modules[name]
+        sys.modules.update(own)
+
+
+def run_fused(parent) -> dict:
+    from sl_hwgat_tpu_torch.bench import kernel as bench
+
+    if parent is None:
+        raise SystemExit("bench.ablate fused: --parent is required")
+    pbench, pbuild = parent_modules(Path(parent))
+    sources = ("window_attention_fwd", "relayout", "masked_softmax_fwd")
+    built = threading.Thread(target=pbuild.build, args=(sources,))
+    built.start()
+    _build.build((wa.KERNEL_LAYOUT, ha.KERNEL_BLOCKS))
+    built.join()
+    pbuild.load("relayout")  # fails here, not in a timed call, if the parent's build did
+    times, events, equal, counts = {}, {}, {}, {}
+    with torch.no_grad():
+        for impl in (*bench.LAYOUT_ENTRIES, "softmax_only"):
+            probes_ = {"parent": pbench.inputs(impl, WINDOW32_UNITS),
+                       "full": bench.inputs(impl, WINDOW32_UNITS)}
+            calls = {n: (lambda p=p: p.body(p.state)) for n, p in probes_.items()}
+            times[impl] = {n: [] for n in calls}
+            for name in ("parent", "full", "full", "parent"):
+                times[impl][name].append(profiling.device_seconds(calls[name], calls=20) * 1e3)
+            events[impl] = {n: statistics.median(profiling.timeit(c, repeats=5)) * 1e3
+                            for n, c in calls.items()}
+            got, counts[impl] = bench.launches_of(calls["full"])
+            equal[impl] = torch.equal(calls["parent"](), got)
+            del probes_, calls, got
+            torch.cuda.empty_cache()
+    return {"units": WINDOW32_UNITS, "paired_device_ms": times, "events_ms": events,
+            "bit_equal": equal, "launches": counts, "window32_fwd": run_window32_fwd(parent)}
+
+
+LAYOUT = "window_attention_layout.cu"
+LAYOUT_BOUND = "__launch_bounds__(kWarps * 32, kMinBlocks<T>)"
+# variants of the layout kernel: every one gives the same bits
+LAYOUT_VARIANTS = {
+    "full": {},
+    # no register bound: bf16 may take more than 128 registers (fewer warps)
+    "unbounded": {LAYOUT: [(LAYOUT_BOUND, "__launch_bounds__(kWarps * 32)")]},
+    # a unit's first element by 64-bit divisions
+    "unit_u64": {LAYOUT: [(
+        "  const unsigned uu = static_cast<unsigned>(u), ns = static_cast<unsigned>(w.ns),\n"
+        "                 nb = static_cast<unsigned>(w.nb), r = uu / ns;\n"
+        "  return static_cast<long long>(r / nb) * w.sa + static_cast<long long>(r % nb) * w.sb +\n"
+        "         static_cast<long long>(uu - r * ns) * w.ss;\n",
+        "  const long long r = u / w.ns;\n"
+        "  return r / w.nb * w.sa + r % w.nb * w.sb + (u - r * w.ns) * w.ss;\n")]},
+}
+# one bench entry of each instantiation, and tlay_fused_bf16 (all transposed,
+# scale 1: its softmax leaves most probabilities subnormal or 0)
+LAYOUT_ENTRIES_TIMED = ("tmq_fused", "tlay_fused_bf16", "mix_fused", "tmx_fused", "lp_fused_bf16",
+                        "tlay_fused")
+
+
+def run_layout(parent) -> dict:
+    """The layout kernel's variants on bench entries, each loaded in place of
+    the built library behind ``window_attention_into`` and timed in turns."""
+    from sl_hwgat_tpu_torch.bench import kernel as bench
+
+    jobs = {name: build_variant(name, edits, (wa.KERNEL_LAYOUT,))
+            for name, edits in LAYOUT_VARIANTS.items()}
+    ptxas = wait(jobs)
+    if ptxas is None:
+        return {}
+    libs = {name: ctypes.CDLL(str(ABLATE_DIR / name / f"lib{wa.KERNEL_LAYOUT}.so"))
+            for name in LAYOUT_VARIANTS}
+    built = _build.load(wa.KERNEL_LAYOUT)
+    times, equal = {}, {}
+    try:
+        with torch.no_grad():
+            for impl in LAYOUT_ENTRIES_TIMED:
+                p = bench.inputs(impl, WINDOW32_UNITS)
+                times[impl], outs = {name: [] for name in libs}, {}
+                for name in [*libs, *reversed(libs)]:
+                    _build._LIBS[wa.KERNEL_LAYOUT] = libs[name]
+                    outs.setdefault(name, p.body(p.state))
+                    times[impl][name].append(
+                        profiling.device_seconds(lambda: p.body(p.state), calls=20) * 1e3)
+                equal[impl] = all(torch.equal(o, outs["full"]) for o in outs.values())
+                del p, outs
+                torch.cuda.empty_cache()
+    finally:
+        _build._LIBS[wa.KERNEL_LAYOUT] = built
+    return {"units": WINDOW32_UNITS, "device_ms": times, "bit_equal_across_variants": equal,
+            "ptxas": ptxas}
+
+
 # C signatures of older designs' entries that differ from the wrappers' own:
 # neither "recompute" design took edges_per_row
 _ARGTYPES_OF = {(ba.KERNEL, "recompute"): ["p"] * 5 + ["ll", "i", "i", "i", "i", "i", "f", "p"],
@@ -741,13 +873,14 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="python -m sl_hwgat_tpu_torch.bench.ablate")
     parser.add_argument("kernel", nargs="?", default="wide",
                         choices=("wide", "banded", "softmax", "window32", "banded_fwd",
-                                 "window32_fwd", "tile"))
+                                 "window32_fwd", "tile", "fused", "layout"))
     parser.add_argument("--parent", type=Path, default=None,
                         help="another checkout whose kernel is timed in turns with this one")
     args = parser.parse_args(argv)
     out = {"wide": run_wide, "banded": run_banded, "softmax": run_softmax,
            "window32": run_window32, "banded_fwd": run_banded_fwd,
-           "window32_fwd": run_window32_fwd, "tile": run_tile}[args.kernel](args.parent)
+           "window32_fwd": run_window32_fwd, "tile": run_tile,
+           "fused": run_fused, "layout": run_layout}[args.kernel](args.parent)
     if not out:
         return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -16,12 +16,14 @@ runs on the port's kernels:
   JAX ``banded_packed*`` under ``PALLAS_BANDED_PACKED_MM=1``):
   ``tile_matmul``;
 - the fused probes (``tlay_fused*``, ``mix_fused``, ``tmx_fused``,
-  ``tmq_*fused``, ``tsw_*`` but the floor, ``lp_fused_bf16``) and
-  ``pallas*``: relayout into token-major, the window-attention kernel K1
-  (single mask, zero quirk, no prune; K2 behind it for the ``*bwd*``
-  names), relayout back;
-- ``softmax_only``: the masked-softmax kernel K7 on the two diagonal unit
-  blocks of each supertile that reach the output;
+  ``tmq_*fused``, ``tsw_*`` but the floor, ``lp_fused_bf16``) and the
+  forward ``pallas_t*``/``pallas_widepre_bf16``/``pair_tscore_bf16``
+  entries: ``window_attention_into`` on views of their layouts, one launch
+  of the layout kernel (single mask, zero quirk, no prune); the token-major
+  ``pallas*`` entries: K1; the ``*bwd*`` layout entries: relayout into
+  token-major, K1 and K2, relayout back;
+- ``softmax_only``: ``softmax_blocks``, one kernel over the two diagonal
+  unit blocks of each supertile that reach the output (K7's row routine);
 - ``hybrid*``: ``hybrid_window_attention`` (K7); ``banded_*``: the banded
   kernels K8/K9;
 - yardsticks, timed only: ``stacked*`` (the plain attention),
@@ -50,7 +52,7 @@ import json
 import subprocess
 import sys
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable
 
 import numpy as np
@@ -100,6 +102,13 @@ IMPLS = (
     *_suffixes("hybrid", "hybrid_bwd"),
     "stacked", "stacked_bf16", "tsw1_fused",
 )
+
+
+# the forward entries in TPU layouts: one launch of the layout kernel a call
+LAYOUT_ENTRIES = ("tlay_fused", "tlay_fused_bf16", "mix_fused", "tmx_fused", "tmq_fused",
+                  "tmq_bfused", "tsw_fused", "tsw_bstack", "tsw_1_fused", "lp_fused_bf16",
+                  "pallas_tbf16", "pallas_tdual_bf16", "pallas_tpre_bf16", "pallas_tspre_bf16",
+                  "pallas_widepre_bf16", "pair_tscore_bf16")
 
 
 def window_adj() -> np.ndarray:
@@ -167,6 +176,15 @@ class Probe:
     dtype: str = "float32"    # the type whose peak bounds the operations
     edges: int | None = None
     reads_state: bool = True  # False where the probe ignores its chained input
+    # the entries in TPU layouts: [(args, kwargs)] of the body's last
+    # window_attention_into call (the views it reads and writes)
+    into_call: list = field(default_factory=list)
+
+
+def _into(record: list, *args, **kw) -> None:
+    """``window_attention_into(*args, **kw)``, its arguments kept in record."""
+    record[:] = [(args, kw)]
+    window_mod.window_attention_into(*args, **kw)
 
 
 def _win_flops(units: int, products: int, n: int = N, dh: int = DH) -> float:
@@ -242,11 +260,23 @@ def _window_probe(impl, d, dev) -> Probe:
             return layouts.widen(o.reshape(t, SN, DH), HEADS).reshape(HEADS, DH, th, SN)
     qt, kt, vt = (back(x) for x in (q.to(BF16), kb, vb))
 
+    if not bwd:  # the layout kernel on views of the layout
+        if impl.startswith("pallas_wide"):
+            def view(x):
+                return layouts.wide_view(x.view(HEADS, DH, -1), SN)
+        else:
+            view = layouts.t_view
+        kv, calls = (view(kt), view(vt)), []
+
+        def into(x):
+            out = torch.empty_like(x)
+            _into(calls, view(x), *kv, adj, out=view(out), **kw)
+            return out
+
+        return Probe(impl, qt, into, (kt, vt), flops, "bfloat16", edges, into_call=calls)
+
     def fwd(x):
         return back(att(to_units(x), to_units(kt), to_units(vt), BF16))
-
-    if not bwd:
-        return Probe(impl, qt, fwd, (kt, vt), flops, "bfloat16", edges)
 
     def loss(leaf):
         o = fwd(leaf)
@@ -363,10 +393,10 @@ def _layout_probe(impl, d, dev, tg) -> Probe:
     adj = window_adj()
     fused_flops = _win_flops(units, 2)
     family, base = impl.split("_", 1)
+    calls = []
 
-    def k1(qu, ku, vu, scale=SCALE, dtype=BF16):
-        return window_mod.window_attention(qu, ku, vu, adj, scale=scale, stack=STACK,
-                                           out_dtype=dtype)
+    def into(qv, kv, vv, out, scale=SCALE):
+        _into(calls, qv, kv, vv, adj, out=out, scale=scale, stack=STACK)
 
     if family == "tlay":
         dt = BF16 if base.endswith("bf16") else F32
@@ -382,10 +412,11 @@ def _layout_probe(impl, d, dev, tg) -> Probe:
             return Probe(impl, state, body, (), _tile_flops(t, SN, DH, DH, True), dt_name(dt))
 
         def body(x):  # no scale: q serves as q, k and v
-            u = layouts.transpose_tiles(x).reshape(units, N, DH)
-            return layouts.transpose_tiles(k1(u, u, u, 1.0, dt).reshape(t, SN, DH))
+            out = torch.empty_like(x)
+            into(*[layouts.t_view(x)] * 3, layouts.t_view(out), 1.0)
+            return out
 
-        return Probe(impl, state, body, (), fused_flops, dt_name(dt))
+        return Probe(impl, state, body, (), fused_flops, dt_name(dt), into_call=calls)
 
     if family in layouts.STREAM_SETS:
         qs, ks, vs = layouts.stream_set(family, q.to(BF16), k.to(BF16), v.to(BF16))
@@ -418,10 +449,11 @@ def _layout_probe(impl, d, dev, tg) -> Probe:
             return Probe(impl, state, body, consts, _tile_flops(t, SN, DH, DH, True), "bfloat16")
 
         def body(x):  # fused, bfused
-            qu, ku, vu = layouts.stream_set_to_units(family, *with_state(x))
-            return layouts.transpose_tiles(k1(qu, ku, vu).reshape(t, SN, DH))
+            out = torch.empty((t, DH, SN), dtype=BF16, device=x.device)
+            into(*layouts.stream_set_views(family, *with_state(x)), layouts.t_view(out))
+            return out
 
-        return Probe(impl, state, body, consts, fused_flops, "bfloat16")
+        return Probe(impl, state, body, consts, fused_flops, "bfloat16", into_call=calls)
 
     if family == "tsw":
         th = t // HEADS
@@ -437,26 +469,26 @@ def _layout_probe(impl, d, dev, tg) -> Probe:
 
             return Probe(impl, vw, body, (qw, kw), 0.0, "bfloat16")
 
-        def to_units(x):
-            return layouts.unwiden(x, SN).reshape(units, N, DH)
+        qv, kv = (layouts.wide_view(x, SN) for x in (qw, kw))
 
         def body(x):  # fused, bstack, 1_fused
-            o = k1(to_units(qw), to_units(kw), to_units(x))
-            return layouts.widen(o.reshape(t, SN, DH), HEADS)
+            out = torch.empty_like(x)
+            into(qv, kv, layouts.wide_view(x, SN), layouts.wide_view(out, SN))
+            return out
 
-        return Probe(impl, vw, body, (qw, kw), fused_flops, "bfloat16")
+        return Probe(impl, vw, body, (qw, kw), fused_flops, "bfloat16", into_call=calls)
 
     if impl == "lp_fused_bf16":
         qp, kp, vp = (layouts.pack2(x.reshape(t, SN, DH).to(BF16)) for x in (q, k, v))
 
-        def to_units(x):
-            return layouts.unpack2(x).reshape(units, N, DH)
+        kv = (layouts.pair_view(kp), layouts.pair_view(vp))
 
         def body(x):
-            o = k1(to_units(x), to_units(kp), to_units(vp))
-            return layouts.pack2(o.reshape(t, SN, DH))
+            out = torch.empty_like(x)
+            into(layouts.pair_view(x), *kv, layouts.pair_view(out))
+            return out
 
-        return Probe(impl, qp, body, (kp, vp), fused_flops, "bfloat16")
+        return Probe(impl, qp, body, (kp, vp), fused_flops, "bfloat16", into_call=calls)
     raise ValueError(f"unknown layout probe {impl}")
 
 
@@ -528,13 +560,7 @@ def _softmax_probe(impl, d, dev, tg) -> Probe:
     adj = window_adj()
 
     def body(x):
-        x3 = x.reshape(t, SN, DH)
-        blocks = torch.stack([x3[:, :N, :N], x3[:, N:2 * N, N:2 * N]], 1).reshape(2 * t, N, N)
-        p = hybrid_mod.masked_softmax(blocks, adj, stack=2).view(t, 2, N, N)
-        out = torch.zeros((t, SN, DH), dtype=F32, device=x.device)
-        out[:, :N, :N] = p[:, 0]
-        out[:, N:2 * N, N:2 * N] = p[:, 1]
-        return out.reshape(units, N, DH)
+        return hybrid_mod.softmax_blocks(x.reshape(t, SN, DH), adj).reshape(units, N, DH)
 
     return Probe(impl, q, body)
 
@@ -670,6 +696,8 @@ def inputs(impl: str, units: int = UNITS, *, device="cuda", tg: int | None = Non
 def _counters() -> dict:
     return {window_mod.KERNEL: window_mod.window_attention.launches,
             window_mod.KERNEL_BWD: window_mod.window_attention_bwd.launches,
+            window_mod.KERNEL_LAYOUT: window_mod.window_attention_into.launches,
+            hybrid_mod.KERNEL_BLOCKS: hybrid_mod.softmax_blocks.launches,
             banded_mod.KERNEL: banded_mod.banded_attention.launches,
             banded_mod.KERNEL_BWD: banded_mod.banded_attention_bwd.launches,
             hybrid_mod.KERNEL: hybrid_mod.masked_softmax.launches,
@@ -680,6 +708,7 @@ def _counters() -> dict:
 def reset_launches() -> None:
     """Every kernel's launch count to 0."""
     window_mod.window_attention.launches = window_mod.window_attention_bwd.launches = 0
+    window_mod.window_attention_into.launches = hybrid_mod.softmax_blocks.launches = 0
     banded_mod.banded_attention.launches = banded_mod.banded_attention_bwd.launches = 0
     hybrid_mod.masked_softmax.launches = hybrid_mod.masked_softmax_bwd.launches = 0
     probes.reset_launches()
@@ -688,6 +717,13 @@ def reset_launches() -> None:
 def launches() -> dict:
     """The launch counts of the kernels launched since the last reset."""
     return {name: n for name, n in _counters().items() if n}
+
+
+def launches_of(fn):
+    """(fn(), the launches of each kernel it launched)."""
+    before = _counters()
+    out = fn()
+    return out, {k: n - before[k] for k, n in _counters().items() if n > before[k]}
 
 
 def device_info(device: str) -> dict:
@@ -719,11 +755,9 @@ def measure(impl: str, units: int = UNITS, *, device: str = "cuda", tg: int | No
         raise RuntimeError("no CUDA device: the kernel bench measures on the card")
     p = inputs(impl, units, device=device, tg=tg)
     with torch.no_grad():
-        before = _counters()
-        out = p.body(p.state)
+        out, counts = launches_of(lambda: p.body(p.state))
         if device == "cuda":
             torch.cuda.synchronize()
-        counts = {k: n - before[k] for k, n in _counters().items() if n > before[k]}
         nbytes = (p.state.nbytes if p.reads_state else 0) + sum(c.nbytes for c in p.consts) \
             + out.nbytes
         if impl == "pair_tscore_bf16":

@@ -72,17 +72,17 @@
 namespace {
 
 using namespace wattn;
+using wide::stage_keys;
 using wide::stage_unit;
 
 constexpr int kWarps = 4;          // 32-token units a block, one a warp
-constexpr int kTStride = kN + 8;   // the bf16 T(A) tile: rows padded by 16 bytes
 
-// Rows of the staged q, then v, tile: q rows padded by 16 bytes, so that a
-// lane's own row reads meet no bank conflicts; f32 v rows DH apart
-// (tile_product_of reads them as whole rows), bf16 v rows padded by 16
-// bytes (ldmatrix.trans). v takes q's space once the query rows are in
-// registers, so its load overlaps the scores.
-template <typename T, int DH> constexpr int kPad = DH + 16 / static_cast<int>(sizeof(T));
+// Rows of the staged q, then v, tile: q rows padded by 16 bytes
+// (wide::kUnitPad); f32 v rows DH apart (tile_product_of reads them as
+// whole rows), bf16 v rows padded by 16 bytes (ldmatrix.trans). v takes
+// q's space once the query rows are in registers, so its load overlaps the
+// scores.
+template <typename T, int DH> constexpr int kPad = wide::kUnitPad<T, DH>;
 template <typename T, int DH>
 constexpr int kVStride = std::is_same<T, float>::value ? DH : kPad<T, DH>;
 
@@ -91,29 +91,6 @@ constexpr int kVStride = std::is_same<T, float>::value ? DH : kPad<T, DH>;
 template <typename T, int DH>
 constexpr int kWarpBytes = kN * DH * 4 + kN * kPad<T, DH> * static_cast<int>(sizeof(T));
 template <typename T, int DH> constexpr int kBlockBytes = kWarps * kWarpBytes<T, DH>;
-
-// The unit's K rows as f32 rows, DH apart: by cp.async in f32; in bf16 by
-// 16-byte loads, every one in flight before the first conversion.
-template <int DH>
-__device__ __forceinline__ void stage_keys(const float* __restrict__ src, float* dst, int lane) {
-  stage_unit<float, DH, DH>(src, dst, lane);
-}
-template <int DH>
-__device__ __forceinline__ void stage_keys(const __nv_bfloat16* __restrict__ src, float* dst,
-                                           int lane) {
-  constexpr int kPer = kN * DH / 8 / 32;  // 16-byte chunks a lane
-  uint4 x[kPer];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) x[i] = __ldg(reinterpret_cast<const uint4*>(src) + lane + 32 * i);
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    float t[8];
-    load16(reinterpret_cast<const __nv_bfloat16*>(&x[i]), t);
-    float4* d = reinterpret_cast<float4*>(dst + (lane + 32 * i) * 8);
-    d[0] = make_float4(t[0], t[1], t[2], t[3]);
-    d[1] = make_float4(t[4], t[5], t[6], t[7]);
-  }
-}
 
 // A V for a unit in f32: T(A) (row `lane` in e / sum) into the swizzled
 // tile `at` over K's rows, then two 16-row strips of 4 x 8 register tiles.
@@ -136,44 +113,17 @@ __device__ __forceinline__ void attend_values(const float (&e)[kN], float sum, f
 }
 
 // A V for a unit in bf16: T(A) into a padded bf16 tile over K's rows, the A
-// operand by ldmatrix, V by ldmatrix.trans, f32 sums on the tensor cores;
-// then O through the warp's shared memory (over K's rows and the q/v
-// space), out in 16-byte chunks.
+// operand by ldmatrix, V by ldmatrix.trans, f32 sums on the tensor cores
+// (wide::attend_strips); then O through the warp's shared memory (over K's
+// rows and the q/v space), out in 16-byte chunks (wide::store_unit_rows).
 template <int DH, typename TO>
 __device__ __forceinline__ void attend_values(const float (&e)[kN], float sum, float* kspace,
                                               const __nv_bfloat16* vt, TO* __restrict__ out,
                                               int lane) {
-  using bf16 = __nv_bfloat16;
-  constexpr int S = kPad<bf16, DH>;
-  bf16* at = reinterpret_cast<bf16*>(kspace);
-#pragma unroll
-  for (int c = 0; c < kN; c += 8)
-    *reinterpret_cast<uint4*>(at + lane * kTStride + c) = make_uint4(
-        wide::pack_bf16(e[c] / sum, e[c + 1] / sum), wide::pack_bf16(e[c + 2] / sum, e[c + 3] / sum),
-        wide::pack_bf16(e[c + 4] / sum, e[c + 5] / sum), wide::pack_bf16(e[c + 6] / sum, e[c + 7] / sum));
-  __syncwarp();
   float acc[2][DH / 8][4];
-#pragma unroll
-  for (int st = 0; st < 2; ++st) {
-    uint32_t p[kN / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < kN / 16; ++kk)
-      wide::ldsm_x4(p[kk], at + (16 * st + (lane & 15)) * kTStride + 16 * kk + (lane >> 4) * 8);
-    wide::strip_ab<S>(p, vt, lane, acc[st]);
-  }
-  // O through shared memory: 16-byte stores (from the accumulator layout,
-  // 4- or 8-byte stores, bf16 read 4% slower)
-  constexpr int kEpc = 16 / sizeof(TO), kOS = DH + kEpc;  // O rows: 16 bytes of padding
-  TO* os = reinterpret_cast<TO*>(kspace);
-  __syncwarp();  // every lane is done with the T(A) tile and V
-#pragma unroll
-  for (int st = 0; st < 2; ++st) wide::write_strip<TO, kOS>(os, acc[st], 16 * st, lane);
-  __syncwarp();
-#pragma unroll
-  for (int c = lane; c < kN * DH / kEpc; c += 32) {
-    const int r = c / (DH / kEpc), x = c % (DH / kEpc) * kEpc;
-    *reinterpret_cast<uint4*>(out + r * DH + x) = *reinterpret_cast<const uint4*>(os + r * kOS + x);
-  }
+  wide::attend_strips<DH, kPad<__nv_bfloat16, DH>>(
+      e, sum, reinterpret_cast<__nv_bfloat16*>(kspace), vt, lane, acc);
+  wide::store_unit_rows<DH>(acc, reinterpret_cast<TO*>(kspace), out, DH, lane);
 }
 
 template <typename T, typename TO, int DH>

@@ -79,6 +79,20 @@ __device__ __forceinline__ void stage_unit(const T* __restrict__ src, T* dst, in
     cp_async16(dst + c / kChunks * S + c % kChunks * kEpc, src + c * kEpc);
 }
 
+// The same from rows ld elements apart (a strided view of the unit). A
+// separate overload: folding the token-major case into this one cost K2-32
+// in f32 164 bytes of spills at its 168 registers.
+template <typename T, int DH, int S>
+__device__ __forceinline__ void stage_unit(const T* __restrict__ src, T* dst, int lane,
+                                           long long ld) {
+  constexpr int kEpc = 16 / sizeof(T), kChunks = DH / kEpc;
+#pragma unroll
+  for (int c = lane; c < kN * kChunks; c += 32) {
+    const int r = c / kChunks, x = c % kChunks * kEpc;
+    cp_async16(dst + r * S + x, src + r * ld + x);
+  }
+}
+
 // The unit's n rows of src (n x kDH, token-major) into the padded tile dst;
 // rows n .. 63 become zeros.
 template <typename T>
@@ -674,6 +688,125 @@ __device__ __forceinline__ uint32_t strip_attention(float* qs, const float* ks, 
     if (row >= n) pass &= ~(0x33333333u << (2 * h));
   }
   return pass;
+}
+
+// ---- 32-token units, a warp a unit: the forward's shared steps ------------
+// (K1 in window_attention_fwd.cu on token-major units, and
+// window_attention_layout.cu on strided views of the TPU layouts)
+
+constexpr int kATStride = kN + 8;  // the bf16 T(A) tile: rows padded by 16 bytes
+// Rows of a staged q tile, and of a bf16 v tile: padded by 16 bytes, so
+// that a lane's own row reads meet no bank conflicts (bf16 v: ldmatrix).
+template <typename T, int DH> constexpr int kUnitPad = DH + 16 / static_cast<int>(sizeof(T));
+
+// The unit's K rows as f32 rows DH apart, from bf16 by 16-byte loads,
+// every one in flight before the first conversion; chunk(lane, i) gives
+// the device address of the unit's 16-byte chunk lane + 32 i.
+template <int DH, typename Chunk>
+__device__ __forceinline__ void stage_keys_of(Chunk chunk, float* dst, int lane) {
+  constexpr int kPer = kN * DH / 8 / 32;  // 16-byte chunks a lane
+  uint4 x[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) x[i] = __ldg(chunk(lane, i));
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    float t[8];
+    load16(reinterpret_cast<const __nv_bfloat16*>(&x[i]), t);
+    float4* d = reinterpret_cast<float4*>(dst + (lane + 32 * i) * 8);
+    d[0] = make_float4(t[0], t[1], t[2], t[3]);
+    d[1] = make_float4(t[4], t[5], t[6], t[7]);
+  }
+}
+
+// The unit's K rows (DH apart in device memory, or ld apart) as f32 rows
+// DH apart: by cp.async in f32, by stage_keys_of in bf16.
+template <int DH>
+__device__ __forceinline__ void stage_keys(const float* __restrict__ src, float* dst, int lane) {
+  stage_unit<float, DH, DH>(src, dst, lane);
+}
+template <int DH>
+__device__ __forceinline__ void stage_keys(const float* __restrict__ src, float* dst, int lane,
+                                           long long ld) {
+  stage_unit<float, DH, DH>(src, dst, lane, ld);
+}
+template <int DH>
+__device__ __forceinline__ void stage_keys(const __nv_bfloat16* __restrict__ src, float* dst,
+                                           int lane) {
+  stage_keys_of<DH>([=](int l, int i) { return reinterpret_cast<const uint4*>(src) + l + 32 * i; },
+                    dst, lane);
+}
+template <int DH>
+__device__ __forceinline__ void stage_keys(const __nv_bfloat16* __restrict__ src, float* dst,
+                                           int lane, long long ld) {
+  constexpr int kChunks = DH / 8;  // a row's 16-byte chunks
+  stage_keys_of<DH>([=](int l, int i) {
+    const int c = l + 32 * i;
+    return reinterpret_cast<const uint4*>(src + c / kChunks * ld + c % kChunks * 8);
+  }, dst, lane);
+}
+
+// acc = P V with V given as V^T (DH rows of the 32 tokens, S elements
+// apart): the B fragments by ldmatrix (strip_ab reads them from V's rows by
+// ldmatrix.trans; the registers, and so the sums, are the same).
+template <int S, int kKS, int kNT>
+__device__ __forceinline__ void strip_ab_t(const uint32_t (&p)[kKS][4], const __nv_bfloat16* yt,
+                                           int lane, float (&acc)[kNT][4]) {
+  zero(acc);
+#pragma unroll
+  for (int kk = 0; kk < kKS; ++kk)
+#pragma unroll
+    for (int jp = 0; jp < kNT / 2; ++jp) {  // output columns 16jp .. 16jp + 15
+      uint32_t b[4];
+      ldsm_x4(b, yt + (16 * jp + (lane & 7) + ((lane >> 4) << 3)) * S + 16 * kk +
+                     ((lane >> 3) & 1) * 8);
+      mma_bf16(acc[2 * jp], p[kk], b[0], b[1]);
+      mma_bf16(acc[2 * jp + 1], p[kk], b[2], b[3]);
+    }
+}
+
+// A V for a unit in bf16, on the tensor cores: T(A) (row `lane` in e / sum)
+// into the padded tile `at`, the A operand by ldmatrix, then the unit's two
+// 16-row strips with f32 sums; V's B fragments from V's rows S apart
+// (ldmatrix.trans) or, with kVT, from V^T's rows S apart (ldmatrix). Ends
+// once every lane is done with the T(A) tile and V.
+template <int DH, int S, bool kVT = false>
+__device__ __forceinline__ void attend_strips(const float (&e)[kN], float sum, __nv_bfloat16* at,
+                                              const __nv_bfloat16* vt, int lane,
+                                              float (&acc)[2][DH / 8][4]) {
+#pragma unroll
+  for (int c = 0; c < kN; c += 8)
+    *reinterpret_cast<uint4*>(at + lane * kATStride + c) =
+        make_uint4(pack_bf16(e[c] / sum, e[c + 1] / sum), pack_bf16(e[c + 2] / sum, e[c + 3] / sum),
+                   pack_bf16(e[c + 4] / sum, e[c + 5] / sum), pack_bf16(e[c + 6] / sum, e[c + 7] / sum));
+  __syncwarp();
+#pragma unroll
+  for (int st = 0; st < 2; ++st) {
+    uint32_t p[kN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kN / 16; ++kk)
+      ldsm_x4(p[kk], at + (16 * st + (lane & 15)) * kATStride + 16 * kk + (lane >> 4) * 8);
+    if constexpr (kVT) strip_ab_t<S>(p, vt, lane, acc[st]);
+    else strip_ab<S>(p, vt, lane, acc[st]);
+  }
+  __syncwarp();
+}
+
+// O of the two strips through the warp's shared memory `os` (rows padded
+// by 16 bytes: from the accumulator layout, 4- or 8-byte stores, bf16 read
+// 4% slower), out to the unit's rows, ld apart, in 16-byte chunks (ld an
+// int DH for token-major units, so that the offsets stay 32-bit).
+template <int DH, typename TO, typename Ld>
+__device__ __forceinline__ void store_unit_rows(const float (&acc)[2][DH / 8][4], TO* os,
+                                                TO* __restrict__ out, Ld ld, int lane) {
+  constexpr int kEpc = 16 / sizeof(TO), kOS = DH + kEpc;
+#pragma unroll
+  for (int st = 0; st < 2; ++st) write_strip<TO, kOS>(os, acc[st], 16 * st, lane);
+  __syncwarp();
+#pragma unroll
+  for (int c = lane; c < kN * DH / kEpc; c += 32) {
+    const int r = c / (DH / kEpc), x = c % (DH / kEpc) * kEpc;
+    *reinterpret_cast<uint4*>(out + r * ld + x) = *reinterpret_cast<const uint4*>(os + r * kOS + x);
+  }
 }
 
 }  // namespace wide

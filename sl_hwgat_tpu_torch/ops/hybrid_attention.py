@@ -27,12 +27,18 @@ unit's real tokens.
 
 ``masked_softmax.launches`` and ``masked_softmax_bwd.launches`` count the two
 kernels' launches (plain integers that a run may reset).
+
+``softmax_blocks`` is the kernel bench's ``softmax_only`` function in one
+launch of ``csrc/softmax_probe.cu`` (K7's row routine on the two unit blocks
+of each tile that reach the output, zeros elsewhere; counted by
+``softmax_blocks.launches``).
 """
 
 from __future__ import annotations
 
 import threading
 
+import numpy as np
 import torch
 
 from sl_hwgat_tpu_torch.ops import _build
@@ -48,6 +54,7 @@ from sl_hwgat_tpu_torch.ops.window_attention import (
 
 KERNEL = "masked_softmax_fwd"
 KERNEL_BWD = "masked_softmax_bwd"
+KERNEL_BLOCKS = "softmax_probe"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_TOKENS = 64
 _LOCK = threading.Lock()
@@ -59,7 +66,10 @@ _ARGTYPES = {
     # s, dp, ds, masks, sel, prune_u, units, n, dp_dtype, zero_quirk, dual,
     # stack, per_group, groups, unit_offset, stream
     KERNEL_BWD: ["p"] * 6 + ["ll", "i", "i", "i", "i", "i", "i", "i", "ll", "p"],
+    # x, out, masks, tiles, sn, dh, stream
+    KERNEL_BLOCKS: ["p"] * 3 + ["ll", "i", "i", "p"],
 }
+_BLOCK_N = 32  # the unit blocks of softmax_blocks
 
 
 def _check_scores(s):
@@ -215,7 +225,9 @@ def hybrid_window_attention(q, k, v, adj, *, scale: float, stack: int = 4,
     n = q.shape[1]
     if pad_tokens is not None and pad_tokens < n:
         raise ValueError(f"pad_tokens ({pad_tokens}) is below the unit's {n} tokens")
-    scaled = q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+    # T(scale) as a 0-dim CPU tensor: a CUDA kernel reads it as an argument,
+    # so a call copies nothing to the card (a copy would wait on the card)
+    scaled = q * torch.tensor(scale, dtype=q.dtype)
     s = torch.bmm(scaled.float(), k.float().transpose(1, 2))
     p = masked_softmax(s, adj, stack=stack, zero_quirk=zero_quirk, prune_u=prune_u,
                        tail_adj=tail_adj, units_per_group=units_per_group, groups=groups,
@@ -223,5 +235,53 @@ def hybrid_window_attention(q, k, v, adj, *, scale: float, stack: int = 4,
     return torch.bmm(p.float(), v.float())
 
 
+def softmax_blocks(x, adj) -> torch.Tensor:
+    """The kernel bench's ``softmax_only`` function of (T, SN, DH) f32 tiles
+    x (SN, DH ≥ 64): per tile, P of the 32 × 32 blocks x[:32, :32] and
+    x[32:64, 32:64] under ``masked_softmax``'s rules (single mask ``adj``,
+    zero quirk, no prune) in their places, zeros everywhere else. On CUDA
+    tensors it launches ``csrc/softmax_probe.cu`` once (P is K7's bit for
+    bit) or raises; on CPU tensors it runs ``plain_softmax_blocks``."""
+    if x.dtype != torch.float32 or x.ndim != 3 or min(x.shape[1:]) < 2 * _BLOCK_N:
+        raise ValueError(f"x must be (T, SN, DH) float32 tiles with SN, DH >= {2 * _BLOCK_N}, "
+                         f"got {tuple(x.shape)} {x.dtype}")
+    if x.device.type == "cpu":
+        return plain_softmax_blocks(x, adj)
+    if x.device.type != "cuda":
+        raise ValueError(f"softmax_blocks runs on cuda or cpu, got {x.device}")
+    if np.shape(adj) != (_BLOCK_N, _BLOCK_N):
+        raise ValueError(f"adj must be ({_BLOCK_N}, {_BLOCK_N}), got {np.shape(adj)}")
+    if not x.is_contiguous() or x.data_ptr() % 16 or x.shape[2] % 4:
+        raise ValueError("x must be contiguous and 16-byte aligned, DH a multiple of 4")
+    t, sn, dh = x.shape
+    out = torch.empty_like(x)
+    if t == 0:
+        return out
+    with torch.cuda.device(x.device):
+        err = _build.function(KERNEL_BLOCKS, _ARGTYPES[KERNEL_BLOCKS])(
+            x.data_ptr(), out.data_ptr(), device_masks(adj, None, x.device, wide=True).data_ptr(),
+            t, sn, dh, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{KERNEL_BLOCKS} launch failed: cudaError {err}")
+    with _LOCK:
+        softmax_blocks.launches += 1
+    return out
+
+
+def plain_softmax_blocks(x, adj, softmax=None) -> torch.Tensor:
+    """The plain PyTorch version of ``softmax_blocks`` on any device: the two
+    blocks of each tile gathered, ``softmax`` over them (two units to a
+    supertile; default ``plain_masked_softmax``, or ``masked_softmax``: K7 on
+    a card), scattered into zeros."""
+    t, n = x.shape[0], _BLOCK_N
+    blocks = torch.stack([x[:, :n, :n], x[:, n:2 * n, n:2 * n]], 1).reshape(2 * t, n, n)
+    p = (softmax or plain_masked_softmax)(blocks, adj, stack=2).view(t, 2, n, n)
+    out = torch.zeros_like(x)
+    out[:, :n, :n] = p[:, 0]
+    out[:, n:2 * n, n:2 * n] = p[:, 1]
+    return out
+
+
 masked_softmax.launches = 0
 masked_softmax_bwd.launches = 0
+softmax_blocks.launches = 0

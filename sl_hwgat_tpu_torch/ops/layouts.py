@@ -18,6 +18,19 @@ card. The maps, and the JAX helpers they mirror:
   ``tlay``/``mix``/``tmx``/``tmq`` probes (``stream_set`` builds each set);
 - ``pack_plane``/``unpack_plane``: (G, H, F, V, dh) ↔ (G·H, dh, F·Vp) banded
   planes (`sl_hwgat_tpu/ops/pallas_banded.py:508-517`).
+
+The ``*_view`` functions give the same units without a copy: views of the
+layout's storage whose leading axes enumerate the token-major units in order
+and whose last two are (N, dh), for ``window_attention_into``, which reads
+and writes them in place. ``view.reshape(-1, N, dh)`` equals the map's
+token-major units:
+
+- ``rows_view``: (T, S·N, dh) row-major tiles → (T, S, N, dh);
+- ``t_view``: (T, dh, S·N) transposed tiles or supertiles → (T, S, N, dh);
+- ``wide_view``: (H, dh, TH·SN) planes → (H, TH, SN/N, N, dh);
+- ``pair_view``: (T/2, SN, 2·dh) lane pairs → (T/2, 2, SN/N, N, dh);
+- ``stream_set_views``: the (q, k, v) views of the ``mix``/``tmx``/``tmq``
+  streams.
 """
 
 from __future__ import annotations
@@ -94,6 +107,40 @@ def stream_set_to_units(name: str, q, k, v, n: int = 32):
         tiles = x if form == "rm" else transpose_tiles(x)
         out.append(tiles.reshape(-1, n, tiles.shape[-1]))
     return tuple(out)
+
+
+def rows_view(x, n: int = 32) -> torch.Tensor:
+    """(T, S·N, dh) row-major tiles as (T, S, N, dh) units."""
+    t, sn, dh = x.shape
+    return x.view(t, sn // n, n, dh)
+
+
+def t_view(x, n: int = 32) -> torch.Tensor:
+    """(T, dh, S·N) transposed tiles (the tscore supertiles too) as (T, S, N,
+    dh) units: tokens contiguous."""
+    t, dh, sn = x.shape
+    return x.view(t, dh, sn // n, n).permute(0, 2, 3, 1)
+
+
+def wide_view(x, sn: int, n: int = 32) -> torch.Tensor:
+    """(H, dh, TH·SN) model-wide planes as (H, TH, SN/N, N, dh) units
+    (tile h·TH + th): tokens contiguous."""
+    h, dh, width = x.shape
+    return x.view(h, dh, width // sn, sn // n, n).permute(0, 2, 3, 4, 1)
+
+
+def pair_view(x, n: int = 32) -> torch.Tensor:
+    """(T/2, SN, 2·dh) lane pairs as (T/2, 2, SN/N, N, dh) units (tile 2i + e
+    in lanes e·dh ..): features contiguous."""
+    t2, sn, dh2 = x.shape
+    return x.view(t2, sn // n, n, 2, dh2 // 2).permute(0, 3, 1, 2, 4)
+
+
+def stream_set_views(name: str, q, k, v, n: int = 32):
+    """The (q, k, v) streams of a ``mix``/``tmx``/``tmq`` probe as unit
+    views (``stream_set``'s layouts)."""
+    return tuple(rows_view(x, n) if form == "rm" else t_view(x, n)
+                 for form, x in zip(STREAM_SETS[name], (q, k, v)))
 
 
 def pack_plane(x, vp: int) -> torch.Tensor:

@@ -16,10 +16,17 @@ pads to 64 and stacks two to a supertile; per unit the padding is simply
 absent). ``window_attention.launches`` and ``window_attention_bwd.launches``
 count the two kernels' launches (plain integers that a run may reset), so a
 caller can show that a path went through the kernels.
+
+``window_attention_into`` computes the same forward on strided views of the
+kernel bench's TPU layouts, in place: ``csrc/window_attention_layout.cu``
+(32-token units, dh 64) reads q, k, v and writes o where they lie, with K1's
+arithmetic, so o is K1's bit for bit; ``window_attention_into.launches``
+counts its launches.
 """
 
 from __future__ import annotations
 
+import ctypes
 import threading
 
 import numpy as np
@@ -33,6 +40,7 @@ from sl_hwgat_tpu_torch.ops.attention import (
 
 KERNEL = "window_attention_fwd"
 KERNEL_BWD = "window_attention_bwd"
+KERNEL_LAYOUT = "window_attention_layout"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_TOKENS = 32        # units of 32 tokens: head dim 32 or 64
 _KERNEL_HEAD_DIMS = (32, 64)
@@ -99,11 +107,12 @@ def device_masks(adj, tail_adj, device, wide: bool = False) -> torch.Tensor:
         return m
 
 
-def device_args(x, stack, prune_u, sel):
+def device_args(x, stack, prune_u, sel, units: int | None = None):
     """(prune_u, sel) as the kernels read them: a one-element float32 tensor
     (or None) and (U/stack,) int32 (or None), on x's device, where x is a
-    (U, …) tensor."""
+    (U, …) tensor (or ``units`` gives U)."""
     dev = x.device
+    units = x.shape[0] if units is None else units
     if prune_u is not None and not torch.is_tensor(prune_u):
         prune_u = torch.full((1,), float(prune_u), dtype=torch.float32, device=dev)
     if prune_u is not None and (prune_u.device != dev or prune_u.dtype != torch.float32
@@ -111,8 +120,8 @@ def device_args(x, stack, prune_u, sel):
         raise ValueError("prune_u must be a one-element float32 tensor on the inputs' device")
     if sel is not None:
         sel = torch.as_tensor(sel, dtype=torch.int32, device=dev).contiguous()
-        if sel.shape != (x.shape[0] // stack,):
-            raise ValueError(f"sel must have shape ({x.shape[0] // stack},), got "
+        if sel.shape != (units // stack,):
+            raise ValueError(f"sel must have shape ({units // stack},), got "
                              f"{tuple(sel.shape)}")
     return prune_u, sel
 
@@ -207,6 +216,11 @@ _ARGTYPES = {
     # q, k, v, do, dq, dk, dv, masks, sel, prune_u, units, tokens, dh, dtype,
     # scale, zero_quirk, dual, stack, per_group, groups, unit_offset, stream
     KERNEL_BWD: ["p"] * 10 + ["ll", "i", "i", "i", "f", "i", "i", "i", "i", "i", "ll", "p"],
+    # q, k, v, o, views, masks, sel, prune_u, units, dh, in_dtype, out_dtype,
+    # forms, scale, zero_quirk, dual, stack, per_group, groups, unit_offset,
+    # stream
+    KERNEL_LAYOUT: ["p"] * 8 + ["ll", "i", "i", "i", "i", "f", "i", "i", "i", "i", "i", "ll",
+                                "p"],
 }
 
 
@@ -315,5 +329,120 @@ def plain_window_attention_bwd(q, k, v, do, adj, *, scale, stack=4, pad_tokens=N
         zero_quirk=zero_quirk, prune_u=prune_u, tail_adj=tail_adj, sel=sel)
 
 
+# --- the same forward on strided views of the TPU layouts -------------------
+
+# forms of the layout kernel's instantiations, by (input dtype, output
+# dtype): bit 0 q, 1 k, 2 v, 3 o, set where the operand is token-contiguous
+_LAYOUT_FORMS = {(torch.float32, torch.float32): (0b1111,),
+                 (torch.bfloat16, torch.bfloat16): (0b1111, 0b1110, 0b1100, 0b0000)}
+_LAYOUT_HEAD_DIM = 64
+
+
+def unit_view(name: str, x, n: int, dh: int) -> tuple[int, tuple]:
+    """(form, (sa, sb, ss, ld, nb, ns)) of a (…, n, dh) view x as the layout
+    kernel reads it: form 0 where a token's dh features are contiguous (ld:
+    the token stride), 1 where a feature's n tokens are (ld: the feature
+    stride); unit u = (a·nb + b)·ns + s of its leading axes, merged where
+    they can be and padded to three, at a·sa + b·sb + s·ss elements. Raises
+    ``ValueError`` on a view the kernel cannot take: neither inner stride 1,
+    more than three unmergeable leading axes, or not 16-byte aligned."""
+    *lead, tokens, feats = x.shape
+    if (tokens, feats) != (n, dh):
+        raise ValueError(f"{name} must be (…, {n}, {dh}), got {tuple(x.shape)}")
+    *strides, sn, sd = x.stride()
+    if sd == 1:
+        form, ld = 0, sn
+    elif sn == 1:
+        form, ld = 1, sd
+    else:
+        raise ValueError(f"{name}: neither its tokens nor its features are contiguous "
+                         f"(strides {tuple(x.stride())})")
+    axes = []
+    for size, stride in zip(lead, strides):
+        if size == 1:
+            continue
+        if axes and axes[-1][1] == stride * size:
+            axes[-1] = (axes[-1][0] * size, stride)
+        else:
+            axes.append((size, stride))
+    if len(axes) > 3:
+        raise ValueError(f"{name}: {len(axes)} leading axes that no reshape merges (at most 3)")
+    (_, sa), (nb, sb), (ns, ss) = [(1, 0)] * (3 - len(axes)) + axes
+    if x.data_ptr() % 16 or any(s * x.element_size() % 16 for s in (sa, sb, ss, ld)):
+        raise ValueError(f"{name} must be 16-byte aligned: its start and its unit, row or "
+                         "column strides")
+    return form, (sa, sb, ss, ld, nb, ns)
+
+
+def window_attention_into(q, k, v, adj, *, out, scale: float, stack: int = 4, tail_adj=None,
+                          units_per_group: int | None = None, groups: int | None = None,
+                          sel=None, prune_u=None):
+    """``window_attention``'s forward (zero quirk on) over (…, N, dh) views of
+    any of the TPU layouts, written into the view ``out``; returns ``out``.
+
+    q, k, v and out are views whose units, the leading axes in row-major
+    order, are the token-major units of ``window_attention``; each is
+    token-major inside a unit (a token's features contiguous) or transposed
+    (a feature's tokens contiguous), so that the row-major tiles, the
+    transposed tiles and supertiles, the widened planes and the lane pairs
+    of ``layouts`` are views of their storage (``layouts.*_view``). The mask
+    and prune arguments are ``window_attention``'s. On CUDA tensors it
+    launches ``csrc/window_attention_layout.cu`` once, which reads and writes
+    the views in place (32-token units, dh 64; f32 or bf16 in and the same
+    type out); a view it cannot take raises ``ValueError``. On CPU tensors
+    it runs ``plain_window_attention`` on ``.reshape(-1, N, dh)`` copies and
+    copies the result into ``out``."""
+    if not (q.shape == k.shape == v.shape == out.shape and q.ndim >= 3):
+        raise ValueError(f"q, k, v and out must share one (…, N, dh) shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}, "
+                         f"{tuple(out.shape)}")
+    if not (q.dtype == k.dtype == v.dtype) or not (q.device == k.device == v.device == out.device):
+        raise ValueError("q, k, v must share one dtype, and q, k, v and out one device")
+    n, dh = q.shape[-2:]
+    units = q.numel() // (n * dh)
+    check_masks(units, n, adj, stack, tail_adj, units_per_group, groups)
+    kw = dict(scale=scale, stack=stack, tail_adj=tail_adj, units_per_group=units_per_group,
+              groups=groups)
+    if q.device.type == "cpu":
+        o = plain_window_attention(*(x.reshape(-1, n, dh) for x in (q, k, v)), adj,
+                                   prune_u=prune_u, sel=sel, out_dtype=out.dtype, **kw)
+        return out.copy_(o.view(out.shape))
+    if q.device.type != "cuda":
+        raise ValueError(f"window_attention_into runs on cuda or cpu, got {q.device}")
+    if n != _KERNEL_TOKENS or dh != _LAYOUT_HEAD_DIM:
+        raise ValueError(f"the layout kernel takes {_KERNEL_TOKENS}-token units with head dim "
+                         f"{_LAYOUT_HEAD_DIM}, got N={n}, dh={dh}")
+    views = [unit_view(name, x, n, dh) for name, x in zip("qkv", (q, k, v))]
+    views.append(unit_view("out", out, n, dh))
+    if any(st == 0 and size > 1 for size, st in zip(out.shape[:-2], out.stride()[:-2])):
+        raise ValueError("out must not repeat a unit (a leading stride of 0)")
+    forms = sum(form << i for i, (form, _) in enumerate(views))
+    if forms not in _LAYOUT_FORMS.get((q.dtype, out.dtype), ()):
+        raise ValueError(f"no layout kernel for {q.dtype} → {out.dtype} with operand forms "
+                         f"{forms:04b} (bit 0 q … bit 3 out, 1 = token-contiguous)")
+    if units == 0:
+        return out
+    masks = device_masks(adj, tail_adj, q.device)
+    prune_u, sel = device_args(q, stack, prune_u, sel, units=units)
+    strides = (ctypes.c_longlong * 24)(*(s for _, w in views for s in w))
+    fn = _build.function(KERNEL_LAYOUT, _ARGTYPES[KERNEL_LAYOUT])
+    dev = q.device
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ctypes.addressof(strides),
+            masks.data_ptr(), ptr(sel), ptr(prune_u), units, dh, _DTYPE_CODE[q.dtype],
+            _DTYPE_CODE[out.dtype], forms, float(scale), 1,
+            *mask_mode(tail_adj, stack, units_per_group, groups, 0))
+    if dev.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{KERNEL_LAYOUT} launch failed: cudaError {err}")
+    with _LOCK:
+        window_attention_into.launches += 1
+    return out
+
+
 window_attention.launches = 0
 window_attention_bwd.launches = 0
+window_attention_into.launches = 0
