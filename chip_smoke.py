@@ -10,7 +10,8 @@ Phases, each printing one JSON line (any failure ends the run non-zero):
               the K1/K2 kernels for units of up to 64 tokens must take at
               most 128 registers and spill nothing, and no instantiation of
               K7's forward, K8's forward or backward, K1, K2, the tile
-              products, the layout kernel or softmax_probe may spill.
+              products, the layout kernels (forward and backward),
+              softmax_probe or relayout may spill.
 3. kernel   — the forward window-attention kernel against its plain PyTorch
               version at the flagship shape (12288 units × 32 tokens × dh 64)
               and at HGATE's (3072 units × 58 tokens × dh 64, two units to a
@@ -98,21 +99,28 @@ Phases, each printing one JSON line (any failure ends the run non-zero):
 18. probes   — the kernel bench's three probe kernels (stream_probe,
               relayout, tile_matmul) against their plain versions at the
               bench's shapes (12288 units × 32 × 64), f32 and bf16, every mode
-              and layout; K10 (banded_packed_mm) at WGATE's and GATE's batch-16
-              shapes; the layout kernel (window_attention_into, every
-              instantiation, single mask, dual mask with pruning, a given
-              sel) against its plain version and bit for bit against K1, and
-              softmax_blocks against its plain version; every forward entry
-              in TPU layouts (the fused probes, pallas_t*, pallas_widepre,
-              pair_tscore) one launch of the layout kernel and no other,
-              bit for bit against K1 on plainly permuted inputs and within
-              the bar of its plain version; the
-              gradient entries through relayout + K1 + K2 against plain
-              relayouts; softmax_only one launch of softmax_probe, bit for
-              bit against K7 on the gathered blocks. Then main path 11: the
-              bench's measure() over entries of every family and K10 (the
-              layout kernel's five instantiations and hybrid_bf16's K7
-              among them), counts reset just before and read just after.
+              and layout (relayout bit for bit: the bench's transposes and
+              gathers, the banded planes, ragged sizes and an unaligned
+              input, in both element widths); K10 (banded_packed_mm) at
+              WGATE's and GATE's batch-16 shapes; the layout kernel
+              (window_attention_into, every instantiation, single mask, dual
+              mask with pruning, a given sel) against its plain version and
+              bit for bit against K1, and softmax_blocks against its plain
+              version; the backward layout kernel (window_attention_bwd_into,
+              f32 and bf16, on transposed supertiles and widened planes, the
+              same masks) against its plain version and bit for bit against
+              K2; every forward entry in TPU layouts (the fused probes,
+              pallas_t*, pallas_widepre, pair_tscore) one launch of the
+              layout kernel and no other, bit for bit against K1 on plainly
+              permuted inputs and within the bar of its plain version; the
+              gradient entries (pallas_tbwd, pallas_tsbwd, pallas_widebwd)
+              one launch of each layout kernel and no other, bit for bit
+              against K1 + K2 on plainly permuted inputs; softmax_only one
+              launch of softmax_probe, bit for bit against K7 on the
+              gathered blocks. Then main path 11: the bench's measure() over
+              entries of every family and K10 (the layout kernel's five
+              instantiations, a gradient entry and hybrid_bf16's K7 among
+              them), counts reset just before and read just after.
 19. bench    — python -m sl_hwgat_tpu_torch.bench.kernel <impl> for one entry
               of each family and K10 (one after another), then
               python -m sl_hwgat_tpu_torch.bench.run; each prints its line,
@@ -120,7 +128,11 @@ Phases, each printing one JSON line (any failure ends the run non-zero):
               kernel, plain, bound and library ms of the probe kernels: the
               layout kernel on one entry of each instantiation, tsw and the
               paired entry (library: masked SDPA, token-major), softmax_probe
-              (library: torch.softmax over the masked blocks).
+              (library: torch.softmax over the masked blocks), the backward
+              layout kernel alone (library: masked SDPA's backward alone,
+              token-major) and the gradient entries beside masked SDPA's
+              forward, the same loss and its backward, with one entry's
+              profile (the two layout kernels beside the loss's passes).
 
 The last lines are the kernels line, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -220,8 +232,9 @@ def wide_ptxas(report: dict) -> dict:
 # the kernels redesigned since the first designs: K7's forward and K8's
 # backward, then K2 at 32 tokens and K8's forward, then K1 at 32 tokens and
 # the tile products, then the fused probes (the layout kernel) and
-# softmax_only (softmax_probe); their sources and what the kernels line
-# says of their design. The build phase fails if any of their
+# softmax_only (softmax_probe), then the gradient entries (the backward
+# layout kernel) and relayout's transpose; their sources and what the
+# kernels line says of their design. The build phase fails if any of their
 # instantiations spills.
 REDESIGNED = {
     "window_attention_fwd": (
@@ -293,6 +306,28 @@ REDESIGNED = {
         "row per 8 lanes, four columns a lane, 16-byte loads and stores), so P is K7's bit "
         "for bit; the rest of the tile zero-filled with 16-byte stores, consecutive threads "
         "on consecutive chunks"),
+    "window_attention_layout_bwd": (
+        "K2's backward at 32-token units (dh 64) on strided views of the TPU layouts, no "
+        "relayout: a warp per unit, 2 a block; every operand transposed (a feature's 32 "
+        "tokens contiguous: the transposed units and supertiles, the widened planes), staged "
+        "by cp.async as dh rows of 32 tokens padded by 16 bytes; K2's row and product phases "
+        "(window_attention_bwd_unit.cuh, shared with K2), so dq, dk, dv are K2's bit for bit. "
+        "bf16: k also as f32 rows for attention_row, query row i straight from q's columns, "
+        "every mma.sync fragment by ldmatrix on the transposed tiles (plain where K2 uses "
+        ".trans and the reverse: K2's registers), each 16-row strip out through a 2 KB "
+        "swizzled tile by stmatrix .trans and 16-byte stores along tokens, 28 KB a warp. f32: "
+        "columns turned into f32 rows in place (k, v, then dO, then q), the query and dO rows "
+        "read straight from the columns, dS^T beside dS so that dQ runs on transposed "
+        "register tiles too, 4 tokens a lane stored as one 16-byte chunk, 22 KB a warp"),
+    "relayout": (
+        "innermost axis moves, both axes a multiple of 16 bytes of elements and aligned: a "
+        "lane transposes 8 x 8 (2-byte) or 4 x 4 (4-byte) blocks in registers (prmt pairs "
+        "rows into 32-bit words; then only register names change), 16-byte loads along the "
+        "input's rows and 16-byte stores along the output's, 16 words in flight a thread; a "
+        "warp a 64 x 64 (64 x 32) tile, lanes split between the axes by their block counts, "
+        "a grid-stride loop over as many 256-thread blocks as the card holds, 32-bit "
+        "indices, no shared memory; other sizes: 32 x 32 tiles through shared memory. "
+        "Innermost axis stays: a row gather in 16-byte words"),
     "banded_attention_fwd": (
         "a block of 128 threads owns 128/V frames of a plane (8 at V = 16, 4 at 29): q of its "
         "frames and k, v of its frames ±1 staged in q's type by cp.async, 16-byte chunks "
@@ -330,7 +365,9 @@ def redesigned_blocks() -> dict:
     dynamic shared memory and threads (under each model's band and the
     non-diagonal one), K1's and K2's at 32 tokens by head dim and type, the
     tile products' by case and input type, the layout kernel's by type and
-    operand forms (bit 0 q … bit 3 o, 1 = transposed), softmax_probe's."""
+    operand forms (bit 0 q … bit 3 o, 1 = transposed), softmax_probe's, the
+    backward layout kernel's by type (every operand transposed), and
+    relayout's block transpose's threads and warp tile by element width."""
     import ctypes
 
     from sl_hwgat_tpu_torch.ops import _build
@@ -350,6 +387,8 @@ def redesigned_blocks() -> dict:
     tiles = _build.load("tile_matmul").tile_matmul_block
     layout = _build.load("window_attention_layout").window_attention_layout_block
     softmax_probe = _build.load("softmax_probe").softmax_probe_block
+    layout_bwd = _build.load("window_attention_layout_bwd").window_attention_layout_bwd_block
+    relayout = _build.load("relayout").relayout_block
     out = {"masked_softmax_fwd": {
                m: block(softmax, ("units", "threads"), n)
                for m, (_, n, _) in WINDOW_SHAPE.items()},
@@ -369,7 +408,13 @@ def redesigned_blocks() -> dict:
                for code, name, forms in ((0, "float32", 0b1111), (1, "bfloat16", 0b1111),
                                          (1, "bfloat16", 0b1110), (1, "bfloat16", 0b1100),
                                          (1, "bfloat16", 0b0000))},
-           "softmax_probe": {"softmax_only": block(softmax_probe, ("tiles", "threads"))}}
+           "softmax_probe": {"softmax_only": block(softmax_probe, ("tiles", "threads"))},
+           "window_attention_layout_bwd": {
+               f"{name}/forms1111111": block(layout_bwd, ("dynamic_smem_bytes", "threads"), code,
+                                             0b1111111)
+               for code, name in enumerate(("float32", "bfloat16"))},
+           "relayout": {f"{width}-byte": block(relayout, ("threads", "warp_tile_elements"), width)
+                        for width in (2, 4)}}
     for src in ("banded_attention_fwd", "banded_attention_bwd"):
         fn = getattr(_build.load(src), f"{src}_block")
         out[src] = {}
@@ -2050,9 +2095,9 @@ PROBE_TILES = UNITS // 4  # the bench's 128-token supertiles
 # the bench entries the main path measures: one or two of each family, K10
 BENCH_PATH = ("floor_purecopy_bf16", "dmaflr_3stream", "mix_floor", "tsw_floor",
               "xrelay_s0pallas_bf16", "xstrided_s2_bf16", "matmul_only", "matmul_only_bf16",
-              "floor_sn256_bf16", "tmq_mm", "banded_packed_mm", "banded_packed_mm_bf16",
-              "pallas_obf16", "tmq_fused", "tlay_fused", "mix_fused", "tmx_fused", "lp_fused_bf16",
-              "softmax_only", "hybrid_bf16")
+              "floor_sn256_bf16", "tmq_mm", "mm_nt_bf16", "banded_packed_mm",
+              "banded_packed_mm_bf16", "pallas_obf16", "tmq_fused", "tlay_fused", "mix_fused",
+              "tmx_fused", "lp_fused_bf16", "pallas_tbwd_bf16", "softmax_only", "hybrid_bf16")
 # the subprocess runs of the bench's entry point: one of each family, and K10
 BENCH_CLI = ("floor_purecopy_bf16", "xrelay_s0pallas_bf16", "matmul_only_bf16",
              "banded_packed_mm_bf16", "tmq_fused", "softmax_only")
@@ -2060,7 +2105,7 @@ BENCH_CLI = ("floor_purecopy_bf16", "xrelay_s0pallas_bf16", "matmul_only_bf16",
 # of each instantiation, tsw's widened planes and the paired entry's kernel
 LAYOUT_TIMED = ("tmq_fused", "tlay_fused", "mix_fused", "tmx_fused", "lp_fused_bf16", "tsw_fused",
                 "pair_tscore_bf16")
-# the gradient entries in TPU layouts: relayouts around K1 and K2
+# the gradient entries in TPU layouts: each layout kernel once a call
 LAYOUT_BWD_ENTRIES = ("pallas_tbwd_bf16", "pallas_tsbwd_bf16", "pallas_widebwd_bf16")
 K10_SHAPES = {"WGATE": (512, 192, 16), "GATE": (128, 192, 29)}  # planes, frames, joints
 
@@ -2157,6 +2202,69 @@ def layout_case(case: str, q, k, v):
             layouts.pair_view(out), lambda: layouts.unpack2(out).reshape(u, n, dh))
 
 
+# the backward layout kernel's instantiations: the layouts it is held on,
+# and their types
+LAYOUT_BWD_CASES = {"t": ("float32", "bfloat16"), "wide": ("bfloat16",)}
+
+
+def layout_bwd_maps(case: str, units: int):
+    """(token-major (U, 32, 64) → layout storage, storage → unit view) of
+    the transposed supertiles ("t") or the widened planes of 8 heads
+    ("wide")."""
+    from sl_hwgat_tpu_torch.ops import layouts
+
+    if case == "t":
+        return (lambda x: layouts.units_to_t(x, 4)), layouts.t_view
+    tiles = units // 4
+
+    def lay(x):
+        return layouts.widen(x.reshape(tiles, 4 * TOKENS, HEAD_DIM), 8)
+
+    return lay, (lambda x: layouts.wide_view(x, 4 * TOKENS))
+
+
+def layout_bwd_reference(impl: str, p):
+    """A gradient entry's output through K1 and K2 on token-major units taken
+    by plain permutes (reshape copies of the entry's views): the same loss,
+    its gradient back through the copies into the layout, and for
+    pallas_widebwd_bf16 o + the gradient with o put in the layout."""
+    import torch
+
+    from sl_hwgat_tpu_torch.bench import kernel as bench
+    from sl_hwgat_tpu_torch.ops import window_attention as window_mod
+
+    kt, vt = p.consts
+    with torch.enable_grad():
+        leaf = p.state.detach().requires_grad_(True)
+        units = [p.view(x).reshape(-1, TOKENS, HEAD_DIM).contiguous() for x in (leaf, kt, vt)]
+        o = window_mod.window_attention(*units, bench.window_adj(), scale=bench.SCALE, stack=4,
+                                        out_dtype=torch.bfloat16)
+        (grad,) = torch.autograd.grad((o.float() ** 2).sum(), leaf)
+    if impl != "pallas_widebwd_bf16":
+        return grad
+    o_layout = torch.empty_like(p.state)
+    p.view(o_layout).copy_(o.detach().view(p.view(o_layout).shape))
+    return o_layout + grad
+
+
+def unaligned_relayout(randn, dtype):
+    """(relayout's C entry point on a (3, 64, 64) transpose whose input starts
+    2 bytes past 16-byte alignment, the plain permute of the same input)."""
+    import torch
+
+    from sl_hwgat_tpu_torch.ops import probes
+
+    flat = randn(1 + 3 * 64 * 64, dtype=dtype)
+    x = flat[1:].view(3, 64, 64)
+    out = torch.empty(3, 64, 64, dtype=dtype, device="cuda")
+    fn = probes._build.function(probes.KERNEL_RELAYOUT, probes._ARGTYPES[probes.KERNEL_RELAYOUT])
+    err = fn(x.data_ptr(), out.data_ptr(), 1, 3, 64, 64, 0, 1, 3, 2, x.element_size(),
+             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise AssertionError(f"relayout refused an unaligned input: cudaError {err}")
+    return out, probes.plain_relayout(x, (0, 2, 1))
+
+
 def launched_of(kernel: str, fn):
     """fn(), which must launch ``kernel`` of the bench's counters once."""
     from sl_hwgat_tpu_torch.bench import kernel as bench
@@ -2170,9 +2278,11 @@ def launched_of(kernel: str, fn):
 def phase_probes() -> dict:
     """Phase 18: the three probe kernels against their plain versions at the
     bench's shapes, f32 and bf16, every mode and layout; K10 at WGATE's and
-    GATE's batch-16 shapes; every fused probe through relayout + K1 equal to
-    K1 on token-major inputs taken by plain permutes; softmax_only through K7
-    against its plain version."""
+    GATE's batch-16 shapes; the layout kernels against their plain versions
+    and bit for bit against K1 and K2; every entry in TPU layouts one launch
+    of each layout kernel it needs and bit for bit against K1 (and K2) on
+    token-major inputs taken by plain permutes; softmax_only through
+    softmax_probe bit for bit against K7."""
     import torch
 
     from sl_hwgat_tpu_torch.bench import kernel as bench
@@ -2216,16 +2326,26 @@ def phase_probes() -> dict:
             check(errors[stream], f"floor_{case}/{name}", got, want,
                   atol=1e-5 * want.float().abs().max().item(),
                   rtol=2.0**-7 if dt == bf16 else 1e-5)
-        # relayouts: row gathers and tiled transposes, ragged sizes too
+        # relayouts, bit for bit: row gathers and transposes at the bench's
+        # sizes (its tiles both ways, the supertiles, the widened planes,
+        # GATE's and the packedpre entries' banded planes both ways), sizes
+        # that end inside a block transpose's tile, sizes it does not take
+        # (the shared-memory tiles), and an input 2 bytes past 16-byte
+        # alignment (the C entry point: the wrapper takes aligned tensors)
         for shape, perm in (((6144, 32, 2, dh), (0, 2, 1, 3)), ((6144, 32, 2, dh), (2, 0, 1, 3)),
                             ((1536, 32, 8, dh), (0, 2, 1, 3)), ((1536, 32, 8, dh), (2, 0, 1, 3)),
                             ((t, sn, dh), (0, 2, 1)), ((t, dh, sn), (0, 2, 1)),
+                            ((t, dh, 4, 32), (0, 2, 3, 1)), ((t, 4, 32, dh), (0, 3, 1, 2)),
                             ((8, th, sn, dh), (0, 3, 1, 2)), ((8, dh, th, sn), (0, 2, 3, 1)),
-                            ((128, 5568, 16), (0, 2, 1)), ((7, 33, 5, 3), (3, 1, 0, 2)),
+                            ((128, 5568, 16), (0, 2, 1)), ((128, 6144, 16), (0, 2, 1)),
+                            ((128, 16, 6144), (0, 2, 1)), ((5, 40, 24), (0, 2, 1)),
+                            ((3, 8, 200), (0, 2, 1)), ((6, 10, 16, 24), (0, 3, 1, 2)),
+                            ((2, 36, 12), (0, 2, 1)), ((7, 33, 5, 3), (3, 1, 0, 2)),
                             ((7, 33, 5, 3), (1, 0, 2, 3)), ((3, 5, 7), (2, 0, 1))):
             a = randn(*shape, dtype=dt)
             check(errors[relay], f"{'x'.join(map(str, shape))}/{perm}/{name}",
                   launched(relay, lambda: probes.relayout(a, perm)), probes.plain_relayout(a, perm))
+        check(errors[relay], f"unaligned/3x64x64/(0, 2, 1)/{name}", *unaligned_relayout(randn, dt))
         # tile products in the probes' layouts
         x128 = randn(t, sn, 128, dtype=dt)
         first = x.view(t // 16, 16, sn, dh)[:, :1].expand(-1, 16, -1, -1)
@@ -2294,6 +2414,40 @@ def phase_probes() -> dict:
                       atol=(4e-3 * tile_bar(want)) if dt == bf16 else 1e-5)
                 check(errors[layout], f"K1/{name}", got,
                       window_mod.window_attention(q, k, v, adj, out_dtype=dt, **kw))
+    # the backward layout kernel bit for bit against K2 on the token-major
+    # units and against its plain version (2e-5 in f32, 4e-3 + 1e-2·|x| in
+    # bf16) on phase 4's seeded inputs (attention_inputs, output_grad: the
+    # data K2 is held on at the same bar): each instantiation (every operand
+    # transposed, f32 and bf16) on the transposed supertiles and, in bf16,
+    # the widened planes, under the masks above; layouts by plain permutes
+    layout_bwd = window_mod.KERNEL_LAYOUT_BWD
+    errors[layout_bwd] = {}
+    for case, dtypes in LAYOUT_BWD_CASES.items():
+        lay, view = layout_bwd_maps(case, units)
+        for dt in (getattr(torch, name) for name in dtypes):
+            q, k, v = attention_inputs(dt)
+            do = output_grad(dt)
+            with plain_relayouts():
+                stores = [lay(x) for x in (q, k, v, do)]
+            for mask, kw in masks.items():
+                kw = dict(scale=bench.SCALE, stack=4, **kw)
+                grads = [torch.empty_like(stores[0]) for _ in range(3)]
+                launched_bwd = window_mod.window_attention_bwd_into.launches
+                window_mod.window_attention_bwd_into(*(view(x) for x in stores), adj,
+                                                     dq=view(grads[0]), dk=view(grads[1]),
+                                                     dv=view(grads[2]), **kw)
+                if window_mod.window_attention_bwd_into.launches != launched_bwd + 1:
+                    raise AssertionError(f"{case}: the backward layout kernel was not launched once")
+                want = window_mod.plain_window_attention_bwd(q, k, v, do, adj, **kw)
+                k2 = window_mod.window_attention_bwd(q, k, v, do, adj, **kw)
+                name = f"{case}/{mask}/{dtype_name(dt)}"
+                for part, grad, w, w2 in zip(("dq", "dk", "dv"), grads, want, k2):
+                    got = view(grad).reshape(-1, TOKENS, HEAD_DIM)
+                    check(errors[layout_bwd], f"K2/{name}/{part}", got, w2)
+                    check(errors[layout_bwd], f"{name}/{part}", got, w, **BWD_TOL[dtype_name(dt)])
+                del grads, want, k2
+            del do, stores
+            torch.cuda.empty_cache()
     x = randn(t, sn, dh)
     blocks = hybrid_attention.KERNEL_BLOCKS
     check(errors[blocks], "softmax_only_tiles",
@@ -2321,17 +2475,17 @@ def phase_probes() -> dict:
         check(errors[layout], f"plain/{impl}", o, plain,
               atol=(4e-3 * tile_bar(plain)) if o.dtype == bf16 else 1e-5)
         del p, q, k, v, o, units_, want, plain
-    # the gradient entries in TPU layouts: relayouts around K1 and K2
+    # the gradient entries in TPU layouts: one launch of each layout kernel
+    # and no other, bit for bit against K1 and K2 on plainly permuted inputs
     for impl in LAYOUT_BWD_ENTRIES:
         p = bench.inputs(impl, UNITS, device="cuda")
         with torch.no_grad():
-            before = window_mod.window_attention.launches
-            got = launched(relay, lambda: p.body(p.state))
-            if window_mod.window_attention.launches <= before:
-                raise AssertionError(f"{impl}: K1 was not launched")
-            with plain_relayouts():
-                want = p.body(p.state)
-        check(errors["fused"], impl, got, want)
+            got, counts = bench.launches_of(lambda: p.body(p.state))
+        if counts != {layout: 1, layout_bwd: 1}:
+            raise AssertionError(f"{impl}: launched {counts}, not each layout kernel once")
+        check(errors["fused"], impl, got, layout_bwd_reference(impl, p))
+        del p, got
+    torch.cuda.empty_cache()
     # softmax_only: one launch of softmax_probe, P bit for bit K7's on the
     # gathered unit blocks
     p = bench.inputs("softmax_only", UNITS, device="cuda")
@@ -2348,9 +2502,10 @@ def phase_probes() -> dict:
          max_abs_err=errors, launches=probe_counts(),
          note="stream and relayout bit for bit; floors one output ulp; tile products and K10 "
               "1e-5 / 4e-3 x max|O|; the layout kernel 1e-5 / 4e-3 x max|O| against its plain "
-              "version and bit for bit against K1; softmax_blocks 1e-5 against its plain "
-              "version; every forward entry in TPU layouts bit for bit against K1 on plainly "
-              "permuted inputs, the gradient entries against their plain relayouts; "
+              "version and bit for bit against K1; the backward layout kernel 2e-5 / 4e-3 + "
+              "1e-2 |x| against its plain version and bit for bit against K2; softmax_blocks "
+              "1e-5 against its plain version; every forward entry in TPU layouts bit for bit "
+              "against K1 and every gradient entry against K1 + K2 on plainly permuted inputs; "
               "softmax_only bit for bit against K7 on the gathered blocks")
     return errors
 
@@ -2359,8 +2514,9 @@ def phase_bench_path() -> dict:
     """Main path 11: the kernel bench's ``measure`` (what its command line
     runs) over one or two entries of each family and K10, counts reset just
     before and read just after; every one of the three probe kernels, K1,
-    the layout kernel (each of its instantiations), softmax_probe and K7
-    (``hybrid_bf16``) launched."""
+    the layout kernel (each of its instantiations), the backward layout
+    kernel (``pallas_tbwd_bf16``), softmax_probe and K7 (``hybrid_bf16``)
+    launched."""
     import torch
 
     from sl_hwgat_tpu_torch.bench import kernel as bench
@@ -2375,7 +2531,8 @@ def phase_bench_path() -> dict:
     from sl_hwgat_tpu_torch.ops import hybrid_attention, probes, window_attention
 
     for kernel in (*probes.KERNELS, window_attention.KERNEL, window_attention.KERNEL_LAYOUT,
-                   hybrid_attention.KERNEL_BLOCKS, hybrid_attention.KERNEL):
+                   window_attention.KERNEL_LAYOUT_BWD, hybrid_attention.KERNEL_BLOCKS,
+                   hybrid_attention.KERNEL):
         if not counts.get(kernel):
             raise AssertionError(f"the bench path never launched {kernel}")
     torch.cuda.empty_cache()
@@ -2493,8 +2650,12 @@ def phase_probe_timings() -> dict:
                               lambda: probes.plain_stream_floor(xt, x, y=yt, **tile), None, 4 * n,
                               0, "bfloat16"),
     }
-    # relayout
+    # relayout: the bench's gathers and transposes (its tiles both ways, f32
+    # too, and the packedpre entries' banded planes both ways)
     r0 = torch.randn(6144, 32, 2, dh, generator=g, device="cuda").to(bf16)
+    x32 = torch.randn(t, sn, dh, generator=g, device="cuda")
+    planes = torch.randn(128, 6144, 16, generator=g, device="cuda").to(bf16)
+    packed = torch.randn(128, 16, 6144, generator=g, device="cuda").to(bf16)
     out["relayout"] = {
         "xrelay_s0_bf16": row(lambda: probes.relayout(r0, (0, 2, 1, 3)),
                               lambda: probes.plain_relayout(r0, (0, 2, 1, 3)),
@@ -2507,8 +2668,24 @@ def phase_probe_timings() -> dict:
         "transpose_bf16": row(lambda: probes.relayout(x, (0, 2, 1)),
                               lambda: probes.plain_relayout(x, (0, 2, 1)),
                               lambda: x.permute(0, 2, 1).contiguous(), 2 * n, 0, "bfloat16"),
+        "transpose_back_bf16": row(lambda: probes.relayout(xt, (0, 2, 1)),
+                                   lambda: probes.plain_relayout(xt, (0, 2, 1)),
+                                   lambda: xt.permute(0, 2, 1).contiguous(), 2 * n, 0,
+                                   "bfloat16"),
+        "transpose_f32": row(lambda: probes.relayout(x32, (0, 2, 1)),
+                             lambda: probes.plain_relayout(x32, (0, 2, 1)),
+                             lambda: x32.permute(0, 2, 1).contiguous(), 2 * x32.nbytes, 0,
+                             "float32"),
+        "pack_plane_bf16": row(lambda: probes.relayout(planes, (0, 2, 1)),
+                               lambda: probes.plain_relayout(planes, (0, 2, 1)),
+                               lambda: planes.permute(0, 2, 1).contiguous(), 2 * planes.nbytes,
+                               0, "bfloat16"),
+        "unpack_plane_bf16": row(lambda: probes.relayout(packed, (0, 2, 1)),
+                                 lambda: probes.plain_relayout(packed, (0, 2, 1)),
+                                 lambda: packed.permute(0, 2, 1).contiguous(), 2 * packed.nbytes,
+                                 0, "bfloat16"),
     }
-    del r0, y, z, xt, yt, dst, dst32
+    del r0, y, z, xt, yt, dst, dst32, x32, planes, packed
     # tile_matmul: matmul_only's products, then K10
     mm = {}
     for dt in (f32, bf16):
@@ -2590,6 +2767,7 @@ def phase_probe_timings() -> dict:
             lambda: torch.softmax(masked, -1), blocks.nbytes + x3.nbytes, 0, "float32")}
     del p, x3, blocks, masked
     torch.cuda.empty_cache()
+    out[window_mod.KERNEL_LAYOUT_BWD] = layout_bwd_timings(row, d)
     emit("probe_timings", kernels=out,
          note="library_ms, timed only: Tensor.copy_ into a preallocated tensor (stream), "
               "permute(...).contiguous() (relayout; also its plain version), two torch.bmm "
@@ -2597,10 +2775,106 @@ def phase_probe_timings() -> dict:
               "S and O are bf16); window_attention_layout: masked "
               "scaled_dot_product_attention on the entry's q, k, v token-major, in its type "
               "(it reads no TPU layout); softmax_probe: torch.softmax over the masked unit "
-              "blocks (P of the blocks only: it writes no zeros). Bounds: each input byte "
-              "read once and each output byte written once (softmax_probe: the two blocks "
-              "read, the whole tile written)")
+              "blocks (P of the blocks only: it writes no zeros); window_attention_layout_bwd: "
+              "masked SDPA's backward alone ((fwd + bwd) - fwd) on the same units token-major, "
+              "and for the gradient entries masked SDPA's forward, the same loss and its "
+              "backward. Bounds: each input byte read once and each output byte written once "
+              "(softmax_probe: the two blocks read, the whole tile written; a gradient entry: "
+              "the two layout kernels' 11 streams)")
     return out
+
+
+def layout_bwd_timings(row, d) -> dict:
+    """The backward layout kernel alone on the gradient entries' (U, dh, N)
+    transposed units at the bench's 12288 units, f32 and bf16: card, events
+    and host ms, its plain version, K2 on the same units token-major, its
+    bound (7 streams once) and masked SDPA's backward alone on the same units
+    token-major ((fwd + bwd) − fwd, timed only). Then each gradient entry's
+    card and events ms beside the like-for-like library call (masked SDPA's
+    forward, the same loss, its backward, token-major bf16) and the two
+    layout kernels' bound (11 streams), and a profile of one entry's calls:
+    the two layout kernels' card time beside the loss's torch passes."""
+    import torch
+
+    from sl_hwgat_tpu_torch.bench import kernel as bench
+    from sl_hwgat_tpu_torch.ops import layouts
+    from sl_hwgat_tpu_torch.ops import window_attention as window_mod
+
+    adj = bench.window_adj()
+    kw = dict(scale=bench.SCALE, stack=4)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    additive = torch.where(torch.from_numpy(adj) != 0, 0.0, -1e4).cuda()
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.from_numpy(d[name]).cuda().to(dt) for name in "qkv")
+        do = torch.randn(q.shape, generator=g, device="cuda").to(dt)
+        stores = [x.transpose(1, 2).contiguous() for x in (q, k, v, do)]  # (U, dh, N)
+        grads = [torch.empty_like(stores[0]) for _ in range(3)]
+        views = [layouts.t_view(x) for x in stores]
+        dviews = dict(zip(("dq", "dk", "dv"), (layouts.t_view(x) for x in grads)))
+
+        def kernel():
+            return window_mod.window_attention_bwd_into(*views, adj, **dviews, **kw)
+
+        with torch.no_grad():
+            timings = row(kernel, lambda: window_mod.plain_window_attention_bwd(
+                q, k, v, do, adj, **kw), None, 7 * q.nbytes, _win_bwd_flops(q), dtype_name(dt),
+                plain_runs=5)
+            timings["k2_device_ms"] = device_seconds(
+                lambda: window_mod.window_attention_bwd(q, k, v, do, adj, **kw)) * 1e3
+        mask = additive.to(dt)[None, None]
+        lib = sdpa_ms(q, k, v, do, mask, scale=bench.SCALE)
+        lib_device = sdpa_ms(q, k, v, do, mask, scale=bench.SCALE, timer=device_seconds)
+        timings.update(library_ms=lib[1], library_device_ms=lib_device[1],
+                       library_fwd_ms=lib[0], library_fwd_device_ms=lib_device[0])
+        out[dtype_name(dt)] = timings
+        del q, k, v, do, stores, grads, views, dviews
+        torch.cuda.empty_cache()
+
+    # the gradient entries, and masked SDPA's forward + the same loss + its
+    # backward on the same q, k, v token-major (bf16)
+    entries = {}
+    q, k, v = (torch.from_numpy(d[name]).cuda().to(torch.bfloat16)[:, None] for name in "qkv")
+    mask = additive.to(torch.bfloat16)[None, None]
+
+    def sdpa_entry():
+        with torch.enable_grad():
+            leaf = q.detach().requires_grad_(True)
+            o = torch.nn.functional.scaled_dot_product_attention(leaf, k, v, attn_mask=mask,
+                                                                 scale=bench.SCALE)
+            return torch.autograd.grad((o.float() ** 2).sum(), leaf)[0]
+
+    entries["library"] = {"ms": cuda_ms(sdpa_entry, runs=10),
+                          "device_ms": device_seconds(sdpa_entry) * 1e3,
+                          "what": "masked SDPA forward, (o.float()**2).sum(), its backward"}
+    del q, k, v
+    for impl in LAYOUT_BWD_ENTRIES:
+        p = bench.inputs(impl, UNITS, device="cuda")
+        bound_ms, by = ms_bound(11 * p.state.nbytes, _win_bwd_flops(p.state, 7), "bfloat16")
+        with torch.no_grad():
+            entries[impl] = {"ms": cuda_ms(lambda: p.body(p.state), runs=10),
+                             "device_ms": device_seconds(lambda: p.body(p.state)) * 1e3,
+                             "bound_ms": bound_ms, "bound_by": by}
+            if impl == LAYOUT_BWD_ENTRIES[0]:
+                calls = 5
+                with torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CPU,
+                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    for _ in range(calls):
+                        p.body(p.state)
+                    torch.cuda.synchronize()
+                entries[f"profile/{impl}"] = {"calls": calls, **device_table(prof)}
+        del p
+        torch.cuda.empty_cache()
+    out["entries"] = entries
+    return out
+
+
+def _win_bwd_flops(x, products: int = 5) -> float:
+    """Operations of ``products`` 32 × 32 × 64 products on each of x's units
+    of 32 tokens × dh 64: 5 for the backward (the recomputed scores, dA, dQ,
+    dV, dK), 7 for a forward and backward."""
+    return x.numel() // (TOKENS * HEAD_DIM) * products * 2.0 * TOKENS * TOKENS * HEAD_DIM
 
 
 def probe_entry(name: str, replaces: str, launches: int, timings: dict, top: str,
@@ -2626,6 +2900,10 @@ MATMUL_REPLACES = ("bench_kernel.py:381 (mm_*), :450 (floor_dot1slim, floor_bigm
                    ":515 (tlay_mm), :593 (mix_mm), :685 (tmx_mm), :805 (tmq_mm, tmq_bmm), "
                    ":1248 (matmul_only, matmul_k128, matmul_only_bf16); "
                    "sl_hwgat_tpu/ops/pallas_banded.py:395 (_fwd_kernel_packed_mm, K10)")
+LAYOUT_BWD_REPLACES = ("sl_hwgat_tpu/ops/pallas_attention.py:386 (_bwd_kernel_t), :704 "
+                       "(_bwd_kernel_ts), :466 (_bwd_kernel_ts_batched), :526 (_bwd_kernel_wide), "
+                       ":598 (_bwd_kernel_wide_batched); bench_kernel.py:249-305 "
+                       "(pallas_tbwd_bf16, pallas_tsbwd_bf16, pallas_widebwd_bf16)")
 LAYOUT_REPLACES = ("sl_hwgat_tpu/ops/pallas_attention.py:356 (_fwd_kernel_t), :676 "
                    "(_fwd_kernel_ts), :447 (_fwd_kernel_ts_batched), :489 (_fwd_kernel_wide), "
                    ":571 (_fwd_kernel_wide_batched); bench_kernel.py:515 (tlay_fused), :593 "
@@ -2757,8 +3035,6 @@ def main() -> int:
     fwd["hgate_serve_launches"] = served["window_attention"]
     fwd["train_launches"] = train_launches["fwd"] + trained["window_attention"]
     fwd["bench_launches"] = bench_launches[window_attention.KERNEL]
-    fwd["gradient_layout_entries_max_abs_err"] = {
-        e: probe_errors["fused"][e] for e in LAYOUT_BWD_ENTRIES}
     fwd["wide_design"] = WIDE_DESIGN
     fwd["wide_ptxas"] = {n: r for n, r in wide_kernels.items() if "fwd" in n}
     fwd["edge_cases_max_abs_err"] = edge_errors["window_fwd"]
@@ -2817,7 +3093,9 @@ def main() -> int:
                        probe_timings[relay], "xrelay_s0_bf16", probe_errors[relay]),
            probe_entry(mm, MATMUL_REPLACES, bench_launches[mm], probe_timings[mm],
                        "matmul_only/float32", probe_errors[mm])]
-    new[2].update(design=REDESIGNED[mm], ptxas=redesigned.get(mm), block=blocks[mm])
+    for entry in new[1:3]:
+        name = entry["name"]
+        entry.update(design=REDESIGNED[name], ptxas=redesigned.get(name), block=blocks[name])
     layout, softmax_blocks = window_attention.KERNEL_LAYOUT, hybrid_attention.KERNEL_BLOCKS
     new.append(probe_entry(layout, LAYOUT_REPLACES, bench_launches[layout],
                            probe_timings[layout], "tmq_fused", probe_errors[layout]))
@@ -2826,6 +3104,10 @@ def main() -> int:
                            bench_launches[softmax_blocks], probe_timings[softmax_blocks],
                            "softmax_only", probe_errors[softmax_blocks]))
     new[4]["softmax_only_max_abs_err"] = probe_errors["softmax_only"]["softmax_only"]
+    layout_bwd = window_attention.KERNEL_LAYOUT_BWD
+    new.append(probe_entry(layout_bwd, LAYOUT_BWD_REPLACES, bench_launches[layout_bwd],
+                           probe_timings[layout_bwd], "bfloat16", probe_errors[layout_bwd]))
+    new[5]["entries_max_abs_err"] = {e: probe_errors["fused"][e] for e in LAYOUT_BWD_ENTRIES}
     for entry in new[3:]:
         name = entry["name"]
         entry.update(design=REDESIGNED[name], ptxas=redesigned.get(name), block=blocks[name])

@@ -1,7 +1,8 @@
 """Where the time of a kernel goes, by source variants that leave one phase out.
 
     python -m sl_hwgat_tpu_torch.bench.ablate [wide|banded|softmax|window32|banded_fwd|
-                                               window32_fwd|tile|fused|layout] [--parent DIR]
+                                               window32_fwd|tile|fused|layout|fused_bwd|
+                                               relayout] [--parent DIR]
 
 Builds variants of a kernel's sources that each leave one phase out, under
 ``build/ablate/<variant>/``, and prints one JSON line of the card's times
@@ -114,6 +115,18 @@ loaded in turn behind ``window_attention_into`` (``--parent`` is not read):
 - ``unbounded``: no minimum of 4 blocks an SM for bf16 (more registers);
 - ``unit_u64``: each unit's offset by 64-bit divisions.
 
+``fused_bwd`` (needs ``--parent``): the kernel bench's gradient entries in
+TPU layouts (``pallas_tbwd_bf16``, ``pallas_tsbwd_bf16``,
+``pallas_widebwd_bf16``) as ``bench.kernel`` builds them in this checkout
+and in the parent's, in turns, as ``fused`` times the forward entries.
+
+``relayout``: the relayout kernel (``csrc/relayout.cu``) on the bench's
+transposes (its tiles both ways in bf16 and f32, the supertiles, the
+widened planes, the packedpre entries' banded planes both ways) and row
+gathers (``xrelay_*``, ``xstrided_*``), its C entry point called on the
+same tensors; with ``--parent``, the parent's timed in turns, with
+``bit_equal``.
+
 ``--parent DIR``: DIR holds another checkout of the repository (for
 example ``git archive`` of the parent commit). Its ``full`` kernel is built
 too and timed in turns with this one (parent, this, this, parent) on the
@@ -217,6 +230,7 @@ SOFTMAX_VARIANTS = {
         "    for (int c = 0; c < kPer; ++c) a[c] = x[c] + (B.allowed(masks, plane, r) & 1);\n")]},
 }
 WINDOW_BWD, WINDOW_COMMON = "window_attention_bwd.cu", "window_attention_common.cuh"
+BWD_UNIT = "window_attention_bwd_unit.cuh"
 # (design, a line only the 32-token K2 of that design holds, its variants)
 WINDOW32_DESIGNS = (
     # one warp per unit, a lane per query row, then a lane per column pair
@@ -231,6 +245,32 @@ WINDOW32_DESIGNS = (
                                 "  for (int j = 0; j < kN; ++j) ds[j] = 1e-3f * j;\n"
                                 "  for (int h = 0; h < 0; h += 32) {\n")]},
         "no_scores": {WINDOW_COMMON: [("      s[j] = acc;\n", "      s[j] = qr[j] + 1e-3f * j;\n")]},
+    }),
+    # the same, its row and product phases in window_attention_bwd_unit.cuh
+    # (shared with the backward layout kernel)
+    ("shared", "  bwd32::products_f32<DH, false>(io, at, dst, dst, kf, lane);\n", {
+        "full": {},
+        "no_column": {
+            WINDOW_BWD: [("  bwd32::products_f32<DH, false>(io, at, dst, dst, kf, lane);\n",
+                          "  dq[lane] = at[lane] + dst[lane];\n")],
+            BWD_UNIT: [("    io.dq_product(p, acc);\n    io.store_dq(acc, r0, scale);\n",
+                        "    io.store_dq(ds, r0, scale);\n"),
+                       ("#pragma unroll 1\n  for (int r0 = 0; r0 < kN; r0 += 16) {\n"
+                        "    float acc[DH / 8][4];\n    io.dv_product(at, r0, acc);\n",
+                        "  if (DH > 0) return;\n#pragma unroll 1\n"
+                        "  for (int r0 = 0; r0 < kN; r0 += 16) {\n"
+                        "    float acc[DH / 8][4];\n    io.dv_product(at, r0, acc);\n")]},
+        "no_da": {BWD_UNIT: [
+            ("  for (int h = 0; h < DH; h += 16) {  // dO's row 16 columns at a time\n",
+             "  for (int j = 0; j < kN; ++j) ds[j] = 1e-3f * j;\n"
+             "  for (int h = 0; h < 0; h += 16) {\n"),
+            ("  io.da(0, da[0]);\n  io.da(16, da[1]);\n",
+             "  for (int st = 0; st < 2; ++st)\n    for (int j = 0; j < kN / 8; ++j)\n"
+             "      for (int c = 0; c < 4; ++c) da[st][j][c] = 1e-3f * (j + c + lane);\n")]},
+        "no_scores": {WINDOW_COMMON: [("      s[j] = acc;\n", "      s[j] = qr[j] + 1e-3f * j;\n")]},
+        # at most 8 warps an SM instead of 12 (f32: 255 registers a thread)
+        "eight_warps": {WINDOW_BWD: [("                                 : 12 / kWarps<T>;",
+                                      "                                 : 8 / kWarps<T>;")]},
     }),
     # a lane per query row for A (attention_row), then 16-row strips of
     # register tiles (f32) or tensor-core products (bf16)
@@ -774,21 +814,22 @@ def parent_modules(parent: Path, names=("bench.kernel", "ops._build")) -> list:
         sys.modules.update(own)
 
 
-def run_fused(parent) -> dict:
+def entries_in_turns(parent, impls, parent_sources, own_sources) -> dict:
+    """``impls`` as ``bench.kernel`` builds them in this checkout and in the
+    parent's (``parent_modules``; ``parent_sources`` built there,
+    ``own_sources`` here), timed in turns by their card ms and by events,
+    with ``bit_equal`` and this checkout's launches a call."""
     from sl_hwgat_tpu_torch.bench import kernel as bench
 
-    if parent is None:
-        raise SystemExit("bench.ablate fused: --parent is required")
     pbench, pbuild = parent_modules(Path(parent))
-    sources = ("window_attention_fwd", "relayout", "masked_softmax_fwd")
-    built = threading.Thread(target=pbuild.build, args=(sources,))
+    built = threading.Thread(target=pbuild.build, args=(parent_sources,))
     built.start()
-    _build.build((wa.KERNEL_LAYOUT, ha.KERNEL_BLOCKS))
+    _build.build(own_sources)
     built.join()
     pbuild.load("relayout")  # fails here, not in a timed call, if the parent's build did
     times, events, equal, counts = {}, {}, {}, {}
     with torch.no_grad():
-        for impl in (*bench.LAYOUT_ENTRIES, "softmax_only"):
+        for impl in impls:
             probes_ = {"parent": pbench.inputs(impl, WINDOW32_UNITS),
                        "full": bench.inputs(impl, WINDOW32_UNITS)}
             calls = {n: (lambda p=p: p.body(p.state)) for n, p in probes_.items()}
@@ -802,10 +843,22 @@ def run_fused(parent) -> dict:
             del probes_, calls, got
             torch.cuda.empty_cache()
     return {"units": WINDOW32_UNITS, "paired_device_ms": times, "events_ms": events,
-            "bit_equal": equal, "launches": counts, "window32_fwd": run_window32_fwd(parent)}
+            "bit_equal": equal, "launches": counts}
+
+
+def run_fused(parent) -> dict:
+    from sl_hwgat_tpu_torch.bench import kernel as bench
+
+    if parent is None:
+        raise SystemExit("bench.ablate fused: --parent is required")
+    out = entries_in_turns(parent, (*bench.LAYOUT_ENTRIES, "softmax_only"),
+                           ("window_attention_fwd", "relayout", "masked_softmax_fwd"),
+                           (wa.KERNEL_LAYOUT, ha.KERNEL_BLOCKS))
+    return {**out, "window32_fwd": run_window32_fwd(parent)}
 
 
 LAYOUT = "window_attention_layout.cu"
+LAYOUT_HEADER = "window_attention_layout.cuh"
 LAYOUT_BOUND = "__launch_bounds__(kWarps * 32, kMinBlocks<T>)"
 # variants of the layout kernel: every one gives the same bits
 LAYOUT_VARIANTS = {
@@ -813,7 +866,7 @@ LAYOUT_VARIANTS = {
     # no register bound: bf16 may take more than 128 registers (fewer warps)
     "unbounded": {LAYOUT: [(LAYOUT_BOUND, "__launch_bounds__(kWarps * 32)")]},
     # a unit's first element by 64-bit divisions
-    "unit_u64": {LAYOUT: [(
+    "unit_u64": {LAYOUT_HEADER: [(
         "  const unsigned uu = static_cast<unsigned>(u), ns = static_cast<unsigned>(w.ns),\n"
         "                 nb = static_cast<unsigned>(w.nb), r = uu / ns;\n"
         "  return static_cast<long long>(r / nb) * w.sa + static_cast<long long>(r % nb) * w.sb +\n"
@@ -860,6 +913,76 @@ def run_layout(parent) -> dict:
             "ptxas": ptxas}
 
 
+def run_fused_bwd(parent) -> dict:
+    """The gradient entries in TPU layouts, this checkout's bench against the
+    parent's, in turns, as ``run_fused`` times the forward entries."""
+    from sl_hwgat_tpu_torch.bench import kernel as bench
+
+    if parent is None:
+        raise SystemExit("bench.ablate fused_bwd: --parent is required")
+    return entries_in_turns(parent, bench.LAYOUT_BWD_ENTRIES,
+                            ("window_attention_fwd", "window_attention_bwd",
+                             "window_attention_layout", "relayout"),
+                            (wa.KERNEL_LAYOUT, wa.KERNEL_LAYOUT_BWD))
+
+
+# relayout's cases on the bench path: (input shape, permutation, dtype)
+RELAYOUT_CASES = {
+    "transpose_bf16": ((3072, 128, 64), (0, 2, 1), torch.bfloat16),
+    "transpose_back_bf16": ((3072, 64, 128), (0, 2, 1), torch.bfloat16),
+    "transpose_f32": ((3072, 128, 64), (0, 2, 1), torch.float32),
+    "t_to_units_bf16": ((3072, 64, 4, 32), (0, 2, 3, 1), torch.bfloat16),
+    "units_to_t_bf16": ((3072, 4, 32, 64), (0, 3, 1, 2), torch.bfloat16),
+    "widen_bf16": ((8, 384, 128, 64), (0, 3, 1, 2), torch.bfloat16),
+    "pack_plane_bf16": ((128, 6144, 16), (0, 2, 1), torch.bfloat16),
+    "unpack_plane_bf16": ((128, 16, 6144), (0, 2, 1), torch.bfloat16),
+    "xrelay_s0_bf16": ((6144, 32, 2, 64), (0, 2, 1, 3), torch.bfloat16),
+    "xrelay_s2_f32": ((1536, 32, 8, 64), (0, 2, 1, 3), torch.float32),
+    "xstrided_s2_bf16": ((1536, 32, 8, 64), (2, 0, 1, 3), torch.bfloat16),
+}
+
+
+def run_relayout(parent) -> dict:
+    """relayout's C entry point on the bench path's transposes and gathers,
+    this checkout's (and with ``parent`` the parent's, in turns)."""
+    builds = {"full": _build.CSRC_DIR}
+    if parent is not None:
+        builds["parent"] = Path(parent) / "sl_hwgat_tpu_torch" / "csrc"
+    ptxas = wait({name: build_variant(name, {}, (probes.KERNEL_RELAYOUT,), csrc)
+                  for name, csrc in builds.items()})
+    if ptxas is None:
+        return {}
+    fns = {name: entry(name, probes.KERNEL_RELAYOUT) for name in builds}
+    rng = np.random.default_rng(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    times, pairs, equal = {}, {}, {}
+    for case, (shape, perm, dtype) in RELAYOUT_CASES.items():
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda().to(dtype)
+        dims = [1] * (4 - x.ndim) + list(shape)
+        full = list(range(4 - x.ndim)) + [p + 4 - x.ndim for p in perm]
+        outs = {name: torch.empty([shape[p] for p in perm], dtype=dtype, device="cuda")
+                for name in fns}
+        calls = {name: (lambda fn=fn, o=outs[name]: fn(x.data_ptr(), o.data_ptr(), *dims, *full,
+                                                        x.element_size(), stream))
+                 for name, fn in fns.items()}
+        times[case] = device_ms(calls["full"])
+        if parent is not None:
+            pairs[case] = in_turns(calls)
+            calls["parent"]()
+            calls["full"]()
+            torch.cuda.synchronize()
+            equal[case] = torch.equal(outs["parent"], outs["full"])
+        if not torch.equal(outs["full"], x.permute(*perm).contiguous()):
+            raise AssertionError(f"relayout {case}: not the permutation")
+        del x, outs
+    out = {"device_ms": times, "cases": {c: [list(s), list(p), str(d).split(".")[1]]
+                                         for c, (s, p, d) in RELAYOUT_CASES.items()},
+           "ptxas": ptxas}
+    if parent is not None:
+        out.update(paired_device_ms=pairs, bit_equal=equal)
+    return out
+
+
 # C signatures of older designs' entries that differ from the wrappers' own:
 # neither "recompute" design took edges_per_row
 _ARGTYPES_OF = {(ba.KERNEL, "recompute"): ["p"] * 5 + ["ll", "i", "i", "i", "i", "i", "f", "p"],
@@ -873,14 +996,16 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="python -m sl_hwgat_tpu_torch.bench.ablate")
     parser.add_argument("kernel", nargs="?", default="wide",
                         choices=("wide", "banded", "softmax", "window32", "banded_fwd",
-                                 "window32_fwd", "tile", "fused", "layout"))
+                                 "window32_fwd", "tile", "fused", "layout", "fused_bwd",
+                                 "relayout"))
     parser.add_argument("--parent", type=Path, default=None,
                         help="another checkout whose kernel is timed in turns with this one")
     args = parser.parse_args(argv)
     out = {"wide": run_wide, "banded": run_banded, "softmax": run_softmax,
            "window32": run_window32, "banded_fwd": run_banded_fwd,
            "window32_fwd": run_window32_fwd, "tile": run_tile,
-           "fused": run_fused, "layout": run_layout}[args.kernel](args.parent)
+           "fused": run_fused, "layout": run_layout, "fused_bwd": run_fused_bwd,
+           "relayout": run_relayout}[args.kernel](args.parent)
     if not out:
         return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

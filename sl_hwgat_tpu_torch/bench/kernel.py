@@ -19,9 +19,11 @@ runs on the port's kernels:
   ``tmq_*fused``, ``tsw_*`` but the floor, ``lp_fused_bf16``) and the
   forward ``pallas_t*``/``pallas_widepre_bf16``/``pair_tscore_bf16``
   entries: ``window_attention_into`` on views of their layouts, one launch
-  of the layout kernel (single mask, zero quirk, no prune); the token-major
-  ``pallas*`` entries: K1; the ``*bwd*`` layout entries: relayout into
-  token-major, K1 and K2, relayout back;
+  of the layout kernel (single mask, zero quirk, no prune); the ``*bwd*``
+  layout entries: ``layout_window_attention`` on their layouts' storages,
+  one launch of the layout kernel forward and one of the backward layout
+  kernel (``window_attention_bwd_into``), no relayout; the token-major
+  ``pallas*`` entries: K1 (and K2);
 - ``softmax_only``: ``softmax_blocks``, one kernel over the two diagonal
   unit blocks of each supertile that reach the output (K7's row routine);
 - ``hybrid*``: ``hybrid_window_attention`` (K7); ``banded_*``: the banded
@@ -109,6 +111,8 @@ LAYOUT_ENTRIES = ("tlay_fused", "tlay_fused_bf16", "mix_fused", "tmx_fused", "tm
                   "tmq_bfused", "tsw_fused", "tsw_bstack", "tsw_1_fused", "lp_fused_bf16",
                   "pallas_tbf16", "pallas_tdual_bf16", "pallas_tpre_bf16", "pallas_tspre_bf16",
                   "pallas_widepre_bf16", "pair_tscore_bf16")
+# the gradient entries in TPU layouts: one launch of each layout kernel a call
+LAYOUT_BWD_ENTRIES = ("pallas_tbwd_bf16", "pallas_tsbwd_bf16", "pallas_widebwd_bf16")
 
 
 def window_adj() -> np.ndarray:
@@ -177,8 +181,10 @@ class Probe:
     edges: int | None = None
     reads_state: bool = True  # False where the probe ignores its chained input
     # the entries in TPU layouts: [(args, kwargs)] of the body's last
-    # window_attention_into call (the views it reads and writes)
+    # window_attention_into call (the views it reads and writes), and the
+    # map from a storage of the layout to its (…, N, dh) unit view
     into_call: list = field(default_factory=list)
+    view: Callable | None = None
 
 
 def _into(record: list, *args, **kw) -> None:
@@ -239,33 +245,28 @@ def _window_probe(impl, d, dev) -> Probe:
 
         return Probe(impl, q.to(BF16), lambda x: _grad_of(loss, x)[1], (kb, vb), flops,
                      "bfloat16", edges)
-    # TPU layouts around K1: (U, dh, N) transposed units, (T, dh, SN)
-    # prepacked supertiles, (H, DH, TH, SN) model-wide planes
+    # TPU layouts: (U, dh, N) transposed units, (T, dh, SN) prepacked
+    # supertiles, (H, DH, TH, SN) model-wide planes; the inputs are laid out
+    # once, outside the timed call, and the calls read them through views
     if impl in ("pallas_tbf16", "pallas_tdual_bf16", "pallas_tbwd_bf16", "pallas_tsbwd_bf16"):
-        to_units = back = layouts.transpose_tiles
+        lay = layouts.transpose_tiles
     elif impl in ("pallas_tpre_bf16", "pallas_tspre_bf16", "pair_tscore_bf16"):
-        def to_units(x):
-            return layouts.t_to_units(x, STACK)
-
-        def back(o):
-            return layouts.units_to_t(o, STACK)
+        def lay(x):
+            return layouts.units_to_t(x, STACK)
     else:  # pallas_widepre_bf16, pallas_widebwd_bf16
         t = units // STACK
         th = t // HEADS
 
-        def to_units(x):
-            return layouts.unwiden(x.reshape(HEADS, DH, th * SN), SN).reshape(units, N, DH)
-
-        def back(o):
-            return layouts.widen(o.reshape(t, SN, DH), HEADS).reshape(HEADS, DH, th, SN)
-    qt, kt, vt = (back(x) for x in (q.to(BF16), kb, vb))
+        def lay(x):
+            return layouts.widen(x.reshape(t, SN, DH), HEADS).reshape(HEADS, DH, th, SN)
+    if impl.startswith("pallas_wide"):
+        def view(x):
+            return layouts.wide_view(x.view(HEADS, DH, -1), SN)
+    else:
+        view = layouts.t_view
+    qt, kt, vt = (lay(x) for x in (q.to(BF16), kb, vb))
 
     if not bwd:  # the layout kernel on views of the layout
-        if impl.startswith("pallas_wide"):
-            def view(x):
-                return layouts.wide_view(x.view(HEADS, DH, -1), SN)
-        else:
-            view = layouts.t_view
         kv, calls = (view(kt), view(vt)), []
 
         def into(x):
@@ -273,13 +274,12 @@ def _window_probe(impl, d, dev) -> Probe:
             _into(calls, view(x), *kv, adj, out=view(out), **kw)
             return out
 
-        return Probe(impl, qt, into, (kt, vt), flops, "bfloat16", edges, into_call=calls)
+        return Probe(impl, qt, into, (kt, vt), flops, "bfloat16", edges, into_call=calls,
+                     view=view)
 
-    def fwd(x):
-        return back(att(to_units(x), to_units(kt), to_units(vt), BF16))
-
+    # forward and gradient: one launch of each layout kernel, no relayout
     def loss(leaf):
-        o = fwd(leaf)
+        o = window_mod.layout_window_attention(leaf, kt, vt, adj, view=view, **kw)
         return o, (o.float() ** 2).sum()
 
     if impl == "pallas_widebwd_bf16":
@@ -289,7 +289,7 @@ def _window_probe(impl, d, dev) -> Probe:
     else:
         def body(x):
             return _grad_of(loss, x)[1]
-    return Probe(impl, qt, body, (kt, vt), flops, "bfloat16", edges)
+    return Probe(impl, qt, body, (kt, vt), flops, "bfloat16", edges, view=view)
 
 
 def _tiles4(x, transposed: bool):
@@ -681,7 +681,7 @@ def inputs(impl: str, units: int = UNITS, *, device="cuda", tg: int | None = Non
     if impl.startswith("ell"):
         raise NotImplementedError(
             f"{impl}: the ELL sparse attention (ops/sparse_attention.py, no Pallas kernel) is "
-            "not ported yet: ROADMAP.md queue 1 item 10")
+            "not ported yet: ROADMAP.md queue 1 item 5")
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the kernel bench's inputs live on the card "
@@ -697,6 +697,7 @@ def _counters() -> dict:
     return {window_mod.KERNEL: window_mod.window_attention.launches,
             window_mod.KERNEL_BWD: window_mod.window_attention_bwd.launches,
             window_mod.KERNEL_LAYOUT: window_mod.window_attention_into.launches,
+            window_mod.KERNEL_LAYOUT_BWD: window_mod.window_attention_bwd_into.launches,
             hybrid_mod.KERNEL_BLOCKS: hybrid_mod.softmax_blocks.launches,
             banded_mod.KERNEL: banded_mod.banded_attention.launches,
             banded_mod.KERNEL_BWD: banded_mod.banded_attention_bwd.launches,
@@ -709,6 +710,7 @@ def reset_launches() -> None:
     """Every kernel's launch count to 0."""
     window_mod.window_attention.launches = window_mod.window_attention_bwd.launches = 0
     window_mod.window_attention_into.launches = hybrid_mod.softmax_blocks.launches = 0
+    window_mod.window_attention_bwd_into.launches = 0
     banded_mod.banded_attention.launches = banded_mod.banded_attention_bwd.launches = 0
     hybrid_mod.masked_softmax.launches = hybrid_mod.masked_softmax_bwd.launches = 0
     probes.reset_launches()

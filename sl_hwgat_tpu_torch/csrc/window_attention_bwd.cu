@@ -25,7 +25,10 @@
 //
 // Units of 32 tokens (window_attention_bwd_kernel, HWGATE): one warp per
 // unit, kWarps units per block, no block barriers; each warp stages its
-// unit in its own shared memory by cp.async.
+// unit in its own shared memory by cp.async. The row phase and the product
+// phase are window_attention_bwd_unit.cuh's, which the layout kernel
+// (window_attention_layout_bwd.cu) shares; this file stages the token-major
+// rows and stores the strips along them.
 //   Row phase, lane i owns query row i: A and its pass bits from K1's own
 //   routine (attention_row of window_attention_common.cuh, keys as f32 rows),
 //   so the forward's A, prune decisions included, comes out bit for bit.
@@ -69,6 +72,7 @@
 
 #include "window_attention_common.cuh"
 #include "window_attention_wide.cuh"
+#include "window_attention_bwd_unit.cuh"
 
 namespace {
 
@@ -77,8 +81,8 @@ using wide::stage_unit;
 
 // 32-token units a block, one a warp.
 template <typename T> constexpr int kWarps = std::is_same<T, float>::value ? 4 : 1;
-constexpr int kTStride = kN + 8;   // bf16 32 x 32 tiles: 16 bytes of row padding
-constexpr int kXStride = kN + 4;   // the f32 A tile of the bf16 path
+using bwd32::kTStride;
+using bwd32::kXStride;
 
 // Rows of a bf16 tile of DH columns: 16 bytes of padding.
 template <int DH> constexpr int kRowStride = DH + 8;
@@ -103,6 +107,40 @@ constexpr int kBlocksPerSm = 233472 / (kBlockBytes<T, DH> + 1024) < 12 / kWarps<
                                  ? 233472 / (kBlockBytes<T, DH> + 1024)
                                  : 12 / kWarps<T>;
 
+// K2's token-major operands for the shared f32 product phase: the stores
+// of window_attention_wide.cuh's register tiles along the unit's rows, dO
+// and Q staged as rows by cp.async.
+template <int DH>
+struct UnitRowsF32 {
+  const float* q;
+  const float* dout;
+  float* dq;
+  float* dk;
+  float* dv;
+  int lane;
+  float scale;
+  template <typename Acc>
+  __device__ __forceinline__ void store_dq(const Acc& acc, int r0) {
+    wide::store_tile_of<false, DH>(dq, acc, r0, lane, kN, scale);
+  }
+  __device__ __forceinline__ void stage_dout(float* kf) {
+    stage_unit<float, DH, DH>(dout, kf, lane);
+    wide::cp_async_wait_all();
+  }
+  template <typename Acc>
+  __device__ __forceinline__ void store_dv(const Acc& acc, int r0) {
+    wide::store_tile_of<true, DH>(dv, acc, r0, lane, kN, 1.f);
+  }
+  __device__ __forceinline__ void stage_q(float* kf) {
+    stage_unit<float, DH, DH>(q, kf, lane);
+    wide::cp_async_wait_all();
+  }
+  template <typename Acc>
+  __device__ __forceinline__ void store_dk(const Acc& acc, int r0) {
+    wide::store_tile_of<true, DH>(dk, acc, r0, lane, kN, scale);
+  }
+};
+
 // One 32-token unit in f32 (pointers at the unit's first row).
 template <int DH, typename AllowedRow>
 __device__ __forceinline__ void unit_bwd(const float* __restrict__ q, const float* __restrict__ k,
@@ -123,88 +161,67 @@ __device__ __forceinline__ void unit_bwd(const float* __restrict__ q, const floa
     load_scaled_row<float, DH>(q + lane * DH, scale, qr);
     wide::cp_async_wait_all();
     __syncwarp();
-    float sum;
-    pass = attention_row<kN, DH>(qr, kf, kN, prune_u, allowed_row, zero_quirk, a, sum);
-#pragma unroll
-    for (int j = 0; j < kN; ++j) a[j] = a[j] / sum;
+    pass = bwd32::attention<DH>(qr, kf, prune_u, allowed_row, zero_quirk, a);
   }
-
-  // dA row `lane` = dO row . V rows (d ascending from 0), then dS in place.
   float ds[kN];
-#pragma unroll
-  for (int j = 0; j < kN; ++j) ds[j] = 0.f;
-#pragma unroll
-  for (int h = 0; h < DH; h += 16) {  // dO's row 16 columns at a time
-    float dor[16];
+  bwd32::grad_row<DH>(vf, [&](int h, float (&dor)[16]) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) load16(dout + lane * DH + h + c * 4, dor + c * 4);
-#pragma unroll
-    for (int j = 0; j < kN; ++j) {
-      const float4* vr = reinterpret_cast<const float4*>(vf + j * DH + h);
-      float acc = ds[j];
-#pragma unroll
-      for (int d4 = 0; d4 < 4; ++d4) {
-        const float4 vv = vr[d4];
-        acc = fmaf(dor[4 * d4], vv.x, acc);
-        acc = fmaf(dor[4 * d4 + 1], vv.y, acc);
-        acc = fmaf(dor[4 * d4 + 2], vv.z, acc);
-        acc = fmaf(dor[4 * d4 + 3], vv.w, acc);
-      }
-      ds[j] = acc;
-    }
-  }
-  float rowsum = 0.f;
-#pragma unroll
-  for (int j = 0; j < kN; ++j) rowsum += ds[j] * a[j];
-#pragma unroll
-  for (int j = 0; j < kN; ++j) {
-    const float g = a[j] * (ds[j] - rowsum);
-    ds[j] = ((pass >> j) & 1u) ? g : 0.f;
-  }
+  }, a, pass, ds);
 
   // V is dead in every lane: T(A) and dS into their tiles, row `lane`.
   float* at = vf;
   float* dst = vf + kN * kN;
   __syncwarp();
-#pragma unroll
-  for (int c = 0; c < kN; c += 4) {
-    const int i = wide::Swizzled32::at(lane, c);
-    *reinterpret_cast<float4*>(at + i) = make_float4(a[c], a[c + 1], a[c + 2], a[c + 3]);
-    *reinterpret_cast<float4*>(dst + i) = make_float4(ds[c], ds[c + 1], ds[c + 2], ds[c + 3]);
-  }
+  bwd32::write_grad_tiles(a, ds, at, dst, lane);
   __syncwarp();
-
-  // dQ, then dV, then dK, each as two 16-row strips of 4 x 8 register tiles;
-  // dO and then Q take K's rows.
-  constexpr int kHalves = DH / 32;
-  float acc[4][4 * kHalves];
-#pragma unroll 1
-  for (int r0 = 0; r0 < kN; r0 += 16) {
-    wide::tile_product_of<false, kN, kHalves>(wide::Swizzled32{dst}, wide::Shared<DH>{kf}, r0,
-                                             lane, acc);
-    wide::store_tile_of<false, DH>(dq, acc, r0, lane, kN, scale);
-  }
-  __syncwarp();  // K is dead in every lane
-  stage_unit<float, DH, DH>(dout, kf, lane);
-  wide::cp_async_wait_all();
-  __syncwarp();
-#pragma unroll 1
-  for (int r0 = 0; r0 < kN; r0 += 16) {
-    wide::tile_product_of<true, kN, kHalves>(wide::Swizzled32{at}, wide::Shared<DH>{kf}, r0,
-                                            lane, acc);
-    wide::store_tile_of<true, DH>(dv, acc, r0, lane, kN, 1.f);
-  }
-  __syncwarp();  // dO is dead in every lane
-  stage_unit<float, DH, DH>(q, kf, lane);
-  wide::cp_async_wait_all();
-  __syncwarp();
-#pragma unroll 1
-  for (int r0 = 0; r0 < kN; r0 += 16) {
-    wide::tile_product_of<true, kN, kHalves>(wide::Swizzled32{dst}, wide::Shared<DH>{kf}, r0,
-                                            lane, acc);
-    wide::store_tile_of<true, DH>(dk, acc, r0, lane, kN, scale);
-  }
+  UnitRowsF32<DH> io{q, dout, dq, dk, dv, lane, scale};
+  bwd32::products_f32<DH, false>(io, at, dst, dst, kf, lane);
 }
+
+// K2's token-major operands for the shared bf16 product phase: fragments
+// from the staged row tiles (rows S apart), strips stored along the unit's
+// rows.
+template <int DH>
+struct UnitRowsBf16 {
+  static constexpr int S = kRowStride<DH>;
+  const __nv_bfloat16* qt;
+  const __nv_bfloat16* kt;
+  const __nv_bfloat16* vt;
+  const __nv_bfloat16* dot;
+  __nv_bfloat16* dq;
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  int lane;
+  template <typename Acc>
+  __device__ __forceinline__ void da(int r0, Acc& acc) {
+    wide::strip_abt<DH, S>(dot, vt, r0, lane, acc);
+  }
+  template <typename P, typename Acc>
+  __device__ __forceinline__ void dq_product(const P& p, Acc& acc) {
+    wide::strip_ab<S>(p, kt, lane, acc);
+  }
+  template <typename Acc>
+  __device__ __forceinline__ void store_dq(const Acc& acc, int r0, float scale) {
+    wide::store_strip<DH>(dq, acc, r0, lane, kN, scale);
+  }
+  template <typename Acc>
+  __device__ __forceinline__ void dv_product(const __nv_bfloat16* at, int r0, Acc& acc) {
+    wide::strip_atb<kN / 16, kTStride, S>(at, dot, r0, lane, acc);
+  }
+  template <typename Acc>
+  __device__ __forceinline__ void store_dv(const Acc& acc, int r0) {
+    wide::store_strip<DH>(dv, acc, r0, lane, kN, 1.f);
+  }
+  template <typename Acc>
+  __device__ __forceinline__ void dk_product(const __nv_bfloat16* dst, int r0, Acc& acc) {
+    wide::strip_atb<kN / 16, kTStride, S>(dst, qt, r0, lane, acc);
+  }
+  template <typename Acc>
+  __device__ __forceinline__ void store_dk(const Acc& acc, int r0, float scale) {
+    wide::store_strip<DH>(dk, acc, r0, lane, kN, scale);
+  }
+};
 
 // One 32-token unit in bf16 (pointers at the unit's first row).
 template <int DH, typename AllowedRow>
@@ -247,81 +264,14 @@ __device__ __forceinline__ void unit_bwd(const __nv_bfloat16* __restrict__ q,
   {
     float qr[DH];
     load_scaled_row<bf16, DH>(qt + lane * S, scale, qr);
-    float sum;
-    pass = attention_row<kN, DH>(qr, kf, kN, prune_u, allowed_row, zero_quirk, a, sum);
-#pragma unroll
-    for (int j = 0; j < kN; ++j) a[j] = a[j] / sum;
+    pass = bwd32::attention<DH>(qr, kf, prune_u, allowed_row, zero_quirk, a);
   }
 
   // K's f32 rows are dead in every lane: A with its pass signs, and T(A).
   __syncwarp();
-#pragma unroll
-  for (int c = 0; c < kN; c += 4) {
-    float x[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      x[e] = __uint_as_float(__float_as_uint(a[c + e]) | (((pass >> (c + e)) & 1u) ? 0u : 0x80000000u));
-    *reinterpret_cast<float4*>(ax + lane * kXStride + c) = make_float4(x[0], x[1], x[2], x[3]);
-  }
-#pragma unroll
-  for (int c = 0; c < kN; c += 8)
-    *reinterpret_cast<uint4*>(at + lane * kTStride + c) =
-        make_uint4(wide::pack_bf16(a[c], a[c + 1]), wide::pack_bf16(a[c + 2], a[c + 3]),
-                   wide::pack_bf16(a[c + 4], a[c + 5]), wide::pack_bf16(a[c + 6], a[c + 7]));
-
-  // dA = dO V^T on the accumulator layout, both strips.
-  float da[2][kN / 8][4];
-  wide::strip_abt<DH, S>(dot, vt, 0, lane, da[0]);
-  wide::strip_abt<DH, S>(dot, vt, 16, lane, da[1]);
-  __syncwarp();  // A's tiles are complete; V is dead in every lane
-
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int st = 0; st < 2; ++st) {
-    float(&ds)[kN / 8][4] = da[st];
-    const int r0 = 16 * st;
-    // dS = T(A o (dA - rowsum(dA o A)) o pass)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float* arow = ax + (r0 + g + 8 * h) * kXStride + 2 * t;
-      float av[kN / 8][2];
-      float rowsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kN / 8; ++j) {
-        const float2 x = *reinterpret_cast<const float2*>(arow + 8 * j);
-        av[j][0] = x.x;
-        av[j][1] = x.y;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) rowsum += ds[j][2 * h + e] * fabsf(av[j][e]);
-      }
-      rowsum = wide::quad_sum(rowsum);
-#pragma unroll
-      for (int j = 0; j < kN / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float g2 = fabsf(av[j][e]) * (ds[j][2 * h + e] - rowsum);
-          ds[j][2 * h + e] = round_to<bf16>(__float_as_uint(av[j][e]) >> 31 ? 0.f : g2);
-        }
-    }
-    // dQ = T((dS K) * scale) for the strip's query rows.
-    uint32_t p[kN / 16][4];
-    wide::to_a_operand(ds, p);
-    float acc[DH / 8][4];
-    wide::strip_ab<S>(p, kt, lane, acc);
-    wide::store_strip<DH>(dq, acc, r0, lane, kN, scale);
-    wide::write_strip<bf16, kTStride>(dst, ds, r0, lane);
-  }
-  __syncwarp();  // the dS tile is complete
-
-  // dV = T(A)^T dO and dK = T((dS^T Q) * scale) for key rows r0 .. r0 + 15.
-#pragma unroll 1
-  for (int r0 = 0; r0 < kN; r0 += 16) {
-    float acc[DH / 8][4];
-    wide::strip_atb<kN / 16, kTStride, S>(at, dot, r0, lane, acc);
-    wide::store_strip<DH>(dv, acc, r0, lane, kN, 1.f);
-    wide::strip_atb<kN / 16, kTStride, S>(dst, qt, r0, lane, acc);
-    wide::store_strip<DH>(dk, acc, r0, lane, kN, scale);
-  }
+  bwd32::write_a_tiles(a, pass, ax, at, lane);
+  UnitRowsBf16<DH> io{qt, kt, vt, dot, dq, dk, dv, lane};
+  bwd32::products_bf16<DH>(io, ax, at, dst, lane, scale);
 }
 
 template <typename T, int DH>

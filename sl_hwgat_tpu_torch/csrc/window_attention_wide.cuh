@@ -764,6 +764,51 @@ __device__ __forceinline__ void strip_ab_t(const uint32_t (&p)[kKS][4], const __
     }
 }
 
+// strip_abt with X and Y given as X^T and Y^T (DH rows of the 32 tokens, S
+// elements apart): both fragments by ldmatrix.trans, the registers that
+// ldmatrix gives on X's and Y's rows, so the sums are strip_abt's.
+template <int kDepth, int S, int kNT>
+__device__ __forceinline__ void strip_abt_t(const __nv_bfloat16* xt, const __nv_bfloat16* yt,
+                                            int r0, int lane, float (&acc)[kNT][4]) {
+  zero(acc);
+#pragma unroll
+  for (int kk = 0; kk < kDepth / 16; ++kk) {
+    uint32_t a[4];
+    ldsm_x4_trans(a, xt + (16 * kk + (lane & 7) + ((lane >> 4) << 3)) * S + r0 +
+                         ((lane >> 3) & 1) * 8);
+#pragma unroll
+    for (int jp = 0; jp < kNT / 2; ++jp) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, yt + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * S + 16 * jp +
+                           (lane >> 4) * 8);
+      mma_bf16(acc[2 * jp], a, b[0], b[1]);
+      mma_bf16(acc[2 * jp + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// strip_atb with Y given as Y^T (its columns' rows SY elements apart): the B
+// fragments by ldmatrix, the registers ldmatrix.trans gives on Y's rows.
+template <int kKS, int SX, int SY, int kNT>
+__device__ __forceinline__ void strip_atb_t(const __nv_bfloat16* xs, const __nv_bfloat16* yt,
+                                            int r0, int lane, float (&acc)[kNT][4]) {
+  zero(acc);
+#pragma unroll
+  for (int kk = 0; kk < kKS; ++kk) {
+    uint32_t a[4];
+    ldsm_x4_trans(a, xs + (16 * kk + (lane & 7) + ((lane >> 4) << 3)) * SX + r0 +
+                         ((lane >> 3) & 1) * 8);
+#pragma unroll
+    for (int jp = 0; jp < kNT / 2; ++jp) {
+      uint32_t b[4];
+      ldsm_x4(b, yt + (16 * jp + (lane & 7) + ((lane >> 4) << 3)) * SY + 16 * kk +
+                     ((lane >> 3) & 1) * 8);
+      mma_bf16(acc[2 * jp], a, b[0], b[1]);
+      mma_bf16(acc[2 * jp + 1], a, b[2], b[3]);
+    }
+  }
+}
+
 // A V for a unit in bf16, on the tensor cores: T(A) (row `lane` in e / sum)
 // into the padded tile `at`, the A operand by ldmatrix, then the unit's two
 // 16-row strips with f32 sums; V's B fragments from V's rows S apart

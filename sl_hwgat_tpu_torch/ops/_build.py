@@ -27,7 +27,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 SOURCES = ("window_attention_fwd", "window_attention_bwd", "banded_attention_fwd",
            "banded_attention_bwd", "masked_softmax_fwd", "masked_softmax_bwd", "stream_probe",
-           "relayout", "tile_matmul", "window_attention_layout", "softmax_probe")
+           "relayout", "tile_matmul", "window_attention_layout", "softmax_probe",
+           "window_attention_layout_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

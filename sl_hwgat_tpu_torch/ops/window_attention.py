@@ -20,8 +20,12 @@ caller can show that a path went through the kernels.
 ``window_attention_into`` computes the same forward on strided views of the
 kernel bench's TPU layouts, in place: ``csrc/window_attention_layout.cu``
 (32-token units, dh 64) reads q, k, v and writes o where they lie, with K1's
-arithmetic, so o is K1's bit for bit; ``window_attention_into.launches``
-counts its launches.
+arithmetic, so o is K1's bit for bit; ``window_attention_bwd_into`` is its
+backward, ``csrc/window_attention_layout_bwd.cu`` reading q, k, v, dO and
+writing dq, dk, dv where they lie, with K2's arithmetic (bit for bit K2's).
+``layout_window_attention`` differentiates the pair on storages of one
+layout, one launch each way. ``window_attention_into.launches`` and
+``window_attention_bwd_into.launches`` count their launches.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from sl_hwgat_tpu_torch.ops.attention import (
 KERNEL = "window_attention_fwd"
 KERNEL_BWD = "window_attention_bwd"
 KERNEL_LAYOUT = "window_attention_layout"
+KERNEL_LAYOUT_BWD = "window_attention_layout_bwd"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_TOKENS = 32        # units of 32 tokens: head dim 32 or 64
 _KERNEL_HEAD_DIMS = (32, 64)
@@ -221,6 +226,11 @@ _ARGTYPES = {
     # stream
     KERNEL_LAYOUT: ["p"] * 8 + ["ll", "i", "i", "i", "i", "f", "i", "i", "i", "i", "i", "ll",
                                 "p"],
+    # q, k, v, do, dq, dk, dv, views, masks, sel, prune_u, units, dh, dtype,
+    # forms, scale, zero_quirk, dual, stack, per_group, groups, unit_offset,
+    # stream
+    KERNEL_LAYOUT_BWD: ["p"] * 11 + ["ll", "i", "i", "i", "f", "i", "i", "i", "i", "i", "ll",
+                                     "p"],
 }
 
 
@@ -414,8 +424,7 @@ def window_attention_into(q, k, v, adj, *, out, scale: float, stack: int = 4, ta
                          f"{_LAYOUT_HEAD_DIM}, got N={n}, dh={dh}")
     views = [unit_view(name, x, n, dh) for name, x in zip("qkv", (q, k, v))]
     views.append(unit_view("out", out, n, dh))
-    if any(st == 0 and size > 1 for size, st in zip(out.shape[:-2], out.stride()[:-2])):
-        raise ValueError("out must not repeat a unit (a leading stride of 0)")
+    _writable_views(out=out)
     forms = sum(form << i for i, (form, _) in enumerate(views))
     if forms not in _LAYOUT_FORMS.get((q.dtype, out.dtype), ()):
         raise ValueError(f"no layout kernel for {q.dtype} → {out.dtype} with operand forms "
@@ -424,25 +433,147 @@ def window_attention_into(q, k, v, adj, *, out, scale: float, stack: int = 4, ta
         return out
     masks = device_masks(adj, tail_adj, q.device)
     prune_u, sel = device_args(q, stack, prune_u, sel, units=units)
-    strides = (ctypes.c_longlong * 24)(*(s for _, w in views for s in w))
-    fn = _build.function(KERNEL_LAYOUT, _ARGTYPES[KERNEL_LAYOUT])
-    dev = q.device
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ctypes.addressof(strides),
-            masks.data_ptr(), ptr(sel), ptr(prune_u), units, dh, _DTYPE_CODE[q.dtype],
-            _DTYPE_CODE[out.dtype], forms, float(scale), 1,
-            *mask_mode(tail_adj, stack, units_per_group, groups, 0))
+    _launch_layout(KERNEL_LAYOUT, (q, k, v, out), views, masks, sel, prune_u, units, dh,
+                   _DTYPE_CODE[q.dtype], _DTYPE_CODE[out.dtype], forms, float(scale), 1,
+                   *mask_mode(tail_adj, stack, units_per_group, groups, 0))
+    with _LOCK:
+        window_attention_into.launches += 1
+    return out
+
+
+def _launch_layout(kernel, tensors, views, masks, sel, prune_u, *rest) -> None:
+    """Launch a layout kernel on the current stream of its tensors' device:
+    their pointers, the views' strides as a host array, the masks, ``rest``."""
+    strides = (ctypes.c_longlong * (6 * len(views)))(*(s for _, w in views for s in w))
+    fn = _build.function(kernel, _ARGTYPES[kernel])
+    dev = tensors[0].device
+    args = (*(t.data_ptr() for t in tensors), ctypes.addressof(strides), masks.data_ptr(),
+            ptr(sel), ptr(prune_u), *rest)
     if dev.index == torch.cuda.current_device():
         err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     else:
         with torch.cuda.device(dev):
             err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{KERNEL_LAYOUT} launch failed: cudaError {err}")
+        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
+
+
+# every operand of the backward layout kernel token-contiguous: bit i of
+# (q, k, v, do, dq, dk, dv)
+_LAYOUT_BWD_FORMS = 0b1111111
+
+
+def _writable_views(**views) -> None:
+    for name, x in views.items():
+        if any(st == 0 and size > 1 for size, st in zip(x.shape[:-2], x.stride()[:-2])):
+            raise ValueError(f"{name} must not repeat a unit (a leading stride of 0)")
+
+
+def window_attention_bwd_into(q, k, v, do, adj, *, dq, dk, dv, scale: float, stack: int = 4,
+                              tail_adj=None, units_per_group: int | None = None,
+                              groups: int | None = None, sel=None, prune_u=None):
+    """(dq, dk, dv) of ``window_attention_into``'s forward for the output
+    gradient ``do``, over (…, N, dh) views of the TPU layouts, written into
+    the views ``dq``, ``dk``, ``dv``; returns them.
+
+    Every tensor is a view of ``window_attention_into``'s kind, and all
+    share one shape, dtype and device; the mask and prune arguments are the
+    forward's. On CUDA tensors it launches
+    ``csrc/window_attention_layout_bwd.cu`` once, which reads q, k, v, do and
+    writes dq, dk, dv in place (32-token units, dh 64, f32 or bf16, every
+    operand token-contiguous: the transposed units and supertiles, the
+    widened planes); a view it cannot take raises ``ValueError``. On CPU
+    tensors it runs ``plain_window_attention_bwd`` on ``.reshape(-1, N, dh)``
+    copies and copies the results into the views."""
+    tensors = {"q": q, "k": k, "v": v, "do": do, "dq": dq, "dk": dk, "dv": dv}
+    if len({x.shape for x in tensors.values()}) != 1 or q.ndim < 3:
+        raise ValueError("q, k, v, do, dq, dk and dv must share one (…, N, dh) shape, got "
+                         + ", ".join(f"{n} {tuple(x.shape)}" for n, x in tensors.items()))
+    if len({x.dtype for x in tensors.values()}) != 1 or len({x.device for x in tensors.values()}) != 1:
+        raise ValueError("q, k, v, do, dq, dk and dv must share one dtype and one device")
+    n, dh = q.shape[-2:]
+    units = q.numel() // (n * dh)
+    check_masks(units, n, adj, stack, tail_adj, units_per_group, groups)
+    kw = dict(scale=scale, stack=stack, tail_adj=tail_adj, units_per_group=units_per_group,
+              groups=groups)
+    if q.device.type == "cpu":
+        grads = plain_window_attention_bwd(*(x.reshape(-1, n, dh) for x in (q, k, v, do)), adj,
+                                           prune_u=prune_u, sel=sel, **kw)
+        for out, g in zip((dq, dk, dv), grads):
+            out.copy_(g.view(out.shape))
+        return dq, dk, dv
+    if q.device.type != "cuda":
+        raise ValueError(f"window_attention_bwd_into runs on cuda or cpu, got {q.device}")
+    if n != _KERNEL_TOKENS or dh != _LAYOUT_HEAD_DIM:
+        raise ValueError(f"the layout kernels take {_KERNEL_TOKENS}-token units with head dim "
+                         f"{_LAYOUT_HEAD_DIM}, got N={n}, dh={dh}")
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"the backward layout kernel takes float32/bfloat16, got {q.dtype}")
+    views = [unit_view(name, x, n, dh) for name, x in tensors.items()]
+    _writable_views(dq=dq, dk=dk, dv=dv)
+    forms = sum(form << i for i, (form, _) in enumerate(views))
+    if forms != _LAYOUT_BWD_FORMS:
+        raise ValueError(f"no backward layout kernel for operand forms {forms:07b} (bit 0 q … "
+                         "bit 6 dv, 1 = token-contiguous): every operand must be")
+    if units == 0:
+        return dq, dk, dv
+    masks = device_masks(adj, tail_adj, q.device)
+    prune_u, sel = device_args(q, stack, prune_u, sel, units=units)
+    _launch_layout(KERNEL_LAYOUT_BWD, tuple(tensors.values()), views, masks, sel, prune_u, units,
+                   dh, _DTYPE_CODE[q.dtype], forms, float(scale), 1,
+                   *mask_mode(tail_adj, stack, units_per_group, groups, 0))
     with _LOCK:
-        window_attention_into.launches += 1
-    return out
+        window_attention_bwd_into.launches += 1
+    return dq, dk, dv
+
+
+class _LayoutWindowAttention(torch.autograd.Function):
+    """``window_attention_into`` on views of q's, k's and v's storages, with
+    ``window_attention_bwd_into`` as its gradient: dq, dk and dv come in
+    storages shaped like q's, k's and v's, written through the same views
+    (no relayout, no copy of a layout operand)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, view, adj, kw):
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        window_attention_into(view(q), view(k), view(v), adj, out=view(out), **kw)
+        ctx.save_for_backward(q, k, v)
+        ctx.view, ctx.adj, ctx.kw = view, adj, kw
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        view = ctx.view
+        if not do.is_contiguous():  # the output gradient, in o's storage shape
+            do = do.contiguous()
+        grads = [torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in (q, k, v)]
+        window_attention_bwd_into(view(q), view(k), view(v), view(do), ctx.adj,
+                                  dq=view(grads[0]), dk=view(grads[1]), dv=view(grads[2]),
+                                  **ctx.kw)
+        return (*grads, None, None, None)
+
+
+def layout_window_attention(q, k, v, adj, *, view, scale: float, stack: int = 4, tail_adj=None,
+                            units_per_group: int | None = None, groups: int | None = None,
+                            sel=None, prune_u=None) -> torch.Tensor:
+    """``window_attention``'s forward (zero quirk on) on the storages q, k, v
+    of one TPU layout, differentiable; returns o in q's storage shape and
+    type.
+
+    ``view`` maps a storage of that layout to its (…, N, dh) unit view
+    (``layouts.t_view``, ``layouts.wide_view``, …; contiguous storages). The
+    forward is one ``window_attention_into`` on the views, the gradient one
+    ``window_attention_bwd_into`` writing dq, dk and dv into storages shaped
+    like q's, k's and v's: on CUDA tensors one launch of each layout kernel
+    and no relayout; on CPU tensors their plain versions. The mask and
+    prune arguments are ``window_attention``'s."""
+    kw = dict(scale=scale, stack=stack, tail_adj=tail_adj, units_per_group=units_per_group,
+              groups=groups, sel=sel, prune_u=prune_u)
+    return _LayoutWindowAttention.apply(q, k, v, view, adj, kw)
 
 
 window_attention.launches = 0
 window_attention_bwd.launches = 0
 window_attention_into.launches = 0
+window_attention_bwd_into.launches = 0

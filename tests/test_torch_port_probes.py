@@ -286,7 +286,7 @@ def test_measure_on_the_cpu_gives_the_line_keys():
 def test_every_impl_has_an_entry_and_ell_raises():
     assert len(set(port_bench.IMPLS)) == len(port_bench.IMPLS)
     for impl in ("ell", "ell_bwd_bf16"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
             port_bench.inputs(impl, UNITS)
     with pytest.raises(ValueError, match="unknown impl"):
         port_bench.inputs("pallas_nonesuch", UNITS)

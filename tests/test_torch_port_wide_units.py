@@ -179,7 +179,7 @@ def test_window32_ablation_variants_apply_to_the_32_token_backward(variant):
     sources and each of its variants' edits finds its text once."""
     design, variants = port_ablate.design_of(_build.CSRC_DIR, port_ablate.WINDOW_BWD,
                                              port_ablate.WINDOW32_DESIGNS)
-    assert design == "strips" and set(variants) == set(WINDOW32_VARIANTS)
+    assert design == "shared" and set(variants) == set(WINDOW32_VARIANTS)
     for fname, replacements in variants[variant].items():
         text = (_build.CSRC_DIR / fname).read_text()
         for old, _ in replacements:
