@@ -40,6 +40,28 @@ Phases, each printing one JSON line (any failure ends the run non-zero):
               train transforms (batch 16) → 2 × train_epoch → evaluate, at
               full width. Launch counts are reset just before and read just
               after this phase: 8 backward launches per train step.
+8b. cli     — main path 12, the port's command line: SYNTH written to a temp
+              dir, then cli.run at full width, batch 16: train (--epochs 1,
+              two epochs), load (--epochs 2, resumed after the best-loss
+              checkpoint), test -k 5; the counts are set to 0 just before
+              and read just after each run and must be exactly 8 K1 launches
+              per train step and eval batch and 8 K2 launches per train step;
+              the history holds 3 epochs after load; the artifacts (the
+              checkpoints, the two curve PNGs, cm_list_w.csv, config.pkl and
+              the source snapshot) exist; the best checkpoint served through
+              Predictor.from_checkpoint gives cli.run's logits (the f32 bar).
+              Then python3 main_torch.py -m test ... -px best_loss -k 5 as its
+              own process prints the final table, which must be cli.run's
+              test-mode results (each number within its last printed
+              decimal), with no fallback to the current weights; four-epoch
+              train runs with and without --remat, f32 and bf16, on clips
+              written under FDMSE-ISL's name (192 frames, its 2002-class
+              head; 16 K1 and 8 K2 launches per train step with remat), and
+              one step's gradients with remat equal to those without it bit
+              for bit; one --attn-dtype bfloat16 step against the plain
+              attention (the bf16 gradient bar). Its last line gives each
+              train epoch's seconds, clips/s and loader wait, and the warm
+              epochs' median, beside the nvidia-smi name and power limit.
 9. banded   — the banded forward and backward kernels against their plain
               versions at WGATE's (512 planes × 192 frames × 16 joints) and
               GATE's (128 × 192 × 29) batch-16 shapes, dh 16, f32 and bf16,
@@ -789,7 +811,7 @@ def one_step_grads(model, x, y, valid, seed: int):
 
     model.train()
     model.zero_grad(set_to_none=True)
-    gen = torch.Generator(device="cuda").manual_seed(seed)
+    gen = torch.Generator(device=x.device).manual_seed(seed)
     logits = model(x, gen)
     loss = torch.sum(per_sample(smoothed_cross_entropy, logits, y) * valid) / valid.sum()
     loss.backward()
@@ -926,6 +948,306 @@ def phase_synth(workdir: Path):
          epochs=[{"loss": e[0], "acc": e[1]} for e in epochs],
          val_loss=val_loss, val_top5=val_acc, seconds=seconds)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# The command line (phase 8b): train, load and test through cli.run.
+
+CLI_TAG = "smoke"
+
+
+# The CLI's speed runs: clips written by data/synthetic.py under the
+# FDMSE-ISL name, so the run has that dataset's shapes (192 frames, the
+# 2002-class head); cut to 64 train, 16 val and 16 test clips, since the
+# train transform (HandCorrection's splines) takes tens of host ms a clip.
+SPEED_DATASET = "FDMSE-ISL"
+SPEED_CLIPS_PER_CLASS = 6  # 4 train, 1 val, 1 test for each of 16 classes
+SPEED_EPOCHS = 3  # --epochs 3: epochs 0-3, the last three warm
+
+
+def cli_config(workdir: Path, mode: str, epochs: int, time_tag: str = CLI_TAG,
+               dataset: str = "SYNTH", n_workers: int = 4, **overrides):
+    """A RunConfig of ``dataset`` at full width, batch 16, under ``workdir``."""
+    from sl_hwgat_tpu_torch.configs import RunConfig
+
+    cfg = RunConfig(dataset=dataset, model_type="HWGATE", mode=mode, time=time_tag,
+                    input_root=str(workdir / "input"), output_root=str(workdir / "output"),
+                    device="cuda")
+    cfg.epochs, cfg.batch_size, cfg.n_workers = epochs, 16, n_workers
+    cfg.overrides = dict(overrides)
+    return cfg
+
+
+class WaitTimedLoader:
+    """A loader whose ``epoch`` iterator adds the host seconds spent waiting
+    for each batch (the transforms not yet done) to ``wait``."""
+
+    def __init__(self, inner):
+        self.inner, self.dataset, self.wait = inner, inner.dataset, 0.0
+
+    def epoch(self, epoch: int = 0):
+        batches = self.inner.epoch(epoch)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            self.wait += time.perf_counter() - t0
+            if batch is None:
+                return
+            yield batch
+
+
+@contextmanager
+def timed_train_epochs(record: list, run: str):
+    """Record each train epoch's seconds, clips and loader wait under ``run``
+    while the block runs (run_epochs calls loop.train_epoch by name)."""
+    import torch
+
+    from sl_hwgat_tpu_torch.train import loop
+
+    inner = loop.train_epoch
+
+    def timed(train_step, state, loader, seed, epoch):
+        waited = WaitTimedLoader(loader)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(train_step, state, waited, seed, epoch)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        record.append({"run": run, "epoch": epoch, "seconds": seconds,
+                       "loader_wait_s": waited.wait, "clips": len(loader.dataset),
+                       "clips_per_s": len(loader.dataset) / seconds})
+        return out
+
+    loop.train_epoch = timed
+    try:
+        yield
+    finally:
+        loop.train_epoch = inner
+
+
+def cli_run(cfg, expect_train_steps: int, expect_eval_batches: int, per_step_fwd: int = 8):
+    """cli.run(cfg) with the launch counts set to 0 just before and read just
+    after; they must be exact."""
+    import torch
+
+    from sl_hwgat_tpu_torch import cli
+    from sl_hwgat_tpu_torch.ops.window_attention import window_attention, window_attention_bwd
+
+    mode = cfg.mode  # run() ends in test mode
+    window_attention.launches = window_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    results, state = cli.run(cfg, progress=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"fwd": window_attention.launches, "bwd": window_attention_bwd.launches}
+    want = {"fwd": per_step_fwd * expect_train_steps + 8 * expect_eval_batches,
+            "bwd": 8 * expect_train_steps}
+    if launches != want:
+        raise AssertionError(f"cli {mode}: launches {launches}, expected {want} for "
+                             f"{expect_train_steps} train steps and {expect_eval_batches} "
+                             "eval batches")
+    for split, (loss, acc) in results.items():
+        if not (math.isfinite(loss) and 0.0 <= acc <= 1.0):
+            raise AssertionError(f"cli {mode}: {split} loss {loss}, accuracy {acc}")
+    return results, state, launches, seconds
+
+
+def table_agrees(rows: list, results: dict) -> bool:
+    """Whether show_final_result's two rows print ``results``: each printed
+    number within its last decimal's rounding (5e-5) of cli.run's value."""
+    if len(rows) != 2 or not (rows[0].startswith("train acc") and rows[1].startswith("train loss")):
+        return False
+    printed = [[float(w) for w in row.replace("|", " ").split()[2::3]] for row in rows]
+    want = [[results[s][1] for s in ("train", "val", "test")],
+            [results[s][0] for s in ("train", "val", "test")]]
+    return all(abs(p - v) <= 5e-5 + 1e-6 for pr, wr in zip(printed, want)
+               for p, v in zip(pr, wr))
+
+
+def write_speed_dataset(root: Path) -> None:
+    """SPEED_DATASET's files: synthetic clips of 120-260 frames (resampled to
+    192), and a class map of the dataset's 2002 classes for the confusion
+    CSV."""
+    from sl_hwgat_tpu_torch.constants import DATASET_PARAMS
+    from sl_hwgat_tpu_torch.data.synthetic import write_synthetic_dataset
+
+    write_synthetic_dataset(str(root), SPEED_DATASET, clips_per_class=SPEED_CLIPS_PER_CLASS,
+                            frames=(120, 260), seed=SEED)
+    with open(root / SPEED_DATASET / f"class_map_{SPEED_DATASET}.csv", "w", newline="") as f:
+        f.write("class,word\n" + "".join(
+            f"{c},word{c}\n" for c in range(DATASET_PARAMS[SPEED_DATASET]["num_class"])))
+
+
+def phase_cli(workdir: Path, repo: Path) -> dict:
+    """Main path 12: the port's command line on SYNTH at full width, batch 16:
+    cli.run train (2 epochs), load (one more), test -k 5, then main_torch.py
+    -m test as a process; the best checkpoint served through Predictor;
+    six-epoch runs with and without --remat (f32, bf16) on SPEED_DATASET's
+    shapes, and one --attn-dtype bfloat16 step. Returns the launches of the
+    three first cli.run calls."""
+    import torch
+
+    from sl_hwgat_tpu_torch.data.dataset import get_loaders, load_artifacts
+    from sl_hwgat_tpu_torch.data.synthetic import write_synthetic_dataset
+    from sl_hwgat_tpu_torch.ops.window_attention import window_attention, window_attention_bwd
+    from sl_hwgat_tpu_torch.serve import Predictor
+    from sl_hwgat_tpu_torch.train.checkpoint import read_checkpoint
+    from sl_hwgat_tpu_torch.train.loop import init_state, make_steps
+
+    write_synthetic_dataset(str(workdir / "input"), seed=SEED)
+    splits, _, _ = load_artifacts(str(workdir / "input"), "SYNTH")
+    batches = {k: -(-len(v) // 16) for k, v in splits.items()}
+    # per epoch: the train steps and one pass over val; at the end: train,
+    # val and test once each, and test again for the confusion CSV
+    final = batches["train"] + batches["val"] + 2 * batches["test"]
+    epochs_timed: list = []
+    out, total = {}, {"fwd": 0, "bwd": 0}
+
+    # 1. train (--epochs 1: epochs 0 and 1), load (--epochs 2), test -k 5
+    cfg = cli_config(workdir, "train", 1)
+    with timed_train_epochs(epochs_timed, "train"):
+        _, state, launches, seconds = cli_run(cfg, 2 * batches["train"],
+                                              2 * batches["val"] + final)
+    out["train"] = {"launches": launches, "seconds": seconds, "history": state.history}
+    best = f"{cfg.save_model_path}_best_loss.ckpt"
+    start = read_checkpoint(best)["epoch"] + 1
+    cfg = cli_config(workdir, "load", 2)
+    with timed_train_epochs(epochs_timed, "load"):
+        _, state, launches, seconds = cli_run(cfg, (3 - start) * batches["train"],
+                                              (3 - start) * batches["val"] + final)
+    history = state.history
+    if any(len(v) != 3 for v in history.values()):
+        raise AssertionError(f"cli load: history {history}, not 3 epochs")
+    out["load"] = {"launches": launches, "seconds": seconds, "resumed_at": start,
+                   "history": state.history}
+    for run_launches in (out["train"]["launches"], launches):
+        for kind in total:
+            total[kind] += run_launches[kind]
+    cfg = cli_config(workdir, "test", 2)
+    cfg.topk = 5
+    results, state, launches, seconds = cli_run(cfg, 0, final)
+    for kind in total:
+        total[kind] += launches[kind]
+    out["test"] = {"launches": launches, "seconds": seconds, "results": results}
+    folder = Path(cfg.out_folder)
+    names = sorted(p.name for p in folder.iterdir())
+    need = {"model_best_loss.ckpt", "loss_curve.png", "acc_curve.png", "cm_list_w.csv",
+            "config.pkl", "hwgate.py", "configs.py", "transforms.py"}
+    if max(history["val_acc"]) > 0:  # the best-acc trigger fired
+        need.add("model_best_acc.ckpt")
+    if not need <= set(names):
+        raise AssertionError(f"cli artifacts: {names}, missing {sorted(need - set(names))}")
+    out["artifacts"] = names
+
+    # the best checkpoint served: Predictor's logits are cli.run's
+    loaders = get_loaders(cfg, cfg.eval_transform(), cfg.eval_transform())
+    try:
+        x = torch.from_numpy(next(iter(loaders[2].epoch(0)))[0]).cuda()
+    finally:
+        for loader in loaders:
+            loader.close()
+    pred = Predictor.from_checkpoint(best, model_type="HWGATE", dataset="SYNTH")
+    with torch.no_grad():
+        served, want = pred.forward(x.cpu().numpy()), state.model.eval()(x)
+    torch.testing.assert_close(served, want, **LOGIT_TOL["float32"])
+    out["served_max_abs_diff"] = (served - want).abs().max().item()
+    pred.close()
+
+    # 2. main_torch.py -m test as its own process
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(repo / "main_torch.py"), "-m", "test", "-d",
+                           "SYNTH", "--model", "HWGATE", "-t", CLI_TAG, "-px", "best_loss",
+                           "-k", "5"], cwd=workdir, capture_output=True, text=True,
+                          timeout=600)
+    lines = proc.stdout.splitlines()
+    table = [i for i, ln in enumerate(lines) if ln == "=" * 89]
+    if (proc.returncode != 0 or len(table) != 2 or any("[cli] no checkpoint" in ln for ln in lines)
+            or not table_agrees(lines[table[0] + 1:table[1]], results)):
+        raise AssertionError(f"main_torch.py -m test: rc {proc.returncode}, table against "
+                             f"cli.run's results {results}\n{proc.stdout[-2000:]}"
+                             f"\n{proc.stderr[-3000:]}")
+    out["main_torch"] = {"rc": proc.returncode, "seconds": time.perf_counter() - t0,
+                         "table": lines[table[0]:table[1] + 1]}
+
+    # 3. --remat: SPEED_EPOCHS + 1 epochs through cli.run on SPEED_DATASET's
+    # shapes (K1 twice per train step) in turns with the same run without it,
+    # f32 and bf16, with the CLI's 8 loader workers, so the warm epochs
+    # compare; and one step's gradients bit for bit those without remat, on a
+    # SYNTH train batch
+    write_speed_dataset(workdir / "input")
+    speed_splits, _, _ = load_artifacts(str(workdir / "input"), SPEED_DATASET)
+    speed = {k: -(-len(v) // 16) for k, v in speed_splits.items()}
+    speed_final = speed["train"] + speed["val"] + 2 * speed["test"]
+    tcfg = cli_config(workdir, "train", 0)
+    loaders = get_loaders(tcfg, tcfg.train_transform(), tcfg.eval_transform())
+    try:
+        x, y, valid = next(iter(loaders[0].epoch(0)))
+    finally:
+        for loader in loaders:
+            loader.close()
+    x, valid = torch.from_numpy(x).cuda(), torch.from_numpy(valid).cuda()
+    y = torch.from_numpy(y).long().cuda()
+    out["remat"] = {}
+    for cdt in ("float32", "bfloat16"):
+        for remat in (False, True):
+            run = f"{'remat' if remat else 'plain'}_{cdt}"
+            rcfg = cli_config(workdir, "train", SPEED_EPOCHS, run, dataset=SPEED_DATASET,
+                              n_workers=8, remat=remat, compute_dtype=cdt)
+            with timed_train_epochs(epochs_timed, run):
+                _, rstate, launches, seconds = cli_run(
+                    rcfg, (SPEED_EPOCHS + 1) * speed["train"],
+                    (SPEED_EPOCHS + 1) * speed["val"] + speed_final,
+                    per_step_fwd=16 if remat else 8)
+            out["remat"][run] = {"launches": launches, "seconds": seconds}
+            del rstate
+        model = init_state(cli_config(workdir, "train", 0, remat=True, compute_dtype=cdt)).model
+        window_attention.launches = window_attention_bwd.launches = 0
+        loss, grads = one_step_grads(model, x, y, valid, seed=SEED)
+        torch.cuda.synchronize()
+        step = (window_attention.launches, window_attention_bwd.launches)
+        if step != (16, 8):
+            raise AssertionError(f"remat {cdt} step launched (fwd, bwd) = {step}, not (16, 8)")
+        model.remat = False
+        plain_loss, plain = one_step_grads(model, x, y, valid, seed=SEED)
+        differ = [k for k in grads if not torch.equal(grads[k], plain[k])]
+        if loss != plain_loss or differ:
+            raise AssertionError(f"remat {cdt}: loss {loss} vs {plain_loss}, gradients "
+                                 f"not bit for bit: {differ[:5]}")
+        out["remat"][f"remat_{cdt}"].update(step_launches={"fwd": step[0], "bwd": step[1]},
+                                            grads_bit_for_bit=len(grads), loss=loss)
+        del model, grads, plain
+        torch.cuda.empty_cache()
+
+    # 4. --attn-dtype bfloat16: one step, kernels against the plain attention
+    acfg = cli_config(workdir, "train", 0, "attn_bf16", attn_dtype="bfloat16", drop_rate=0.0)
+    model = init_state(acfg).model
+    window_attention.launches = window_attention_bwd.launches = 0
+    loss, grads = one_step_grads(model, x, y, valid, seed=SEED)
+    torch.cuda.synchronize()
+    step = (window_attention.launches, window_attention_bwd.launches)
+    if step != (8, 8) or not math.isfinite(loss):
+        raise AssertionError(f"attn bf16 step: launches {step}, loss {loss}")
+    with plain_attention_in_model():
+        plain_loss, plain = one_step_grads(model, x, y, valid, seed=SEED)
+    worst = grad_errors("attn_dtype bf16", "bfloat16", grads, plain)
+    out["attn_bf16"] = {"loss": loss, "plain_loss": plain_loss, "step_launches": list(step),
+                        "grad_err_worst": max(worst.values()), "grad_err_metric": "rel norm"}
+    del model, grads, plain
+    torch.cuda.empty_cache()
+
+    emit("cli", batch=16, dataset="SYNTH", batches=batches, launches=total, results=out)
+    warm = {}
+    for run in out["remat"]:
+        epochs = [e for e in epochs_timed if e["run"] == run and e["epoch"] > 0]
+        seconds = sorted(e["seconds"] for e in epochs)
+        warm[run] = {"median_s": statistics.median(seconds), "min_s": seconds[0],
+                     "max_s": seconds[-1], "samples": len(seconds),
+                     "loader_wait_share": sum(e["loader_wait_s"] for e in epochs) / sum(seconds),
+                     "train_clips_per_s": len(speed_splits["train"]) / statistics.median(seconds)}
+    emit("cli_speed", nvidia_smi=nvidia_smi(), dataset=SPEED_DATASET, batch=16,
+         train_clips=len(speed_splits["train"]), loader_workers=8, train_epochs=epochs_timed,
+         warm_epochs=warm)
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -3001,6 +3323,8 @@ def main() -> int:
     phase_train()
     with tempfile.TemporaryDirectory() as tmp:
         train_launches = phase_synth(Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_launches = phase_cli(Path(tmp), repo)
     banded_fwd_errors, banded_bwd_errors = phase_banded()
     phase_banded_forward()
     with tempfile.TemporaryDirectory() as tmp:
@@ -3034,6 +3358,7 @@ def main() -> int:
                        serve_launches + served["window_attention"], timings, fwd_errors)
     fwd["hgate_serve_launches"] = served["window_attention"]
     fwd["train_launches"] = train_launches["fwd"] + trained["window_attention"]
+    fwd["cli_launches"] = cli_launches["fwd"]
     fwd["bench_launches"] = bench_launches[window_attention.KERNEL]
     fwd["wide_design"] = WIDE_DESIGN
     fwd["wide_ptxas"] = {n: r for n, r in wide_kernels.items() if "fwd" in n}
@@ -3047,6 +3372,7 @@ def main() -> int:
                        train_launches["bwd"] + trained["window_attention_bwd"], timings,
                        bwd_errors)
     bwd["hgate_train_launches"] = trained["window_attention_bwd"]
+    bwd["cli_launches"] = cli_launches["bwd"]
     bwd["wide_design"] = WIDE_DESIGN
     bwd["wide_ptxas"] = {n: r for n, r in wide_kernels.items() if "bwd" in n}
     bwd["edge_cases_max_abs_err"] = edge_errors["window_bwd"]

@@ -24,6 +24,9 @@ DATASET_PARAMS: dict[str, dict[str, int]] = {
     "SYNTH-2000": {"num_class": 2000, "src_len": 64},
 }
 
+# Coordinates per keypoint of each input type (reference `hwgat/constants.py:17`).
+INPUT_DIM = {"kp2D": 2, "kp3D": 3}
+
 # 29-keypoint subsets per pose backend (9 body + 10 left hand + 10 right hand).
 # Mediapipe holistic output is [33 pose | 468 face | 21 left hand | 21 right
 # hand]; dwpose is COCO-WholeBody 133.

@@ -63,7 +63,16 @@ class KeypointDataset:
 @dataclass
 class Loader:
     """Fixed-shape batch iterator with a validity mask and thread-pool
-    transforms. ``close()`` shuts the pool down."""
+    transforms. ``close()`` shuts the pool down.
+
+    ``auto_warm_next``: when an epoch has been read to its end, the first
+    ``prefetch + 1`` batches of the next epoch are submitted at once
+    (``warm``), so their transforms overlap whatever the caller does between
+    epochs (validation, checkpoints, curves). ``cache_transforms``: the
+    batches of the first pass are kept and replayed by every later one; only
+    for a transform that draws no randomness and does not depend on the
+    epoch (the eval transform of the val and test loaders).
+    """
 
     dataset: KeypointDataset
     batch_size: int
@@ -71,7 +80,11 @@ class Loader:
     num_workers: int = 8
     seed: int = 1001
     prefetch: int = 2
+    auto_warm_next: bool = False
+    cache_transforms: bool = False
     _pool: ThreadPoolExecutor | None = field(default=None, repr=False)
+    _warm: dict = field(default_factory=dict, repr=False)
+    _cache: list | None = field(default=None, repr=False)
 
     def __len__(self):
         return -(-len(self.dataset) // self.batch_size)
@@ -97,25 +110,50 @@ class Loader:
         ids, valid = self._batch_ids(order, s)
         return [self._pool.submit(self.dataset.get, int(i), epoch) for i in ids], valid
 
+    def warm(self, epoch: int) -> None:
+        """Submit the first ``prefetch + 1`` batches of ``epoch`` now; the
+        sample order is fixed by (seed, epoch), so ``epoch(epoch)`` later
+        reads exactly these."""
+        if epoch in self._warm:
+            return
+        order = self._order(epoch)
+        starts = range(0, len(self.dataset), self.batch_size)
+        self._warm[epoch] = [self._submit(order, s, epoch)
+                             for s in starts[: self.prefetch + 1]]
+
     def epoch(self, epoch: int = 0) -> Iterator[tuple[np.ndarray, np.ndarray, np.ndarray]]:
         """(features, labels, valid) batches; the transforms of the next
         ``prefetch`` batches run in worker threads while the caller consumes
         the current one."""
+        if self.cache_transforms and self._cache is not None:
+            yield from self._cache
+            return
         order = self._order(epoch)
         starts = list(range(0, len(self.dataset), self.batch_size))
-        pending = [self._submit(order, s, epoch) for s in starts[: self.prefetch + 1]]
+        pending = self._warm.pop(epoch, None)
+        if pending is None:
+            pending = [self._submit(order, s, epoch) for s in starts[: self.prefetch + 1]]
+        batches = [] if self.cache_transforms else None
         for n in range(len(starts)):
             futures, valid = pending.pop(0)
             if n + self.prefetch + 1 < len(starts):
                 pending.append(self._submit(order, starts[n + self.prefetch + 1], epoch))
             samples = [f.result() for f in futures]
-            yield (np.stack([s[0] for s in samples]),
-                   np.asarray([s[1] for s in samples], dtype=np.int32), valid)
+            batch = (np.stack([s[0] for s in samples]),
+                     np.asarray([s[1] for s in samples], dtype=np.int32), valid)
+            if batches is not None:
+                batches.append(batch)
+            yield batch
+        if batches is not None:
+            self._cache = batches
+        if self.auto_warm_next:
+            self.warm(epoch + 1)
 
     def close(self) -> None:
         if self._pool is not None:
             self._pool.shutdown(wait=True, cancel_futures=True)
             self._pool = None
+        self._warm.clear()
 
 
 def load_artifacts(input_root: str, dataset_name: str, feature_type: str = "keypoints"):
@@ -132,3 +170,22 @@ def load_artifacts(input_root: str, dataset_name: str, feature_type: str = "keyp
     if isinstance(out[2], dict) and "__clipstore__" in out[2]:
         raise NotImplementedError("clip-store data maps are not ported (see ROADMAP.md)")
     return tuple(out)
+
+
+def get_loaders(cfg, train_transform, eval_transform):
+    """(train, val, test) loaders of ``cfg`` (a ``RunConfig``); in test mode
+    every split takes the eval transform. val and test replay their first
+    pass (``cache_transforms``), and the shuffled train loader warms its next
+    epoch. ≡ `utils.py:16-52`."""
+    vid_splits, vid_cls, vid_feat = load_artifacts(cfg.input_root, cfg.dataset,
+                                                   cfg.feature_type)
+    tt = eval_transform if cfg.mode == "test" else train_transform
+
+    def mk(split, transform, shuffle, cache=False):
+        ds = KeypointDataset(vid_splits[split], vid_feat, vid_cls, transform, seed=cfg.seed)
+        return Loader(ds, cfg.batch_size, shuffle=shuffle, num_workers=cfg.n_workers,
+                      seed=cfg.seed, auto_warm_next=shuffle, cache_transforms=cache)
+
+    return (mk("train", tt, shuffle=cfg.mode != "test"),
+            mk("val", eval_transform, shuffle=False, cache=True),
+            mk("test", eval_transform, shuffle=False, cache=True))

@@ -14,7 +14,9 @@ Mixed precision is written out, with no autocast: ``Dense`` with a
 
 Train-time randomness (dropout here, attention pruning in the models) draws
 from a ``torch.Generator`` that the caller passes down, so a train step is
-reproducible from its seed.
+reproducible from its seed. ``remat`` recomputes a block in the backward
+pass on a replay of that generator, so the recomputed masks are the
+forward's.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 LN_EPS = 1e-5
 INIT_STD = 0.02
@@ -126,3 +129,33 @@ class FeedForward(nn.Module):
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         x = dropout(gelu_exact(self.fc1(x)), self.drop_rate, self.training, generator)
         return dropout(self.fc2(x), self.drop_rate, self.training, generator)
+
+
+def remat(block: nn.Module, x: torch.Tensor,
+          generator: torch.Generator | None = None) -> torch.Tensor:
+    """``block(x, generator)`` with its activations recomputed in the
+    backward pass instead of kept (the JAX models' ``nn.remat``).
+
+    ``torch.utils.checkpoint`` restores only torch's default generators, so
+    the recompute would draw other dropout masks and prune scalars from an
+    explicit ``generator``, and the gradients would be those of a forward
+    that never ran. The first pass therefore runs on ``generator`` itself
+    (which advances exactly as without remat), and the recompute on a fresh
+    generator set to the state ``generator`` had before the block.
+    """
+    if not torch.is_grad_enabled():
+        return block(x, generator)
+    if generator is None:
+        return checkpoint(block, x, None, use_reentrant=False)
+    start = generator.get_state()
+    passes = []
+
+    def run(inp):
+        g = generator
+        if passes:  # the recompute: replay the generator from the start
+            g = torch.Generator(device=generator.device)
+            g.set_state(start)
+        passes.append(g)
+        return block(inp, g)
+
+    return checkpoint(run, x, use_reentrant=False)

@@ -26,7 +26,7 @@ from sl_hwgat_tpu_torch.models.common import (
     fourier_matrix,
     layer_norm,
 )
-from sl_hwgat_tpu_torch.models.wgate import BandedMSA, make_band
+from sl_hwgat_tpu_torch.models.wgate import BandedMSA, check_banded_impl, make_band
 
 
 class GAttentionBlock(nn.Module):
@@ -50,13 +50,16 @@ class GAttentionBlock(nn.Module):
 class GATE(nn.Module):
     """Flat spatio-temporal graph-attention classifier:
     (B, F, K=29, kp_dim) → logits (B, num_classes). Defaults ≡ ``GATEParams``
-    (`model_params.py:5-19`), with the positional encoding always on."""
+    (`model_params.py:5-19`), with the positional encoding always on.
+    ``attn_impl``: any of ``models.wgate.BANDED_IMPLS``, one function."""
 
     def __init__(self, kp_dim: int = 2, num_kps: int = 29, temporal_dim: int = 192,
                  num_classes: int = 2002, embed_dim: int = 128, depths: int = 8,
                  num_heads: int = 8, drop_rate: float = 0.1, ff_ratio: float = 2.0,
-                 compute_dtype: str = "float32", generator: torch.Generator | None = None):
+                 attn_impl: str = "auto", compute_dtype: str = "float32",
+                 generator: torch.Generator | None = None):
         super().__init__()
+        check_banded_impl(attn_impl)
         cdt = DTYPES[compute_dtype]
         band = make_band(edges_to_dense(BODY29_EDGES, num_kps, self_loops=False))
         self.register_buffer("B", fourier_matrix(embed_dim, kp_dim, generator))

@@ -8,14 +8,18 @@ adjacency (``hgate_block_adj``). No train-time pruning.
 
 - Every block's MSA is HWGATE's ``WindowedMSA`` with one "window" per frame:
   58-token units × head dim (64 at every stage of the defaults), which the
-  JAX kernel pads to 64 and stacks two to a supertile. ``attn_impl`` "auto"
-  or "pallas" runs ``window_attention`` (the fused CUDA kernels, at 58
-  tokens), "hybrid" the batched GEMMs around the masked-softmax kernels.
+  JAX kernel pads to 64 and stacks two to a supertile. ``attn_impl`` "auto",
+  "pallas" or "stacked" runs ``window_attention`` (the fused CUDA kernels,
+  at 58 tokens), "hybrid" the batched GEMMs around the masked-softmax
+  kernels; ``attn_dtype="bfloat16"`` runs the attention in bf16 under f32
+  projections, as HWGATE's does.
 - Shifted blocks roll the frames by -TP/2 and back; the last temporal group
   of every clip attends under ``adj ∧ shift_tail_mask``.
 - Dtypes are the JAX model's: HGATE has no ``stream_dtype``, so under bf16
   compute the projections, attention and FFN run in bf16 while LayerNorm and
   the residual stream stay f32 (an f32 shortcut plus a bf16 branch promotes).
+- ``remat`` recomputes each block in the backward pass
+  (``models.common.remat``, which replays the block's generator).
 
 The state_dict uses the reference's key layout, as HWGATE's (``B``,
 ``pos_encoder.pe``, ``layers.{i}.blocks.{j}.{norm1,attn.qkv,attn.proj,norm2,
@@ -40,6 +44,7 @@ from sl_hwgat_tpu_torch.models.common import (
     fourier_embed,
     fourier_matrix,
     layer_norm,
+    remat,
 )
 from sl_hwgat_tpu_torch.models.hwgate import WindowedMSA, shift_tail_mask
 from sl_hwgat_tpu_torch.ops.window import block_partition, block_reverse, temporal_merge
@@ -51,7 +56,8 @@ class GraphAttentionBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, num_kps: int, temporal_patch: int,
                  shift_size: int, adj: np.ndarray, *, drop: float = 0.0, ff_ratio: float = 2.0,
-                 attn_impl: str = "auto", compute_dtype: torch.dtype = torch.float32,
+                 attn_impl: str = "auto", attn_dtype: str = "float32",
+                 compute_dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.temporal_patch = temporal_patch
@@ -61,8 +67,8 @@ class GraphAttentionBlock(nn.Module):
             tail_adj = adj * shift_tail_mask(num_kps, temporal_patch, shift_size)
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.attn = WindowedMSA(dim, num_heads, adj, tail_adj=tail_adj, proj_drop=drop,
-                                prune=False, attn_impl=attn_impl, compute_dtype=compute_dtype,
-                                generator=generator)
+                                prune=False, attn_impl=attn_impl, attn_dtype=attn_dtype,
+                                compute_dtype=compute_dtype, generator=generator)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.ff = FeedForward(dim, int(dim * ff_ratio), drop, compute_dtype, generator)
 
@@ -90,16 +96,20 @@ class HGATE(nn.Module):
     """Hierarchical whole-skeleton graph-attention classifier:
     (B, F, K=29, kp_dim) → logits (B, num_classes). Defaults ≡ ``HGATEParams``
     (`model_params.py:405-420`). ``compute_dtype``: 'float32' or 'bfloat16'
-    (projections, attention and FFN). In train mode, dropout masks come from
-    the generator passed to ``forward``."""
+    (projections, attention and FFN); ``attn_dtype``: 'bfloat16' for bf16
+    attention under f32 projections; ``remat``: recompute each block in the
+    backward pass. In train mode, dropout masks come from the generator
+    passed to ``forward``."""
 
     def __init__(self, kp_dim: int = 2, num_kps: int = 29, temporal_dim: int = 192,
                  num_classes: int = 2002, embed_dim: int = 128, temporal_patch: int = 2,
                  depths: Sequence[int] = (2, 2, 4), num_heads: Sequence[int] = (2, 4, 8),
                  drop_rate: float = 0.1, ff_ratio: float = 2.0, attn_impl: str = "auto",
-                 compute_dtype: str = "float32", generator: torch.Generator | None = None):
+                 attn_dtype: str = "float32", compute_dtype: str = "float32",
+                 remat: bool = False, generator: torch.Generator | None = None):
         super().__init__()
         cdt = DTYPES[compute_dtype]
+        self.remat = remat
         self.temporal_patch = temporal_patch
         adj = hgate_block_adj(num_kps=num_kps, temporal_patch=temporal_patch)
 
@@ -113,7 +123,7 @@ class HGATE(nn.Module):
                     dim, num_heads[i], num_kps, temporal_patch,
                     0 if j % 2 == 0 else temporal_patch // 2, adj,
                     drop=drop_rate, ff_ratio=ff_ratio, attn_impl=attn_impl,
-                    compute_dtype=cdt, generator=generator)
+                    attn_dtype=attn_dtype, compute_dtype=cdt, generator=generator)
                 for j in range(depth)]))
         last = int(embed_dim * 2 ** (len(depths) - 1))
         self.norm = nn.LayerNorm(last, eps=LN_EPS)
@@ -123,7 +133,7 @@ class HGATE(nn.Module):
         x = self.pos_encoder(fourier_embed(x.float(), self.B), generator)
         for i, stage in enumerate(self.layers):
             for block in stage.blocks:
-                x = block(x, generator)
+                x = remat(block, x, generator) if self.remat else block(x, generator)
             if i < len(self.layers) - 1:
                 x = temporal_merge(x, self.temporal_patch)
         x = layer_norm(self.norm, x)

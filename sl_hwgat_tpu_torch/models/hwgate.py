@@ -7,10 +7,20 @@ PyTorch counterpart of ``sl_hwgat_tpu/models/hwgate.py`` on the token-major
   (``ops/window.py``);
 - every block's adjacency-masked MSA is one attention call over units of 32
   tokens (2 frames × 16 joints) × head dim ordered (b, f, nW, h):
-  ``attn_impl`` "auto" or "pallas" runs ``window_attention`` (the fused CUDA
-  kernels on a card), "hybrid" runs ``hybrid_window_attention`` (batched
-  GEMMs around the masked-softmax kernels), whose f32 output is cast to the
-  compute dtype before ``proj`` as the JAX model does;
+  ``attn_impl`` "auto", "pallas" or "stacked" (the JAX package's
+  bit-compatible jnp form of the same function) runs ``window_attention``
+  (the fused CUDA kernels on a card), "hybrid" runs
+  ``hybrid_window_attention`` (batched GEMMs around the masked-softmax
+  kernels), whose f32 output is cast to the compute dtype before ``proj`` as
+  the JAX model does;
+- ``attn_dtype="bfloat16"`` (implied by bf16 compute) casts q, k and v to
+  bf16 for the attention, which then stores bf16; the output is cast to the
+  compute dtype before ``proj``;
+- the residual stream runs in ``stream_dtype`` ("auto" follows
+  ``compute_dtype``), cast after each LayerNorm, after each residual add and
+  after the FFN, as in the JAX model;
+- ``remat`` recomputes each block in the backward pass
+  (``models.common.remat``, which replays the block's generator);
 - shifted blocks roll the frames by -1 before attention and back after; the
   last temporal group of every clip attends under ``adj ∧ shift_tail_mask``
   (the kernel's dual-mask mode, with ``units_per_group = nW·h`` and
@@ -44,14 +54,16 @@ from sl_hwgat_tpu_torch.models.common import (
     fourier_embed,
     fourier_matrix,
     layer_norm,
+    remat,
 )
 from sl_hwgat_tpu_torch.ops.hybrid_attention import hybrid_window_attention
 from sl_hwgat_tpu_torch.ops.window import temporal_merge, window_partition, window_reverse
 from sl_hwgat_tpu_torch.ops.window_attention import window_attention
 
 # The JAX package's ``attn_impl`` names that the port runs: the fused kernel
-# ("auto" picks it, as on the TPU) and the hybrid GEMMs + masked softmax.
-ATTN_IMPLS = ("auto", "pallas", "hybrid")
+# ("auto" picks it, as on the TPU; "stacked" is the JAX package's jnp form of
+# the same function) and the hybrid GEMMs + masked softmax.
+ATTN_IMPLS = ("auto", "pallas", "stacked", "hybrid")
 
 
 def check_attn_impl(attn_impl: str) -> str:
@@ -92,7 +104,7 @@ class WindowedMSA(nn.Module):
     def __init__(self, dim: int, num_heads: int, adj: np.ndarray, *,
                  tail_adj: np.ndarray | None = None, proj_drop: float = 0.0,
                  prune: bool = True, attn_impl: str = "auto",
-                 compute_dtype: torch.dtype = torch.float32,
+                 attn_dtype: str = "float32", compute_dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.num_heads = num_heads
@@ -100,6 +112,9 @@ class WindowedMSA(nn.Module):
         self.tail_adj = tail_adj
         self.prune = prune
         self.attn_impl = check_attn_impl(attn_impl)
+        # the attention's input and store type (`models/hwgate.py:125`)
+        bf16 = DTYPES[attn_dtype] == torch.bfloat16 or compute_dtype == torch.bfloat16
+        self.attn_dtype = torch.bfloat16 if bf16 else torch.float32
         # One fused (d, 3d) projection with output rows [q | k | v], as the
         # reference stores it.
         self.qkv = Dense(dim, 3 * dim, compute_dtype, generator)
@@ -113,8 +128,9 @@ class WindowedMSA(nn.Module):
         dh = d // h
         cdt = self.proj.compute_dtype
         qkv = self.qkv(x).reshape(g, n, 3, h, dh).permute(2, 0, 3, 1, 4)
-        # units in (b, f, nW, h) order, each (n, dh)
-        q, k, v = (t.reshape(g * h, n, dh).contiguous() for t in qkv)
+        # units in (b, f, nW, h) order, each (n, dh), in the attention's type
+        adt = self.attn_dtype
+        q, k, v = (t.reshape(g * h, n, dh).to(adt).contiguous() for t in qkv)
 
         # train-time pruning: one uniform scalar per call, drawn on the device
         prune_u = None
@@ -133,10 +149,10 @@ class WindowedMSA(nn.Module):
                            groups=temporal_groups)
         kw = dict(scale=dh**-0.5, stack=stack, pad_tokens=pad, prune_u=prune_u, **tail_kw)
         if self.attn_impl == "hybrid":
-            out = hybrid_window_attention(q, k, v, self.adj, **kw).to(cdt)
+            out = hybrid_window_attention(q, k, v, self.adj, **kw)
         else:
-            out = window_attention(q, k, v, self.adj, out_dtype=cdt, **kw)
-        out = out.reshape(g, h, n, dh).permute(0, 2, 1, 3).reshape(g, n, d)
+            out = window_attention(q, k, v, self.adj, out_dtype=adt, **kw)
+        out = out.to(cdt).reshape(g, h, n, dh).permute(0, 2, 1, 3).reshape(g, n, d)
         return dropout(self.proj(out), self.proj_drop, self.training, generator)
 
 
@@ -147,39 +163,41 @@ class PartAttentionBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int, temporal_patch: int,
                  shift_size: int, adj: np.ndarray, *, drop: float = 0.0,
                  ff_ratio: float = 2.0, prune: bool = True, attn_impl: str = "auto",
-                 compute_dtype: torch.dtype = torch.float32,
+                 attn_dtype: str = "float32", compute_dtype: torch.dtype = torch.float32,
+                 stream_dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.window_size = window_size
         self.temporal_patch = temporal_patch
         self.shift_size = shift_size
-        self.compute_dtype = compute_dtype
+        self.stream_dtype = stream_dtype
         tail_adj = None
         if shift_size > 0:
             tail_adj = adj * shift_tail_mask(window_size, temporal_patch, shift_size)
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.attn = WindowedMSA(dim, num_heads, adj, tail_adj=tail_adj, proj_drop=drop,
-                                prune=prune, attn_impl=attn_impl, compute_dtype=compute_dtype,
-                                generator=generator)
+                                prune=prune, attn_impl=attn_impl, attn_dtype=attn_dtype,
+                                compute_dtype=compute_dtype, generator=generator)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.ff = FeedForward(dim, int(dim * ff_ratio), drop, compute_dtype, generator)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-        # the residual stream, attention and FFN all run in the compute dtype;
-        # LayerNorm returns f32
-        cdt = self.compute_dtype
+        # the residual stream is in the stream dtype: LayerNorm returns f32,
+        # which is cast to it, and so are the attention's and the FFN's
+        # outputs (computed in the compute dtype) before each residual add
+        sdt = self.stream_dtype
         _, f_total, k, _ = x.shape
         shortcut = x
         if self.shift_size > 0:
             x = torch.roll(x, -self.shift_size, dims=1)
         xw = window_partition(x, self.window_size, self.temporal_patch)
-        xw = self.attn(layer_norm(self.norm1, xw).to(cdt), k // self.window_size,
+        xw = self.attn(layer_norm(self.norm1, xw).to(sdt), k // self.window_size,
                        f_total // self.temporal_patch, generator)
         x = window_reverse(xw, self.window_size, self.temporal_patch, f_total, k)
         if self.shift_size > 0:
             x = torch.roll(x, self.shift_size, dims=1)
-        x = shortcut + x
-        return x + self.ff(layer_norm(self.norm2, x).to(cdt), generator)
+        x = shortcut + x.to(sdt)
+        return x + self.ff(layer_norm(self.norm2, x).to(sdt), generator).to(sdt)
 
 
 class _Stage(nn.Module):
@@ -193,11 +211,14 @@ class HWGATE(nn.Module):
     (B, F, K=64, kp_dim) → logits (B, num_classes).
 
     ``compute_dtype``: 'float32', or 'bfloat16' to run every projection, the
-    FFN, the attention kernel and the residual stream in bf16 (parameters,
-    LayerNorm statistics, the pooling and the head stay f32) — the JAX
-    model's ``stream_dtype='auto'``. ``prune_attn``: train-time attention
-    pruning, and ``attn_impl`` ("auto", "pallas" or "hybrid"), the JAX
-    model's options of the same names.
+    FFN and the attention kernel in bf16 (parameters, LayerNorm statistics,
+    the pooling and the head stay f32). ``stream_dtype``: the residual
+    stream's type, 'auto' (the compute dtype), 'float32' or 'bfloat16'.
+    ``attn_dtype``: 'bfloat16' runs the attention in bf16 under f32
+    projections. ``prune_attn``: train-time attention pruning; ``attn_impl``
+    ("auto", "pallas", "stacked" or "hybrid"); ``remat``: recompute each
+    block in the backward pass. All are the JAX model's options of the same
+    names.
     """
 
     def __init__(self, kp_dim: int = 2, temporal_dim: int = 192,
@@ -205,10 +226,13 @@ class HWGATE(nn.Module):
                  depths: Sequence[int] = (2, 2, 4), num_heads: Sequence[int] = (2, 4, 8),
                  window_size: int = 16, drop_rate: float = 0.1, ff_ratio: float = 2.0,
                  prune_attn: bool = True, attn_impl: str = "auto",
-                 compute_dtype: str = "float32", generator: torch.Generator | None = None):
+                 attn_dtype: str = "float32", compute_dtype: str = "float32",
+                 stream_dtype: str = "auto", remat: bool = False,
+                 generator: torch.Generator | None = None):
         super().__init__()
         cdt = DTYPES[compute_dtype]
-        self.compute_dtype = cdt
+        self.stream_dtype = cdt if stream_dtype == "auto" else DTYPES[stream_dtype]
+        self.remat = remat
         self.temporal_patch = temporal_patch
         # One (TP·W, TP·W) mask serves every (window, head) unit: the four
         # windows share one topology (`model_params.py:261-369`).
@@ -224,7 +248,8 @@ class HWGATE(nn.Module):
                     dim, num_heads[i], window_size, temporal_patch,
                     0 if j % 2 == 0 else temporal_patch // 2, adj,
                     drop=drop_rate, ff_ratio=ff_ratio, prune=prune_attn,
-                    attn_impl=attn_impl, compute_dtype=cdt, generator=generator)
+                    attn_impl=attn_impl, attn_dtype=attn_dtype, compute_dtype=cdt,
+                    stream_dtype=self.stream_dtype, generator=generator)
                 for j in range(depth)]))
         last = int(embed_dim * 2 ** (len(depths) - 1))
         self.norm = nn.LayerNorm(last, eps=LN_EPS)
@@ -234,10 +259,10 @@ class HWGATE(nn.Module):
         """Logits of a (B, F, K, kp_dim) batch. In train mode, the prune
         scalars and dropout masks come from ``generator`` (on x's device;
         None = torch's default generator)."""
-        x = self.pos_encoder(fourier_embed(x.float(), self.B), generator).to(self.compute_dtype)
+        x = self.pos_encoder(fourier_embed(x.float(), self.B), generator).to(self.stream_dtype)
         for i, stage in enumerate(self.layers):
             for block in stage.blocks:
-                x = block(x, generator)
+                x = remat(block, x, generator) if self.remat else block(x, generator)
             if i < len(self.layers) - 1:
                 x = temporal_merge(x, self.temporal_patch)
         x = layer_norm(self.norm, x)

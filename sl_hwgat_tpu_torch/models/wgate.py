@@ -40,6 +40,21 @@ from sl_hwgat_tpu_torch.ops.banded_attention import banded_attention
 from sl_hwgat_tpu_torch.ops.window import spatial_window_partition, spatial_window_reverse
 
 
+# The JAX package's ``attn_impl`` names of the banded models (WGATE, GATE).
+# Each of them computes one function, the ±1-frame banded attention, which
+# the port runs through ``banded_attention`` (K8/K9 on a card).
+BANDED_IMPLS = ("auto", "banded", "compact", "pallas_banded", "pallas_packed")
+
+
+def check_banded_impl(attn_impl: str) -> str:
+    if attn_impl == "ell":
+        raise NotImplementedError("attn_impl='ell' (the ELL gather/scatter attention) is not "
+                                  "ported (see ROADMAP.md queue 1 item 5)")
+    if attn_impl not in BANDED_IMPLS:
+        raise ValueError(f"attn_impl={attn_impl!r}: the banded models run {BANDED_IMPLS}")
+    return attn_impl
+
+
 def make_band(spatial_adj: np.ndarray) -> np.ndarray:
     """(3, V, V) additive band [prev | self | next]: the same joint one frame
     away, and the spatial graph within the frame."""
@@ -103,13 +118,14 @@ class WGATE(nn.Module):
     (B, F, K=64, kp_dim) → logits (B, num_classes). Defaults ≡ ``WGATEParams``
     (`model_params.py:80-96`), with the positional encoding always on. In
     train mode, dropout masks come from the generator passed to
-    ``forward``."""
+    ``forward``. ``attn_impl``: any of ``BANDED_IMPLS``, one function."""
 
     def __init__(self, kp_dim: int = 2, temporal_dim: int = 192, num_classes: int = 2002,
                  embed_dim: int = 128, depths: int = 8, num_heads: int = 8, window_size: int = 16,
-                 drop_rate: float = 0.1, ff_ratio: float = 2.0, compute_dtype: str = "float32",
-                 generator: torch.Generator | None = None):
+                 drop_rate: float = 0.1, ff_ratio: float = 2.0, attn_impl: str = "auto",
+                 compute_dtype: str = "float32", generator: torch.Generator | None = None):
         super().__init__()
+        check_banded_impl(attn_impl)
         cdt = DTYPES[compute_dtype]
         band = make_band(window_adj(window_size=window_size))
         self.register_buffer("B", fourier_matrix(embed_dim, kp_dim, generator))

@@ -1,6 +1,9 @@
-"""Train and eval steps and the epoch loops, ≡ ``sl_hwgat_tpu/train/loop.py:22-197``.
+"""Train and eval steps, the epoch loops and the epoch driver,
+≡ ``sl_hwgat_tpu/train/loop.py``.
 
-Reference `hwgat/utils.py:93-142` (per-batch loop, top-k eval). Batches carry
+Reference `hwgat/utils.py:93-142` (per-batch loop, top-k eval) and
+`:240-290` (the epoch driver: best-loss, best-acc and every-N checkpoints,
+curve plots, early stopping). Batches carry
 a {0,1} validity mask, so padded rows count for nothing and every batch has
 one shape. A step runs eagerly: forward, backward (on a card, through the
 window-attention backward kernel) and the optimizer's update, in place on
@@ -14,12 +17,19 @@ Train-time randomness (attention pruning, dropout) draws from a
 from __future__ import annotations
 
 from collections import deque
+from typing import Callable
 
 import numpy as np
 import torch
 
+from sl_hwgat_tpu_torch.train import checkpoint as ckpt_lib
 from sl_hwgat_tpu_torch.train.losses import CRITERIA, per_sample
-from sl_hwgat_tpu_torch.train.state import TrainState
+from sl_hwgat_tpu_torch.train.state import (
+    TrainState,
+    cosine_annealing_lr,
+    make_optimizer,
+    set_lr,
+)
 
 _PIPELINE_DEPTH = 2  # steps the host may run ahead of metric readback
 
@@ -158,3 +168,97 @@ def evaluate(eval_step, state: TrainState, loader, k: int = 1, epoch: int = 0):
         loss, c, v, _ = eval_step(*_batch_to(device, x, y, valid), k)
         metrics.add(loss, c, v)
     return metrics.result()
+
+
+def predictions_plus_true(eval_step, state: TrainState, loader):
+    """(y_pred, y_true) over a loader's valid rows. ≡ `utils.py:144-161`."""
+    device = next(state.model.parameters()).device
+    y_pred, y_true = [], []
+    for x, y, valid in loader.epoch(0):
+        _, _, _, pred = eval_step(*_batch_to(device, x, y, valid), 1)
+        nvalid = int(np.sum(valid))
+        y_pred += pred[:nvalid].cpu().tolist()
+        y_true += np.asarray(y)[:nvalid].tolist()
+    return y_pred, y_true
+
+
+class EarlyStopper:
+    """Stop after ``patience`` epochs without a better validation accuracy.
+    ≡ `utils.py:353-368`."""
+
+    def __init__(self, patience=1, min_delta=0):
+        self.patience = patience
+        self.min_delta = min_delta
+        self.counter = 0
+        self.max_validation_acc = 0.0
+
+    def early_stop(self, validation_acc):
+        if validation_acc > self.max_validation_acc:
+            self.max_validation_acc = validation_acc
+            self.counter = 0
+        elif validation_acc < (self.max_validation_acc + self.min_delta):
+            self.counter += 1
+            if self.counter >= self.patience:
+                return True
+        return False
+
+
+def run_epochs(cfg, state: TrainState, train_step, eval_step, train_loader, val_loader,
+               early_stopper: EarlyStopper | None = None,
+               progress: Callable[[int, dict], None] | None = None,
+               plot: bool = True) -> TrainState:
+    """Epochs ``state.epoch`` … ``cfg.epochs`` inclusive, with the cosine lr
+    set at each, and the reference's three checkpoint triggers: best val
+    loss, best val accuracy, and every ``save_interval`` epochs.
+    ≡ `utils.py:240-290`."""
+    from sl_hwgat_tpu_torch.train.reporting import plot_results
+
+    hist = state.history
+    best_val_loss = min(hist["val_loss"], default=9999.0)
+    best_val_acc = max(hist["val_acc"], default=0.0)
+
+    for epoch in range(state.epoch, cfg.epochs + 1):
+        set_lr(state.optimizer,
+               cosine_annealing_lr(epoch, cfg.lr, cfg.scheduler_t_max)
+               if cfg.scheduler == "CosineAnnealingLR" else cfg.lr)
+        train_loss, train_acc = train_epoch(train_step, state, train_loader, cfg.seed, epoch)
+        val_loss, val_acc = evaluate(eval_step, state, val_loader, epoch=epoch)
+
+        hist["train_loss"].append(train_loss)
+        hist["train_acc"].append(train_acc)
+        hist["val_loss"].append(val_loss)
+        hist["val_acc"].append(val_acc)
+        state.epoch = epoch
+
+        if val_loss < best_val_loss:
+            best_val_loss = val_loss
+            ckpt_lib.save_checkpoint(f"{cfg.save_model_path}_best_loss.ckpt", state, cfg.lr)
+        if val_acc > best_val_acc:
+            best_val_acc = val_acc
+            ckpt_lib.save_checkpoint(f"{cfg.save_model_path}_best_acc.ckpt", state, cfg.lr)
+        if epoch > 0 and epoch % cfg.save_interval == 0:
+            ckpt_lib.save_checkpoint(f"{cfg.save_model_path}_{epoch}.ckpt", state, cfg.lr)
+
+        if progress is not None:
+            progress(epoch, dict(train_loss=train_loss, train_acc=train_acc,
+                                 val_loss=val_loss, val_acc=val_acc,
+                                 best_val_loss=best_val_loss))
+        if plot:
+            plot_results(hist["train_loss"], hist["val_loss"], "loss",
+                         cfg.criterion_type, cfg.save_loss_curve_path)
+            plot_results(hist["train_acc"], hist["val_acc"], "acc",
+                         "accuracy", cfg.save_acc_curve_path)
+        if cfg.early_stopping and early_stopper is not None and early_stopper.early_stop(val_acc):
+            break
+    return state
+
+
+def init_state(cfg) -> TrainState:
+    """The model of ``cfg`` initialised from ``cfg.seed`` on ``cfg.device``,
+    and its optimizer, for a fresh run. ≡ `loop.py:290-302`."""
+    from sl_hwgat_tpu_torch.models import build_model
+
+    model = build_model(cfg.model_type, cfg.dataset_params, cfg.input_dim, device=cfg.device,
+                        seed=cfg.seed, **cfg.overrides)
+    optimizer = make_optimizer(cfg.optimizer_type, cfg.lr, model.parameters())
+    return TrainState(model, optimizer, base_lr=cfg.lr)

@@ -1,6 +1,7 @@
-"""Timing and roofline accounting of the port on an H100.
+"""Tracing, timing and roofline accounting of the port on an H100.
 
-Counterpart of ``sl_hwgat_tpu/utils/profiling.py``: ``timeit`` times a
+Counterpart of ``sl_hwgat_tpu/utils/profiling.py``: ``trace`` records a
+``torch.profiler`` Chrome trace of a block of work, ``timeit`` times a
 function on the card with CUDA events, ``device_seconds`` times it with the
 card's queue kept full, and the cost arithmetic (``AttentionCost``,
 ``window_attention_cost``, ``hwgate_forward_cost``,
@@ -13,7 +14,10 @@ number.
 
 from __future__ import annotations
 
+import contextlib
+import os
 import statistics
+import time
 from dataclasses import dataclass
 
 import torch
@@ -22,6 +26,23 @@ from sl_hwgat_tpu_torch.graphs.adjacency import windowed_block_adj
 
 PEAK_BYTES_PER_S = 3.35e12               # H100 SXM HBM3
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 CUDA cores; bf16 dense tensor
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Record the host's and, where a card is present, the card's activity
+    inside the ``with`` block, and write it into ``log_dir`` as a Chrome
+    trace (``trace_<seconds since the epoch>.json``, readable in Perfetto or
+    chrome://tracing). ≡ `utils/profiling.py:19-25`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, f"trace_{int(time.time())}.json"))
 
 
 def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:

@@ -328,10 +328,12 @@ def test_hwgate_hybrid_train_steps_match_jax():
     lambda impl: WindowedMSA(32, 2, ADJ32, attn_impl=impl),
 ], ids=["HWGATE", "HGATE", "WindowedMSA"])
 def test_unknown_attn_impl_raises(build):
-    for impl in ("stacked", "pallas_banded", "xla"):
-        with pytest.raises(ValueError, match="'auto', 'pallas', 'hybrid'"):
+    for impl in ("pallas_banded", "xla", "ell"):
+        with pytest.raises(ValueError, match="'auto', 'pallas', 'stacked', 'hybrid'"):
             build(impl)
-    assert build("hybrid") is not None
+    # "stacked" (the JAX package's jnp form of the fused kernel's function)
+    # takes the fused path
+    assert build("hybrid") is not None and build("stacked") is not None
 
 
 def test_ablation_variants_apply_to_the_masked_softmax_source():

@@ -158,8 +158,9 @@ import sl_hwgat_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(sl_hwgat_tpu_torch.__path__, "sl_hwgat_tpu_torch.")]
 for name in mods:
     importlib.import_module(name)
-spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for script in ("chip_smoke", "main_torch"):
+    spec = importlib.util.spec_from_file_location(script, script + ".py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 print(json.dumps({
     "modules": mods,
     "reference": [n for n in sys.modules if n == "sl_hwgat_tpu" or n.startswith("sl_hwgat_tpu.")],
@@ -170,6 +171,8 @@ print(json.dumps({
 
 
 def test_port_and_chip_smoke_import_no_jax_and_no_reference_package():
+    """Every port module, chip_smoke.py and main_torch.py import with jax,
+    flax and optax blocked, and leave no module of the JAX package loaded."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO_ROOT
     out = subprocess.run([sys.executable, "-c", _IMPORT_CHECK], cwd=REPO_ROOT, env=env,
@@ -178,6 +181,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference_package():
     seen = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("serve", "ops.window_attention", "ops.hybrid_attention", "models.hgate",
                  "train.loop", "train.state", "train.losses", "data.dataset", "data.synthetic",
-                 "ops.probes", "ops.layouts", "bench.kernel", "bench.run", "utils.profiling"):
+                 "ops.probes", "ops.layouts", "bench.kernel", "bench.run", "utils.profiling",
+                 "cli", "configs", "train.checkpoint", "train.reporting", "train.inference"):
         assert f"sl_hwgat_tpu_torch.{name}" in seen["modules"]
     assert seen["reference"] == [] and seen["jax"] == []
