@@ -62,6 +62,17 @@ Phases, each printing one JSON line (any failure ends the run non-zero):
               attention (the bf16 gradient bar). Its last line gives each
               train epoch's seconds, clips/s and loader wait, and the warm
               epochs' median, beside the nvidia-smi name and power limit.
+8c. baselines — STGCN, DecoupledGCN and Transformer at FDMSE-ISL (192 frames,
+              2002 classes, 29 joints), batch 16, random weights from seed 0:
+              eval logits on the card against the same weights on the CPU
+              (f32, atol 2e-4 / rtol 1e-4), one bf16 eval forward of the
+              Transformer within 0.15 of its f32 logits' largest (the JAX
+              package's bf16 bar; the GCNs run f32 only), 3 AdamW steps with
+              finite losses and every BatchNorm running statistic moved, and
+              no kernel launch of the port.
+8d. cli baselines — for each of the three, cli.run on SYNTH at full width,
+              batch 16: train (two epochs; STGCN with the nadam optimizer),
+              then test -px best_loss -k 5 in a run of its own.
 9. banded   — the banded forward and backward kernels against their plain
               versions at WGATE's (512 planes × 192 frames × 16 joints) and
               GATE's (128 × 192 × 29) batch-16 shapes, dh 16, f32 and bf16,
@@ -155,6 +166,19 @@ Phases, each printing one JSON line (any failure ends the run non-zero):
               token-major) and the gradient entries beside masked SDPA's
               forward, the same loss and its backward, with one entry's
               profile (the two layout kernels beside the loss's passes).
+
+20. step bench — the port's bench entry points as a user runs them:
+              bench.step's train and eval lines (repeats 3, batch 16) for
+              HWGATE (bf16, f32, and bf16 with attn_impl="hybrid"), HGATE,
+              WGATE, GATE and Transformer (bf16), STGCN and DecoupledGCN
+              (f32), then bench.serve's line (HWGATE bf16: buckets 1-64 and
+              128 requests from 32 clients through BatchingQueue), each
+              printed as it is with finite numbers, every request answered;
+              bench.run's two HWGATE step lines (phase 19's run, with
+              vs_step_roofline and mfu) beside them; the launch counts set
+              to 0 just before and read just after; the attention's
+              (K1 + K2) / K1 card ratio of phase 17 beside the roofline's
+              constant. Phase 17's profile covers the three baselines too.
 
 The last lines are the kernels line, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -1251,6 +1275,233 @@ def phase_cli(workdir: Path, repo: Path) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The reference's baselines, STGCN, DecoupledGCN and Transformer (phases 8c,
+# 8d), and the step and serving benches (phase 20).
+
+BASELINES = ("STGCN", "DecoupledGCN", "Transformer")
+F32_ONLY = ("STGCN", "DecoupledGCN")  # no compute_dtype, as in the JAX package
+# the JAX package's bar of bf16 compute against f32 (tests/test_transformer_parity.py:40)
+BF16_SHARE = 0.15
+
+
+def baseline_model(name: str, compute_dtype: str = "float32", device: str = "cuda"):
+    from sl_hwgat_tpu_torch.constants import DATASET_PARAMS
+    from sl_hwgat_tpu_torch.models import build_model
+
+    overrides = {} if compute_dtype == "float32" else {"compute_dtype": compute_dtype}
+    return build_model(name, DATASET_PARAMS["FDMSE-ISL"], 2, device=device, seed=SEED,
+                       **overrides)
+
+
+def model_path_kernels() -> dict:
+    """The models' kernel wrappers by name, each a function with a
+    ``launches`` count."""
+    from sl_hwgat_tpu_torch.ops import banded_attention, hybrid_attention, window_attention
+
+    return {"window_attention": window_attention.window_attention,
+            "window_attention_bwd": window_attention.window_attention_bwd,
+            "banded_attention": banded_attention.banded_attention,
+            "banded_attention_bwd": banded_attention.banded_attention_bwd,
+            "masked_softmax": hybrid_attention.masked_softmax,
+            "masked_softmax_bwd": hybrid_attention.masked_softmax_bwd}
+
+
+def kernel_launches() -> dict:
+    return {name: fn.launches for name, fn in model_path_kernels().items()}
+
+
+def calibrate_batch_norm(model, x) -> None:
+    """Set every BatchNorm's running statistics to those of one train-mode
+    forward of ``x`` (momentum None for it: a cumulative average over one
+    batch), as a trained model's would be. With the init statistics (0, 1)
+    DecoupledGCN's eval logits reach 4.8e4 at FDMSE-ISL (on an H100), where
+    f32 on the card and on the CPU each sit about 0.05 from float64 (4e-7 to
+    9e-7 of the logits' norm), past any absolute bar."""
+    import torch
+
+    norms = [m for m in model.modules() if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+    for m in norms:
+        m.reset_running_stats()
+        m.momentum = None
+    with torch.no_grad():
+        model.train()(x, torch.Generator(device=x.device).manual_seed(SEED))
+    for m in norms:
+        m.momentum = 0.1
+    model.eval()
+
+
+def phase_baselines() -> dict:
+    """Phase 8c: STGCN, DecoupledGCN and Transformer at FDMSE-ISL (192 frames,
+    2002 classes, 29 joints), batch 16, random weights from SEED (the GCNs'
+    BatchNorm statistics calibrated on the batch: ``calibrate_batch_norm``):
+    eval logits on the card against the same weights on the CPU (f32, the
+    logit bar), one bf16 eval forward of the Transformer against its f32
+    logits (the JAX package's bf16 bar: within 0.15 of the largest logit),
+    and 3 AdamW steps through make_steps with finite losses and every
+    BatchNorm running statistic moved. None of them launches a kernel of
+    the port."""
+    import torch
+
+    from sl_hwgat_tpu_torch.train.loop import make_steps
+    from sl_hwgat_tpu_torch.train.state import make_optimizer
+
+    out = {}
+    reset_launches(*model_path_kernels().values())
+    for name in BASELINES:
+        x = banded_batch(name)
+        model = baseline_model(name)
+        if name in F32_ONLY:
+            calibrate_batch_norm(model, x)
+        cpu = baseline_model(name, device="cpu")
+        cpu.load_state_dict(model.state_dict())
+        with torch.no_grad():
+            got, want = model(x).cpu(), cpu(x.cpu())
+        torch.testing.assert_close(got, want, **LOGIT_TOL["float32"])
+        rec = {"card_vs_cpu_max_abs_err": (got - want).abs().max().item(),
+               "max_abs_logit": want.abs().max().item()}
+        del cpu
+        if name not in F32_ONLY:
+            bf16 = baseline_model(name, "bfloat16")
+            bf16.load_state_dict(model.state_dict())
+            with torch.no_grad():
+                low = bf16(x).float().cpu()
+            err = (low - got).abs().max().item()
+            if not (torch.isfinite(low).all() and err < BF16_SHARE * (got.abs().max().item()
+                                                                    + 1e-3)):
+                raise AssertionError(f"{name} bf16 logits {err} from f32")
+            rec["bf16_vs_f32_max_abs_err"] = err
+            del bf16
+        xt, yt, valid = banded_batch(name, train=True)
+        stats = {k: v.clone() for k, v in model.state_dict().items() if "running" in k}
+        train_step, _ = make_steps(model, make_optimizer("adamw", LR, model.parameters()))
+        losses = [float(train_step(xt, yt, valid, SEED, 0, step)[0]) for step in range(3)]
+        still = [k for k, v in stats.items() if torch.equal(v, model.state_dict()[k])]
+        if not all(math.isfinite(v) for v in losses) or still:
+            raise AssertionError(f"{name} train: losses {losses}, statistics that did not "
+                                 f"move: {still[:5]}")
+        rec.update(train_losses=losses, running_stats_moved=len(stats))
+        out[name] = rec
+        del model, train_step
+        torch.cuda.empty_cache()
+    launches = kernel_launches()
+    if any(launches.values()):
+        raise AssertionError(f"the baselines launched kernels of the port: {launches}")
+    emit("baselines", batch=16, dataset="FDMSE-ISL", results=out)
+    return out
+
+
+def phase_cli_baselines(workdir: Path) -> dict:
+    """Phase 8d: for each baseline, cli.run on SYNTH at full width, batch 16:
+    train (--epochs 1: two epochs; STGCN with the nadam optimizer), then
+    test -px best_loss -k 5 in a run of its own, whose results equal the
+    train run's final test (the same checkpoint, eval mode)."""
+    from sl_hwgat_tpu_torch import cli
+    from sl_hwgat_tpu_torch.configs import RunConfig
+    from sl_hwgat_tpu_torch.data.synthetic import write_synthetic_dataset
+    from sl_hwgat_tpu_torch.train.checkpoint import read_checkpoint
+
+    write_synthetic_dataset(str(workdir / "input"), seed=SEED)
+    out = {}
+    for name in BASELINES:
+        optimizer = "nadam" if name == "STGCN" else "adamw"
+
+        def config(mode):
+            cfg = RunConfig(dataset="SYNTH", model_type=name, mode=mode, time=CLI_TAG,
+                            input_root=str(workdir / "input"),
+                            output_root=str(workdir / "output"), device="cuda")
+            cfg.epochs, cfg.batch_size, cfg.n_workers = 1, 16, 4
+            cfg.optimizer_type = optimizer
+            return cfg
+
+        t0 = time.perf_counter()
+        trained, state = cli.run(config("train"), progress=True)
+        seconds = time.perf_counter() - t0
+        cfg = config("test")
+        cfg.postfix, cfg.topk = "best_loss", 5
+        tested, _ = cli.run(cfg, progress=True)
+        best = read_checkpoint(f"{cfg.save_model_path}_best_loss.ckpt")
+        for split, (loss, acc) in tested.items():
+            if not (math.isfinite(loss) and 0.0 <= acc <= 1.0):
+                raise AssertionError(f"cli {name} test: {split} loss {loss}, accuracy {acc}")
+        if len(state.history["train_loss"]) != 2 or "optimizer_state_dict" not in best:
+            raise AssertionError(f"cli {name}: history {state.history}")
+        out[name] = {"optimizer": optimizer, "train_seconds": seconds,
+                     "history": state.history, "test_k5": tested, "train_k1": trained}
+        del state
+    emit("cli_baselines", dataset="SYNTH", batch=16, results=out)
+    return out
+
+
+# (model, dtype, extra flags) of the step bench, each run as train and eval;
+# bf16 where the model has a compute_dtype
+STEP_BENCH = (("HWGATE", "bf16", {}), ("HWGATE", "f32", {}),
+              ("HWGATE", "bf16", {"attn_impl": "hybrid"}), ("HGATE", "bf16", {}),
+              ("WGATE", "bf16", {}), ("GATE", "bf16", {}), ("Transformer", "bf16", {}),
+              ("STGCN", "f32", {}), ("DecoupledGCN", "f32", {}))
+STEP_REPEATS = 3
+
+
+def finite_numbers(line: dict, keys) -> bool:
+    return all(isinstance(line.get(k), (int, float)) and math.isfinite(line[k]) for k in keys)
+
+
+def phase_step_bench(bench_steps: list, kernel_times: dict) -> dict:
+    """Phase 20: bench.step's train and eval lines of every model (STEP_BENCH,
+    --repeats 3) and bench.serve's line, each printed as it is and required
+    to parse with finite numbers; bench.run's two HWGATE step lines (from
+    phase 19's run) beside them. The launch counts are set to 0 just before
+    and read just after the step benches. The attention's train/eval ratio
+    of the roofline, (K1 + K2) / K1 at 32 tokens, is re-read from this run's
+    card times."""
+    import torch
+
+    from sl_hwgat_tpu_torch.bench import serve as serve_bench
+    from sl_hwgat_tpu_torch.bench import step as step_bench
+    from sl_hwgat_tpu_torch.utils.profiling import ATTN_TRAIN_RATIO
+
+    keys = ("time_us", "time_us_min", "time_us_max", "clips_per_sec", "card_ms")
+    lines = []
+    reset_launches(*model_path_kernels().values())
+    for model, dtype, flags in STEP_BENCH:
+        for step in ("train", "eval"):
+            line = step_bench.measure(model, dtype, 16, step, STEP_REPEATS, "cuda", **flags)
+            print(json.dumps(line), flush=True)
+            if not finite_numbers(line, keys) or line["n_repeats"] != STEP_REPEATS:
+                raise AssertionError(f"bench.step {model} {step} {dtype}: {line}")
+            lines.append(line)
+            torch.cuda.empty_cache()
+    serve = serve_bench.measure()
+    print(json.dumps(serve), flush=True)
+    launches = kernel_launches()
+    queue_keys = ("clips_per_sec_b16", "clips_per_sec_bmax", "queue_clips_per_sec",
+                  "queue_p50_ms", "queue_p99_ms", "queue_speedup_vs_serial_b1")
+    if (not finite_numbers(serve, queue_keys) or serve["queue_answered"] != 128
+            or sum(serve["queue_batch_sizes"]) != 128
+            or not all(math.isfinite(v) for v in serve["per_bucket_ms"].values())):
+        raise AssertionError(f"bench.serve: {serve}")
+    for line in bench_steps:
+        if not finite_numbers(line, ("value", "vs_step_roofline", "roofline_clips_per_sec",
+                                     "mfu")):
+            raise AssertionError(f"bench.run step line: {line}")
+    ratio = {}
+    for dt in ("float32", "bfloat16"):
+        k1, k2 = (kernel_times[kind][dt]["cases"]["single"]["device_ms"]
+                  for kind in ("fwd", "bwd"))
+        ratio[dt] = {"k1_card_ms": k1, "k2_card_ms": k2, "measured": (k1 + k2) / k1,
+                     "roofline_constant": ATTN_TRAIN_RATIO[dt]}
+    summary = {line["impl"] + "".join(f"/{v}" for k, v in line["overrides"].items()
+                                      if k == "attn_impl"):
+               {"clips_per_sec": line["clips_per_sec"], "host_ms": line["time_us"] / 1e3,
+                "card_ms": line["card_ms"], "card_share": line["card_ms"] * 1e3 / line["time_us"]}
+               for line in lines}
+    emit("step_bench", nvidia_smi=nvidia_smi(), batch=16, repeats=STEP_REPEATS,
+         summary=summary, launches=launches, bench_run_step_lines=bench_steps,
+         attn_train_ratio=ratio,
+         serve={k: serve[k] for k in ("per_bucket_ms", *queue_keys, "queue_batches")})
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # The banded models, WGATE and GATE (phases 9-12).
 
 BANDED_MODELS = ("WGATE", "GATE")
@@ -1260,7 +1511,8 @@ BANDED_MODELS = ("WGATE", "GATE")
 BANDED_SHAPE = {"WGATE": (512, 192, 16), "GATE": (128, 192, 29)}
 BANDED_DH = 16
 BANDED_SCALE = BANDED_DH**-0.5
-NUM_KPS = {"WGATE": 64, "GATE": 29, "HWGATE": 64, "HGATE": 29}
+NUM_KPS = {"WGATE": 64, "GATE": 29, "HWGATE": 64, "HGATE": 29, "STGCN": 29, "DecoupledGCN": 29,
+           "Transformer": 29}
 
 
 def banded_bands() -> dict:
@@ -2256,6 +2508,8 @@ def phase_timings():
 
 def build(name: str, cdt: str):
     """The FDMSE-ISL model ``name`` on the card, seeded."""
+    if name in BASELINES:
+        return baseline_model(name, cdt)
     return flagship(cdt) if name == "HWGATE" else banded_model(name, cdt)
 
 
@@ -2369,8 +2623,8 @@ def device_table(prof, top: int = 12) -> dict:
 
 def phase_profile():
     """Device time by kernel of one eval forward and of one train step, in
-    f32 and bf16, of every model and windowed path, with the wall time of
-    the profiled step."""
+    f32 and bf16 (STGCN and DecoupledGCN: f32), of every model and windowed
+    path, with the wall time of the profiled step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2378,11 +2632,12 @@ def phase_profile():
     from sl_hwgat_tpu_torch.train.state import make_optimizer
 
     out = {}
-    for name, impl in [(m, None) for m in ("HWGATE", *BANDED_MODELS)] + list(WINDOWED_PATHS):
+    cases = [(m, None) for m in ("HWGATE", *BANDED_MODELS, *BASELINES)] + list(WINDOWED_PATHS)
+    for name, impl in cases:
         # banded_batch("HWGATE") is eval_batch() / train_batch(): same seeds and shapes
         x = banded_batch(name)
         xt, yt, valid = banded_batch(name, train=True)
-        for cdt in ("float32", "bfloat16"):
+        for cdt in ("float32",) if name in F32_ONLY else ("float32", "bfloat16"):
             if impl is None:
                 key = cdt if name == "HWGATE" else f"{name}/{cdt}"
                 model = build(name, cdt)
@@ -2862,12 +3117,13 @@ def phase_bench_path() -> dict:
     return counts
 
 
-def phase_bench_cli(repo: Path) -> dict:
+def phase_bench_cli(repo: Path) -> list:
     """Phase 19: ``python -m sl_hwgat_tpu_torch.bench.kernel <impl>`` for one
     entry of each family and K10, one child after another so that each has
     the card to itself, then ``python -m sl_hwgat_tpu_torch.bench.run``;
     each must print its line, the run's must come from ``pallas_obf16``, and
-    its ``vs_calib`` must be the ``pair_tscore_bf16`` child's paired ratio."""
+    its ``vs_calib`` must be the ``pair_tscore_bf16`` child's paired ratio.
+    Returns bench.run's two HWGATE step lines (printed as they are)."""
     lines = {}
     for impl in BENCH_CLI:
         proc = subprocess.run(
@@ -2901,9 +3157,15 @@ def phase_bench_cli(repo: Path) -> dict:
     if not (metric["vs_calib"] == ratio and low <= ratio <= high):
         raise AssertionError(f"bench.run: vs_calib {metric['vs_calib']} is not the paired "
                              f"child's ratio {ratio} [{low}, {high}]")
+    steps = [json.loads(ln) for ln in run.stderr.splitlines() if ln.startswith("{")]
+    if [line.get("metric") for line in steps] != ["hwgate_train_step_clips_per_sec",
+                                                  "hwgate_eval_step_clips_per_sec"]:
+        raise AssertionError(f"bench.run: step lines {steps}")
+    for line in steps:
+        print(json.dumps(line), flush=True)
     emit("bench_cli", lines=lines, run=metric, run_note=note,
          vs_calib_from="pair_tscore_bf16", vs_calib_range=[low, high])
-    return metric
+    return steps
 
 
 def phase_probe_timings() -> dict:
@@ -3325,6 +3587,9 @@ def main() -> int:
         train_launches = phase_synth(Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         cli_launches = phase_cli(Path(tmp), repo)
+    phase_baselines()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_cli_baselines(Path(tmp))
     banded_fwd_errors, banded_bwd_errors = phase_banded()
     phase_banded_forward()
     with tempfile.TemporaryDirectory() as tmp:
@@ -3344,8 +3609,9 @@ def main() -> int:
     phase_profile()
     probe_errors = phase_probes()
     bench_launches = phase_bench_path()
-    phase_bench_cli(repo)
+    bench_steps = phase_bench_cli(repo)
     probe_timings = phase_probe_timings()
+    step_launches = phase_step_bench(bench_steps, timings)
 
     from sl_hwgat_tpu_torch.bench import kernel as bench
     from sl_hwgat_tpu_torch.ops import banded_attention, hybrid_attention, probes, window_attention
@@ -3360,6 +3626,7 @@ def main() -> int:
     fwd["train_launches"] = train_launches["fwd"] + trained["window_attention"]
     fwd["cli_launches"] = cli_launches["fwd"]
     fwd["bench_launches"] = bench_launches[window_attention.KERNEL]
+    fwd["step_bench_launches"] = step_launches["window_attention"]
     fwd["wide_design"] = WIDE_DESIGN
     fwd["wide_ptxas"] = {n: r for n, r in wide_kernels.items() if "fwd" in n}
     fwd["edge_cases_max_abs_err"] = edge_errors["window_fwd"]
@@ -3373,6 +3640,7 @@ def main() -> int:
                        bwd_errors)
     bwd["hgate_train_launches"] = trained["window_attention_bwd"]
     bwd["cli_launches"] = cli_launches["bwd"]
+    bwd["step_bench_launches"] = step_launches["window_attention_bwd"]
     bwd["wide_design"] = WIDE_DESIGN
     bwd["wide_ptxas"] = {n: r for n, r in wide_kernels.items() if "bwd" in n}
     bwd["edge_cases_max_abs_err"] = edge_errors["window_bwd"]
@@ -3384,6 +3652,7 @@ def main() -> int:
                       ":129 (_fwd_kernel)",
                       banded_serve_launches, banded_timings, banded_fwd_errors, "WGATE/float32")
     bfwd["train_launches"] = banded_train_launches["fwd"]
+    bfwd["step_bench_launches"] = step_launches["banded_attention"]
     bfwd["edge_cases_max_abs_err"] = edge_errors["banded_fwd"]
     bfwd.update(design=REDESIGNED[banded_attention.KERNEL],
                 ptxas=redesigned.get(banded_attention.KERNEL),
@@ -3394,6 +3663,7 @@ def main() -> int:
                       banded_train_launches["bwd"], banded_timings, banded_bwd_errors,
                       "WGATE/float32")
     bbwd["edge_cases_max_abs_err"] = edge_errors["banded_bwd"]
+    bbwd["step_bench_launches"] = step_launches["banded_attention_bwd"]
     bbwd.update(design=REDESIGNED[banded_attention.KERNEL_BWD],
                 ptxas=redesigned.get(banded_attention.KERNEL_BWD),
                 block=blocks[banded_attention.KERNEL_BWD])
@@ -3403,6 +3673,7 @@ def main() -> int:
                       served["masked_softmax"], softmax_timings, softmax_fwd_errors,
                       "HWGATE/float32")
     sfwd["train_launches"] = trained["masked_softmax"]
+    sfwd["step_bench_launches"] = step_launches["masked_softmax"]
     sfwd["edge_cases_max_abs_err"] = edge_errors["softmax_fwd"]
     sfwd.update(design=REDESIGNED[hybrid_attention.KERNEL],
                 ptxas=redesigned.get(hybrid_attention.KERNEL),
@@ -3412,6 +3683,7 @@ def main() -> int:
                       trained["masked_softmax_bwd"], softmax_timings, softmax_bwd_errors,
                       "HWGATE/float32")
     sbwd["edge_cases_max_abs_err"] = edge_errors["softmax_bwd"]
+    sbwd["step_bench_launches"] = step_launches["masked_softmax_bwd"]
     stream, relay, mm = probes.KERNELS
     new = [probe_entry(stream, STREAM_REPLACES, bench_launches[stream],
                        probe_timings[stream], "copy_bf16", probe_errors[stream]),

@@ -21,8 +21,23 @@ come from the ``pallas_obf16`` child; ``vs_calib`` is the paired child's
 ``ratio_min``/``ratio_max`` on standard error. ``bench.py`` falls back to
 the f32 kernel; here every configuration runs the same K1, so no child
 falls back to another: if either prints no line, the run fails and prints
-no metric. The train-step and eval-step halves of ``bench.py`` are not
-ported yet.
+no metric.
+
+Then ``bench.py``'s two step lines (`bench.py:148-199`): children of
+``python -m sl_hwgat_tpu_torch.bench.step bf16 16`` time HWGATE's train and
+eval steps at FDMSE-ISL, and standard error gets
+
+    {"metric": "hwgate_train_step_clips_per_sec", "value": ..., "unit": "clips/s",
+     "vs_step_roofline": ..., "roofline_clips_per_sec": ..., "mfu": ..., ...}
+
+and the same for ``hwgate_eval_step_clips_per_sec``: the share of the
+analytic step roofline (``utils/profiling.py::hwgate_step_roofline`` at the
+card's peaks) that the measured clips/s reach, and ``mfu``, the roofline's
+counted FLOPs over the step's seconds times the bf16 peak. There is no
+recorded fallback: a step child that fails or times out fails the run, with
+a message and no number. ``BENCH_SKIP_STEP=1`` skips the step lines, as in
+``bench.py``; so does ``--device cpu``, which checks the kernel children's
+plumbing on host times (a full-size step on the CPU takes minutes).
 """
 
 from __future__ import annotations
@@ -36,6 +51,7 @@ from pathlib import Path
 
 CONFIG, IMPL, PAIR = "fused_bf16_obf16", "pallas_obf16", "pair_tscore_bf16"
 UNITS = 12288
+STEP_BATCH = 16
 CHILD_TIMEOUT_S = 600.0  # one child's build of the kernels and its measurement
 REPO_ROOT = Path(__file__).resolve().parents[2]
 
@@ -43,15 +59,47 @@ REPO_ROOT = Path(__file__).resolve().parents[2]
 def run_child(impl: str, units: int, device: str) -> dict | None:
     """The JSON line of ``bench.kernel <impl> <units>``, or None (the
     reason on standard error) if the child fails or times out."""
-    cmd = [sys.executable, "-m", "sl_hwgat_tpu_torch.bench.kernel", impl, str(units),
-           "--device", device]
+    return _child(["sl_hwgat_tpu_torch.bench.kernel", impl, str(units), "--device", device],
+                  impl)
+
+
+def run_step_child(step: str, device: str) -> dict | None:
+    """The JSON line of ``bench.step bf16 16 --step <step>`` (HWGATE), or
+    None (the reason on standard error)."""
+    return _child(["sl_hwgat_tpu_torch.bench.step", "bf16", str(STEP_BATCH), "--step", step,
+                   "--device", device], f"{step} step")
+
+
+def step_line(step: str, rec: dict) -> dict:
+    """``bench.py``'s step line of a ``bench.step`` record, against the
+    roofline of the same step at the card's bf16 peaks."""
+    from sl_hwgat_tpu_torch.utils.profiling import PEAK_FLOPS, hwgate_step_roofline
+
+    roof = hwgate_step_roofline(rec["batch"], train=step == "train", dtype="bfloat16")
+    seconds = rec["time_us"] / 1e6
+    return {
+        "metric": f"hwgate_{step}_step_clips_per_sec",
+        "value": rec["clips_per_sec"],
+        "unit": "clips/s",
+        "vs_step_roofline": rec["clips_per_sec"] / roof["clips_per_sec"],
+        "roofline_clips_per_sec": roof["clips_per_sec"],
+        "mfu": roof["flops"] / (seconds * PEAK_FLOPS["bfloat16"]),
+        "step_ms_median_min_max": [rec["time_us"] / 1e3, rec["time_us_min"] / 1e3,
+                                   rec["time_us_max"] / 1e3],
+        "card_ms": rec.get("card_ms"),
+        "device": rec["device"],
+    }
+
+
+def _child(args: list, what: str) -> dict | None:
+    cmd = [sys.executable, "-m", *args]
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(p for p in (str(REPO_ROOT), env.get("PYTHONPATH")) if p)
     try:
         out = subprocess.run(cmd, capture_output=True, text=True, timeout=CHILD_TIMEOUT_S, env=env,
                              cwd=REPO_ROOT)
     except subprocess.TimeoutExpired:
-        print(f"# bench.run: {impl} timed out after {CHILD_TIMEOUT_S} s", file=sys.stderr)
+        print(f"# bench.run: {what} timed out after {CHILD_TIMEOUT_S} s", file=sys.stderr)
         return None
     for line in reversed(out.stdout.splitlines()):
         if line.startswith("{"):
@@ -60,7 +108,7 @@ def run_child(impl: str, units: int, device: str) -> dict | None:
             except json.JSONDecodeError:
                 break
     tail = out.stderr.strip().splitlines()[-3:]
-    print(f"# bench.run: {impl} failed (rc={out.returncode}): {tail}", file=sys.stderr)
+    print(f"# bench.run: {what} failed (rc={out.returncode}): {tail}", file=sys.stderr)
     return None
 
 
@@ -87,7 +135,18 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
 
+    steps = []
+    if args.device == "cuda" and os.environ.get("BENCH_SKIP_STEP") != "1":
+        for step in ("train", "eval"):
+            step_rec = run_step_child(step, args.device)
+            if step_rec is None:
+                print(f"bench.run: the {step}-step child printed no line", file=sys.stderr)
+                return 1
+            steps.append(step_line(step, step_rec))
+
     seconds = rec["time_us"] / 1e6
+    for line in steps:
+        print(json.dumps(line), file=sys.stderr)
     print(f"# config={CONFIG} impl={IMPL} time={rec['time_us']:.1f}us "
           f"[{rec['time_us_min']:.1f}, {rec['time_us_max']:.1f}] over {rec['n_repeats']} "
           f"repeats, bound {rec['bound_us']:.1f}us ({rec['bound_by']}), vs_calib "

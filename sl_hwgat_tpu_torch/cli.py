@@ -87,7 +87,7 @@ def run(cfg, progress=True):
     """The whole train/test flow of a ``RunConfig`` → (results, state):
     results maps each split to its (loss, top-k accuracy)."""
     from sl_hwgat_tpu_torch.data.dataset import get_loaders
-    from sl_hwgat_tpu_torch.models import MODEL_REGISTRY, NOT_PORTED
+    from sl_hwgat_tpu_torch.models import MODEL_REGISTRY
     from sl_hwgat_tpu_torch.train import checkpoint as ckpt_lib
     from sl_hwgat_tpu_torch.train.loop import (
         EarlyStopper,
@@ -100,9 +100,9 @@ def run(cfg, progress=True):
     from sl_hwgat_tpu_torch.train.reporting import gen_cm_w, read_class_map, show_final_result
 
     np.random.seed(cfg.seed)
-    if cfg.model_type not in MODEL_REGISTRY and cfg.model_type not in NOT_PORTED:
+    if cfg.model_type not in MODEL_REGISTRY:
         raise SystemExit(f"unknown model '{cfg.model_type}'; choose from: "
-                         f"{', '.join(sorted((*MODEL_REGISTRY, *NOT_PORTED)))}")
+                         f"{', '.join(sorted(MODEL_REGISTRY))}")
     state = init_state(cfg)
     print("total trainable params :", sum(p.numel() for p in state.model.parameters()))
     train_step, eval_step = make_steps(

@@ -46,6 +46,32 @@ def trunc_normal_(w: torch.Tensor, generator: torch.Generator | None = None) -> 
     return nn.init.trunc_normal_(w, std=sigma, a=-2 * sigma, b=2 * sigma, generator=generator)
 
 
+def variance_scaling_(w: torch.Tensor, scale: float, mode: str, distribution: str,
+                      generator: torch.Generator | None = None) -> torch.Tensor:
+    """flax's ``variance_scaling`` initialiser on a torch weight (out, in,
+    *kernel): the fans count the kernel's taps, as flax's (*kernel, in, out)
+    does. ``distribution``: "normal", "truncated_normal" (cut at ±2σ, σ
+    corrected as flax does) or "uniform"."""
+    receptive = math.prod(w.shape[2:])
+    fan_in, fan_out = w.shape[1] * receptive, w.shape[0] * receptive
+    fan = {"fan_in": fan_in, "fan_out": fan_out, "fan_avg": (fan_in + fan_out) / 2}[mode]
+    var = scale / fan
+    with torch.no_grad():
+        if distribution == "uniform":
+            lim = math.sqrt(3 * var)
+            return w.uniform_(-lim, lim, generator=generator)
+        if distribution == "normal":
+            return w.normal_(0.0, math.sqrt(var), generator=generator)
+        sigma = math.sqrt(var) / 0.87962566103423978
+        return nn.init.trunc_normal_(w, std=sigma, a=-2 * sigma, b=2 * sigma,
+                                     generator=generator)
+
+
+def lecun_normal_(w: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+    """flax's default kernel initialiser (``nn.Conv``, ``nn.Dense``)."""
+    return variance_scaling_(w, 1.0, "fan_in", "truncated_normal", generator)
+
+
 class Dense(nn.Linear):
     """``nn.Linear`` that computes in ``compute_dtype`` (float32 parameters)."""
 

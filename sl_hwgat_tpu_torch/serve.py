@@ -56,8 +56,8 @@ class Predictor:
                         **model_overrides):
         """Load ``path`` into ``model_type`` sized for ``dataset`` on
         ``device`` (default ``cuda``; raises when no card is present).
-        HWGATE and WGATE take the 64-joint windowed transform, HGATE and
-        GATE the 29-joint skeleton one (``MODEL_NUM_KPS``).
+        HWGATE and WGATE take the 64-joint windowed transform, the other
+        models the 29-joint skeleton one (``MODEL_NUM_KPS``).
         ``model_overrides`` reach the model's constructor, e.g.
         ``attn_impl="hybrid"`` for HWGATE and HGATE."""
         dev = resolve_device(device)

@@ -141,8 +141,9 @@ def save_experiment_snapshot(cfg) -> None:
     out = cfg.ensure_out_folder()
     with open(cfg.save_config_path, "wb") as f:
         pickle.dump(cfg, f)
-    model_file = {"HWGATE": "hwgate", "HGATE": "hgate", "WGATE": "wgate",
-                  "GATE": "gate"}[cfg.model_type]
+    model_file = {"HWGATE": "hwgate", "HGATE": "hgate", "WGATE": "wgate", "GATE": "gate",
+                  "STGCN": "stgcn", "DecoupledGCN": "decoupled_gcn",
+                  "Transformer": "transformer"}[cfg.model_type]
     pkg_dir = os.path.dirname(models_pkg.__file__)
     shutil.copy(os.path.join(pkg_dir, model_file + ".py"), out)
     shutil.copy(configs_mod.__file__, out)

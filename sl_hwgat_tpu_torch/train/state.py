@@ -1,6 +1,6 @@
 """Optimizer, schedule and train state, ≡ ``sl_hwgat_tpu/train/state.py``.
 
-Reference `hwgat/utils.py:62-91`: AdamW/Adam/SGD with torch-default
+Reference `hwgat/utils.py:62-91`: AdamW/Adam/NAdam/SGD with torch-default
 hyperparameters, cosine-annealing LR with T_max = 20 stepped once per epoch,
 in closed form (that of ``torch.optim.lr_scheduler.CosineAnnealingLR``).
 """
@@ -32,10 +32,54 @@ def make_optimizer(optimizer_type: str, lr: float, params) -> torch.optim.Optimi
     if optimizer_type == "sgd":
         return torch.optim.SGD(params, lr=lr)
     if optimizer_type == "nadam":
-        # optax's nadam has no counterpart in torch.optim (NAdam's momentum
-        # decay schedule differs): see ROADMAP.md
-        raise NotImplementedError("nadam is not ported (see ROADMAP.md)")
+        return OptaxNAdam(params, lr=lr)
     raise ValueError(f"unknown optimizer: {optimizer_type}")
+
+
+class OptaxNAdam(torch.optim.Optimizer):
+    """``optax.nadam`` with its defaults (``scale_by_adam(nesterov=True)``,
+    Dozat 2016 without the extra b2 factor), the JAX package's
+    ``make_optimizer("nadam")``.
+    At step t (from 1), with μ, ν the moments after g:
+
+        μ̂ = b1·μ / (1 − b1^(t+1)) + (1 − b1)·g / (1 − b1^t)
+        ν̂ = ν / (1 − b2^t)
+        p ← p − lr·μ̂ / (√ν̂ + eps)
+
+    ``torch.optim.NAdam`` is another function (its momentum decay
+    schedule ψ), so it is not used. State per parameter: ``step`` (a float
+    tensor, as torch's Adam keeps it), ``exp_avg``, ``exp_avg_sq``.
+    """
+
+    def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["step"] = torch.zeros((), dtype=torch.float32)
+                    state["exp_avg"] = torch.zeros_like(p)
+                    state["exp_avg_sq"] = torch.zeros_like(p)
+                g = p.grad
+                state["step"] += 1
+                t = int(state["step"].item())
+                mu, nu = state["exp_avg"], state["exp_avg_sq"]
+                mu.mul_(b1).add_(g, alpha=1 - b1)
+                nu.mul_(b2).addcmul_(g, g, value=1 - b2)
+                mu_hat = mu * (b1 / (1 - b1 ** (t + 1))) + g * ((1 - b1) / (1 - b1 ** t))
+                denom = (nu / (1 - b2 ** t)).sqrt_().add_(group["eps"])
+                p.addcdiv_(mu_hat, denom, value=-group["lr"])
+        return loss
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> torch.optim.Optimizer:

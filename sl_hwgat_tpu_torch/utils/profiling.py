@@ -6,8 +6,10 @@ function on the card with CUDA events, ``device_seconds`` times it with the
 card's queue kept full, and the cost arithmetic (``AttentionCost``,
 ``window_attention_cost``, ``hwgate_forward_cost``,
 ``banded_attention_cost``) counts the work of the attention calls, equal to
-the JAX package's. ``bound`` turns bytes and operations into the least time
-an H100 SXM could take for them. The peaks are the card's published ones
+the JAX package's; ``hwgate_step_roofline`` is the JAX package's analytic
+speed of light of a whole HWGATE train or eval step, at the card's peaks.
+``bound`` turns bytes and operations into the least time an H100 SXM could
+take for them. The peaks are the card's published ones
 (NVIDIA's data sheet, dense, at the 700 W limit); none of them is a TPU
 number.
 """
@@ -26,6 +28,14 @@ from sl_hwgat_tpu_torch.graphs.adjacency import windowed_block_adj
 
 PEAK_BYTES_PER_S = 3.35e12               # H100 SXM HBM3
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 CUDA cores; bf16 dense tensor
+DTYPE_BYTES = {"float32": 4, "bfloat16": 2}
+
+# The window attention's train/eval work ratio on the card: (K1 + K2) / K1 at
+# 32-token units, card ms of `chip_smoke.py`'s timings phase (PERF.md §6:
+# K1 0.1755 / 0.1391, K2 0.4072 / 0.2418; NVIDIA H100 80GB HBM3, 700.00 W).
+# The JAX package's literal 2.5 is a TPU measurement.
+ATTN_TRAIN_RATIO = {"float32": (0.1755 + 0.4072) / 0.1755,
+                    "bfloat16": (0.1391 + 0.2418) / 0.1391}
 
 
 @contextlib.contextmanager
@@ -79,7 +89,9 @@ def device_seconds(fn, *args, calls: int = 10, repeats: int = 5) -> float:
     runs them without waiting for the host. Where a call's host path takes
     longer than its kernels, ``timeit`` gives the host's time and this the
     card's. A sample whose start event the card reached before the host had
-    queued every call is taken again with a longer spin."""
+    queued every call is taken again with a longer spin. A call of more
+    launches than the card's queue holds (a whole train step) cannot be
+    queued ahead: ``busy_seconds`` times it."""
     fn(*args)
     torch.cuda.synchronize()
     spin = 1 << 22  # cycles, about 2 ms
@@ -99,6 +111,32 @@ def device_seconds(fn, *args, calls: int = 10, repeats: int = 5) -> float:
             raise RuntimeError("the calls cannot be queued ahead of the card")
         else:
             spin *= 2
+    return statistics.median(samples)
+
+
+def busy_seconds(fn, *args, repeats: int = 3) -> float:
+    """The card's busy seconds in one call of ``fn(*args)``, the median of
+    ``repeats`` calls: the summed device time of the kernels and copies the
+    call runs, from ``torch.profiler`` (ranges that code annotates span
+    kernels already counted and are left out). Against the call's host
+    time, the rest is the card idle, waiting on the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    samples = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn(*args)
+            torch.cuda.synchronize()
+        total_us = 0.0
+        for ev in prof.key_averages():
+            dev_us = getattr(ev, "device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(ev, "cuda_time_total", 0)
+            if (ev.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(ev, "is_user_annotation", False)):
+                total_us += dev_us
+        samples.append(total_us / 1e6)
     return statistics.median(samples)
 
 
@@ -173,3 +211,87 @@ def banded_attention_cost(groups: int, heads: int, frames: int, vtok: int,
     sparse = edges * 4 * head_dim
     io = bhf * vtok * head_dim * dtype_bytes * 4  # q, k, v, out (compulsory)
     return AttentionCost(edges=edges, dense_flops=dense, sparse_flops=sparse, bytes_min=io)
+
+
+def hwgate_step_roofline(batch: int, frames: int = 192, embed: int = 128,
+                         depths=(2, 2, 4), heads=(2, 4, 8), tp: int = 2,
+                         nw: int = 4, window: int = 16, kps: int = 64,
+                         num_classes: int = 2002, ff_ratio: float = 2.0,
+                         train: bool = True, mxu_flops: float | None = None,
+                         shape_flops: float | None = None,
+                         mem_bw: float = PEAK_BYTES_PER_S,
+                         dtype_bytes: int | None = None,
+                         attn_train_ratio: float | None = None,
+                         dtype: str = "bfloat16") -> dict:
+    """Analytic speed of light of one HWGATE train (or eval) step
+    (``sl_hwgat_tpu/utils/profiling.py:85-159``, the same arithmetic).
+
+    A sequential roofline: every GEMM contributes max(FLOPs / peak, bytes /
+    memory rate), the projections and the FFN at ``mxu_flops``, the 32-token
+    attention supertiles at ``shape_flops``, plus AdamW's traffic over the
+    parameters. Train counts each GEMM 3× (forward, input and weight
+    gradients) and the attention ``attn_train_ratio``×. LayerNorm, residual,
+    roll and window-partition passes are left out: they are implementation
+    overhead, not compulsory work. The defaults are the card's: the peak of
+    ``dtype`` for both rates (989e12 bf16, 67e12 f32: the f32 GEMMs run on
+    the CUDA cores, as every bench sets with TF32 off), 3.35e12 B/s, 2 or 4
+    bytes an element and ``ATTN_TRAIN_RATIO[dtype]``. At the JAX package's
+    arguments (47.3e12, 27.0e12, 1.05e12, 2 bytes, ratio 2.5) it returns the
+    JAX package's numbers: the attention's compulsory bytes, counted in
+    f32, scale by ``dtype_bytes`` / 4 (the JAX code's halving)."""
+    mxu_flops = PEAK_FLOPS[dtype] if mxu_flops is None else mxu_flops
+    shape_flops = PEAK_FLOPS[dtype] if shape_flops is None else shape_flops
+    dtype_bytes = DTYPE_BYTES[dtype] if dtype_bytes is None else dtype_bytes
+    if attn_train_ratio is None:
+        attn_train_ratio = ATTN_TRAIN_RATIO[dtype]
+
+    def gemm_t(m, k, n, count=1):
+        flops = 2.0 * m * k * n * count
+        byts = float(m * k + k * n + m * n) * dtype_bytes * count
+        return max(flops / mxu_flops, byts / mem_bw), flops
+
+    total_t, total_flops = 0.0, 0.0
+    mult = 3 if train else 1  # fwd + dgrad + wgrad GEMMs
+    f = frames
+    for i, (d_i, h_i) in enumerate(zip(depths, heads)):
+        dim = embed * 2**i
+        tok = batch * f * kps
+        hidden = int(dim * ff_ratio)
+        for _ in range(d_i):
+            for (k_, n_, cnt) in ((dim, dim, 3),       # q, k, v projections
+                                  (dim, dim, 1),       # output projection
+                                  (dim, hidden, 1),    # fc1
+                                  (hidden, dim, 1)):   # fc2
+                t1, fl = gemm_t(tok, k_, n_, cnt)
+                total_t += mult * t1
+                total_flops += mult * fl
+        if i < len(depths) - 1:
+            f //= tp
+    # classifier head + Fourier embed (embed/2 random features per coord)
+    t1, fl = gemm_t(batch, embed * 2 ** (len(depths) - 1), num_classes)
+    total_t += mult * t1
+    total_flops += mult * fl
+    t1, fl = gemm_t(batch * frames * kps, 2, embed // 2)
+    total_t += mult * t1
+    total_flops += mult * fl
+
+    # attention supertiles at the shape rate; bytes_min counts f32 elements
+    attn = hwgate_forward_cost(batch, frames, embed, depths, heads, tp, nw, window)
+    attn_t = max(attn["dense_flops"] / shape_flops,
+                 attn["bytes_min"] * dtype_bytes / 4 / mem_bw)
+    attn_mult = attn_train_ratio if train else 1.0
+    total_t += attn_mult * attn_t
+    total_flops += attn_mult * attn["dense_flops"]
+
+    if train:
+        # AdamW: read p/m/v + write p/m/v, f32 master copies
+        n_params = 0
+        for i, d_i in enumerate(depths):
+            dim = embed * 2**i
+            hidden = int(dim * ff_ratio)
+            n_params += d_i * (3 * dim * dim + dim * dim + 2 * dim * hidden)
+        n_params += embed * 2 ** (len(depths) - 1) * num_classes
+        total_t += n_params * 4 * 6 / mem_bw
+
+    return {"seconds": total_t, "flops": total_flops,
+            "clips_per_sec": batch / total_t}

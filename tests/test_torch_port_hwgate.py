@@ -89,8 +89,11 @@ def test_build_model_cpu_is_seeded_eval_and_cuda_needs_a_card():
     assert not a.training
     for (ka, va), (kb, vb) in zip(a.state_dict().items(), b.state_dict().items()):
         assert ka == kb and torch.equal(va, vb)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("STGCN", {"num_class": 10, "src_len": 8}, 2, device="cpu")
+    # every registry name builds (STGCN among them); an unknown one raises
+    stgcn = build_model("STGCN", {"num_class": 10, "src_len": 8}, 2, device="cpu")
+    assert not stgcn.training and stgcn(torch.zeros(1, 8, 29, 2)).shape == (1, 10)
+    with pytest.raises(KeyError, match="NOSUCHMODEL"):
+        build_model("NOSUCHMODEL", {"num_class": 10, "src_len": 8}, 2, device="cpu")
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
