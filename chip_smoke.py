@@ -179,6 +179,33 @@ Phases, each printing one JSON line (any failure ends the run non-zero):
               to 0 just before and read just after; the attention's
               (K1 + K2) / K1 card ratio of phase 17 beside the roofline's
               constant. Phase 17's profile covers the three baselines too.
+21. ell      — WGATE and GATE with attn_impl="ell" (the edge-space gather/
+              scatter attention, plain torch) at FDMSE-ISL, full width, batch
+              16: f32 logits against the same weights on the banded kernels
+              (the f32 logit bar), one f32 step's gradients against theirs
+              (the f32 gradient bar), no banded launch on the ELL path, a
+              Predictor bucket-16 call against the banded Predictor's, peak
+              memory; the kernel bench's ell* entries beside K8's
+              banded_packed* entries and masked SDPA on the same shapes.
+22. data tools — main path 13: synthetic 192-frame mediapipe keypoint clips
+              (16 classes × 6) → fdmse_meta → generate_meta → preprocess into
+              a pickle store and a clip store under FDMSE-ISL (64 / 16 / 16
+              clips); the native reader's clips equal the pickle store's bit
+              for bit; a clip read's µs through each reader and the pickle's
+              copy, on one thread and on 8; cli.run trains HWGATE three
+              epochs from each store in turns (clip store, pickle, pickle,
+              clip store) and tests it from each (counts reset just before
+              and read just after each run, exactly 8 K1 launches per step and
+              eval batch, 8 K2 per step); the median of each store's four
+              warm epochs, and of its train loader's epochs alone (same turns).
+23. export   — main path 14: HWGATE bf16, HWGATE hybrid bf16 and WGATE f32
+              exported at bucket 16 (Predictor.export_program), loaded in a
+              fresh python3 by Predictor.load_exported with no module of the
+              port's models, of jax or of sl_hwgat_tpu imported; one call
+              launches exactly 8 K1, 8 K7 or 8 K8 forwards and no other
+              kernel; logits against Predictor.forward's (bit for bit, else
+              within the model's bar with the first differing submodule
+              named); card and host ms of both.
 
 The last lines are the kernels line, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -190,6 +217,7 @@ from __future__ import annotations
 import functools
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -3495,6 +3523,557 @@ LAYOUT_REPLACES = ("sl_hwgat_tpu/ops/pallas_attention.py:356 (_fwd_kernel_t), :6
                    "(tsw_fused, tsw_bstack, tsw_1_fused), :1012 (lp_fused_bf16)")
 
 
+# ---------------------------------------------------------------------------
+# This slice's paths (phases 21-23): WGATE's and GATE's ELL attention, the
+# data tools with the native clip store, and the exported serving programs.
+
+# the kernel bench's ELL entries and the banded entries on the same shapes
+ELL_BENCH = ("ell_bf16", "ell_bwd", "ell_bwd_bf16", "ell")
+ELL_BESIDE = ("banded_packed_bf16", "banded_packed_bwd", "banded_packed_bwd_bf16")
+
+
+def peak_mb() -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**20
+
+
+def phase_ell(workdir: Path) -> dict:
+    """WGATE and GATE with attn_impl="ell" at FDMSE-ISL, full width, batch 16:
+    f32 logits against the same weights under "auto" (K8) at the f32 logit
+    bar, one f32 step's gradients against "auto"'s at the gradient bar, no
+    launch of the banded kernels on the ELL path, a Predictor bucket-16 call
+    against the "auto" Predictor's; ell_graph_attention against K8 on the
+    kernel bench's planes (f32 and bf16, the kernel bars); then the kernel
+    bench's four ell* entries (bench.kernel.measure, the card) beside K8's
+    banded_packed entries and masked SDPA on the same shapes; peak memory of
+    each."""
+    import numpy as np
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    from sl_hwgat_tpu_torch.bench import kernel as bench
+    from sl_hwgat_tpu_torch.ops.banded_attention import banded_attention, banded_attention_bwd
+    from sl_hwgat_tpu_torch.ops.sparse_attention import ell_graph_attention
+    from sl_hwgat_tpu_torch.serve import Predictor
+    from sl_hwgat_tpu_torch.weights import save_state_dict
+
+    rng = np.random.default_rng(SEED + 5)
+    clips = [rng.random((int(f), 543, 4)).astype(np.float32)
+             for f in rng.integers(96, 385, size=16)]
+    models = {}
+    for name in BANDED_MODELS:
+        x = banded_batch(name)
+        xt, y, valid = banded_batch(name, train=True)
+        auto = banded_model(name, "float32", drop_rate=0.0)
+        ell = banded_model(name, "float32", drop_rate=0.0, attn_impl="ell")
+        ell.load_state_dict(auto.state_dict())
+        with torch.inference_mode():
+            want = auto(x)
+            reset_launches(banded_attention, banded_attention_bwd)
+            torch.cuda.reset_peak_memory_stats()
+            got = ell(x)
+            fwd_peak = peak_mb()
+            with_k8 = banded_attention.launches
+        if with_k8 or got.shape != (16, 2002) or not torch.isfinite(got).all():
+            raise AssertionError(f"{name} ell forward: {with_k8} banded launches, logits "
+                                 f"{tuple(got.shape)}")
+        torch.testing.assert_close(got, want, **LOGIT_TOL["float32"])
+        with torch.inference_mode():
+            ell_ms = cuda_ms(lambda: ell(x), runs=5, inner=2, warmup=1)
+            auto_ms = cuda_ms(lambda: auto(x), runs=5, inner=2, warmup=1)
+        auto_loss, auto_grads = one_step_grads(auto, xt, y, valid, seed=SEED)
+        reset_launches(banded_attention, banded_attention_bwd)
+        torch.cuda.reset_peak_memory_stats()
+        ell_loss, ell_grads = one_step_grads(ell, xt, y, valid, seed=SEED)
+        step_peak = peak_mb()
+        step_k8 = (banded_attention.launches, banded_attention_bwd.launches)
+        if step_k8 != (0, 0):
+            raise AssertionError(f"{name} ell step launched the banded kernels {step_k8}")
+        worst = grad_errors(f"{name} ell", "float32", ell_grads, auto_grads)
+        del auto_grads, ell_grads
+
+        ckpt = workdir / f"{name.lower()}_ell.pt"
+        save_state_dict(str(ckpt), ell)
+        preds = {impl: Predictor.from_checkpoint(str(ckpt), model_type=name,
+                                                 dataset="FDMSE-ISL", batch_buckets=(16,),
+                                                 attn_impl=impl)
+                 for impl in ("ell", "auto")}
+        reset_launches(banded_attention)
+        rows = preds["ell"].predict_logits(clips)
+        served_k8 = banded_attention.launches
+        ref = preds["auto"].predict_logits(clips)
+        if served_k8 or rows.shape != (16, 2002) or not np.isfinite(rows).all():
+            raise AssertionError(f"{name} ell Predictor: {served_k8} banded launches, rows "
+                                 f"{rows.shape}")
+        np.testing.assert_allclose(rows, ref, **LOGIT_TOL["float32"])
+        for pred in preds.values():
+            pred.close()
+        models[name] = {
+            "logits_max_abs_diff": (got - want).abs().max().item(),
+            "forward_ms": ell_ms, "auto_forward_ms": auto_ms, "forward_peak_mb": fwd_peak,
+            "step_loss": ell_loss, "auto_step_loss": auto_loss, "step_peak_mb": step_peak,
+            "grad_err_worst": max(worst.values()),
+            "grad_err_worst_param": max(worst, key=worst.get), "grad_err_metric": "max abs",
+            "banded_launches": {"forward": with_k8, "step": list(step_k8),
+                                "served": served_k8},
+            "served_rows": int(rows.shape[0]),
+            "served_max_abs_diff": float(np.abs(rows - ref).max())}
+        del auto, ell, preds, got, want
+        torch.cuda.empty_cache()
+
+    # the ELL attention against K8 on the bench's planes (GATE's band)
+    d = bench.draws("banded_packed")
+    band = bench.banded_band()
+    col, valid = bench.ell_tables(bench.BANDED_SHAPE[2], bench.BANDED_SHAPE[3])
+    colt, validt = torch.from_numpy(col).long().cuda(), torch.from_numpy(valid).cuda()
+    planes = (-1, bench.BANDED_SHAPE[2] * bench.BANDED_SHAPE[3], bench.BANDED_SHAPE[4])
+    against_k8 = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.from_numpy(d["b" + n]).cuda().reshape(planes).to(dtype) for n in "qkv")
+        with torch.no_grad():
+            got = ell_graph_attention(*(t.view(16, 8, *planes[1:]) for t in (q, k, v)), colt,
+                                      validt, scale=bench.BANDED_SCALE).reshape(planes)
+            want = banded_attention(q, k, v, band, scale=bench.BANDED_SCALE)
+        err = (got - want).abs().max().item()
+        # bf16: K8 rounds the self block's probabilities to v's type (at most
+        # 2^-9 of each weight, weights summing to 1), the ELL form does not
+        bar = TOL["float32"] if dtype == torch.float32 else 2.0**-8 * v.abs().max().item()
+        if not err <= bar:
+            raise AssertionError(f"ell_graph_attention vs K8 {dtype_name(dtype)}: {err} > {bar}")
+        against_k8[dtype_name(dtype)] = {"max_abs_err": err, "bar": bar,
+                                         "bit_for_bit": torch.equal(got, want)}
+        del q, k, v, got, want
+    entries = {}
+    for impl in (*ELL_BENCH, *ELL_BESIDE):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rec = bench.measure(impl, repeats=3, inner=4)
+        entries[impl] = {k: rec.get(k) for k in ("time_us", "device_us", "bound_us", "bound_by",
+                                                  "bytes", "flops", "edges", "edges_per_sec",
+                                                  "launches")}
+        entries[impl]["peak_mb"] = peak_mb()
+    # masked SDPA over the whole F·V sequence of the same planes (GATE's band
+    # as the dense block-tridiagonal mask; memory-efficient backend), timed only
+    dense = torch.from_numpy(dense_band_mask(band, bench.BANDED_SHAPE[2])).cuda()
+    sdpa = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.from_numpy(d["b" + n]).cuda().reshape(planes).to(dtype) for n in "qkv")
+        do = torch.randn_like(q)
+        fwd_ms, bwd_ms = sdpa_ms(q, k, v, do, dense.to(dtype)[None, None],
+                                 scale=bench.BANDED_SCALE, runs=5,
+                                 backends=[SDPBackend.EFFICIENT_ATTENTION])
+        sdpa[dtype_name(dtype)] = {"fwd_ms": fwd_ms, "fwd_bwd_ms": fwd_ms + bwd_ms}
+        del q, k, v, do
+    torch.cuda.empty_cache()
+    ratio = {impl: entries[impl]["device_us"] / entries[beside]["device_us"]
+             for impl, beside in (("ell_bf16", "banded_packed_bf16"),
+                                  ("ell_bwd", "banded_packed_bwd"),
+                                  ("ell_bwd_bf16", "banded_packed_bwd_bf16"))}
+    emit("ell", nvidia_smi=nvidia_smi(), batch=16, frames=192, classes=2002,
+         tolerance={"logits": LOGIT_TOL["float32"], "grad": GRAD_ATOL_F32}, models=models,
+         bench=entries, sdpa_ms=sdpa, ell_over_k8_device=ratio, against_k8=against_k8,
+         note="ell_* entries: ell_graph_attention (plain torch, no kernel) at (16, 8, "
+              "192·29, 16); banded_packed*: K8 on the same q, k, v; sdpa_ms: masked SDPA "
+              "(memory-efficient backend, dense block-tridiagonal mask) on the same planes, "
+              "fwd_bwd as one forward and one backward; bare ell is bench_kernel.py's last "
+              "branch (stacked_window_attention at 12288 × 32 × 64)")
+    return {"models": models, "bench": entries}
+
+
+# The data tools' run: an FDMSE-ISL video tree (its adapter, fdmse_meta: 5
+# train and 1 test video a class, one train video a class carved out for
+# val) of 16 classes, each clip a 192-frame mediapipe clip (543 joints × 4),
+# preprocessed under the FDMSE-ISL name (192 frames, the 2002-class head;
+# the class map padded to the dataset's 2002 words, as the CLI cell's):
+# 64 train, 16 val and 16 test clips, the CLI cell's counts (the train
+# transform takes about 70 host ms a clip, so 128 train clips cost the
+# script another 130 s)
+TOOLS_DATASET = "FDMSE-ISL"
+TOOLS_CLASSES = 16
+TOOLS_FRAMES = 192
+TOOLS_EPOCHS = 2  # --epochs 2: epochs 0-2, the last two warm
+# the stores' train runs in turns, each store first once: four warm epochs a store
+TOOLS_ORDER = ("clipstore", "pickle", "pickle", "clipstore")
+TOOLS_LOADER_EPOCHS = 1  # epochs of the train loader alone, a turn
+
+
+def write_keypoint_tree(root: Path, kp_dir: Path, classes: int = TOOLS_CLASSES) -> str:
+    """A video tree (empty files) of ``classes`` classes, its metadata.csv
+    through fdmse_meta and generate_meta, and a synthetic mediapipe keypoint
+    pickle per clip; returns the metadata path."""
+    import pickle
+
+    import numpy as np
+
+    from sl_hwgat_tpu_torch.data.meta_generators import fdmse_meta, generate_meta
+
+    for cls in range(classes):
+        for split, n in (("train", 5), ("test", 1)):
+            folder = root / split / f"sign{cls:02d}"
+            folder.mkdir(parents=True)
+            for i in range(n):
+                (folder / f"sign{cls:02d}_{split}_{i}.mp4").touch()
+    rows, vocab = fdmse_meta(str(root), seed=SEED)
+    meta_csv = generate_meta(str(root), rows, vocab)
+    kp_dir.mkdir(parents=True)
+    rng = np.random.default_rng(SEED + 6)
+    base = rng.uniform(0.3, 0.7, size=(1, 543, 4)).astype(np.float32)
+    for row in rows:
+        drift = np.cumsum(rng.normal(0, 0.005, size=(TOOLS_FRAMES, 1, 4)), axis=0)
+        feat = np.clip(base + drift + rng.normal(0, 0.01, size=(TOOLS_FRAMES, 543, 4)),
+                       0.02, 0.98).astype(np.float32)
+        with open(kp_dir / f"{row[0]}.pkl", "wb") as f:
+            pickle.dump({"feat": feat, "num_frames": TOOLS_FRAMES, "vid_width": 640,
+                         "vid_height": 480}, f)
+    return meta_csv
+
+
+def clip_read_us(readers: dict, ids: list, rounds: int = 20) -> dict:
+    """µs a clip read of each reader, on one thread and on the loader's 8
+    threads, the readers in turns (forward, then backward), medians of the
+    turns."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    out = {name: {"one_thread": [], "eight_threads": []} for name in readers}
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        for turn in range(4):
+            for name in readers if turn % 2 == 0 else reversed(readers):
+                get = readers[name]
+                list(pool.map(get, ids))
+                t0 = time.perf_counter()
+                for _ in range(rounds):
+                    for vid in ids:
+                        get(vid)
+                out[name]["one_thread"].append((time.perf_counter() - t0) / (rounds * len(ids)))
+                t0 = time.perf_counter()
+                list(pool.map(get, ids * rounds))
+                out[name]["eight_threads"].append(
+                    (time.perf_counter() - t0) / (rounds * len(ids)))
+    return {name: {k: statistics.median(v) * 1e6 for k, v in d.items()}
+            for name, d in out.items()}
+
+
+def loader_epoch_seconds(workdir: Path, store: str, epochs: range) -> list:
+    """Seconds of each of ``epochs`` of the train loader alone (get_loaders
+    on the store's artifacts, the train transform, 8 threads, no steps)."""
+    from sl_hwgat_tpu_torch.data.dataset import get_loaders
+
+    cfg = cli_config(workdir / store, "train", TOOLS_EPOCHS, dataset=TOOLS_DATASET, n_workers=8)
+    loaders = get_loaders(cfg, cfg.train_transform(), cfg.eval_transform())
+    seconds = []
+    try:
+        for epoch in epochs:
+            t0 = time.perf_counter()
+            for _ in loaders[0].epoch(epoch):
+                pass
+            seconds.append(time.perf_counter() - t0)
+    finally:
+        for loader in loaders:
+            loader.close()
+    return seconds
+
+
+def phase_data_tools(workdir: Path, classes: int = TOOLS_CLASSES,
+                     loader_epochs: int = TOOLS_LOADER_EPOCHS) -> dict:
+    """Main path 13: the data tools. Synthetic keypoint clips → fdmse_meta →
+    generate_meta → preprocess into a pickle store and a clip store; the clip
+    store opened by the native reader gives every clip of the pickle store
+    bit for bit; cli.run trains HWGATE (three epochs, batch 16) from each
+    store in turns (clip store, pickle, pickle, clip store), and tests it
+    from each, with exact launches (8 K1 per step and eval batch, 8 K2 per
+    step). Against each other: the warm train epochs' seconds, the train
+    loader's epochs alone (in the same turns) and a clip read."""
+    import csv
+
+    import numpy as np
+    import torch
+
+    from sl_hwgat_tpu_torch.constants import DATASET_PARAMS
+    from sl_hwgat_tpu_torch.data.clipstore import ClipStore
+    from sl_hwgat_tpu_torch.data.dataset import load_artifacts
+    from sl_hwgat_tpu_torch.data.preprocess import preprocess
+
+    t0 = time.perf_counter()
+    meta_csv = write_keypoint_tree(workdir / "FDMSE", workdir / "kp", classes)
+    write_s = time.perf_counter() - t0
+    roots, prep_s, class_maps = {}, {}, {}
+    for store in ("clipstore", "pickle"):
+        roots[store] = workdir / store / "input"  # cli_config's input root of workdir / store
+        t0 = time.perf_counter()
+        data_cfg = preprocess(meta_csv, TOOLS_DATASET, str(workdir / "kp"),
+                              input_root=str(roots[store]), store=store)
+        prep_s[store] = time.perf_counter() - t0
+        class_maps[store] = data_cfg.class_map_path
+    splits, classes, data_map = load_artifacts(str(roots["pickle"]), TOOLS_DATASET)
+    s_splits, s_classes, clips = load_artifacts(str(roots["clipstore"]), TOOLS_DATASET)
+    if clips.backend != "native" or s_splits != splits or s_classes != classes:
+        raise AssertionError(f"clip store: backend {clips.backend}, splits or classes differ")
+    if sorted(clips.keys()) != sorted(data_map) or not all(
+            clips[v].dtype == data_map[v].dtype and np.array_equal(clips[v], data_map[v])
+            for v in data_map):
+        raise AssertionError("clip store: a clip differs from the pickle store's")
+    words = len(set(classes.values()))
+    for path in class_maps.values():  # the dataset's other words, for the confusion CSV
+        with open(path, "a", newline="") as f:
+            csv.writer(f).writerows([c, f"word{c}"] for c in range(
+                words, DATASET_PARAMS[TOOLS_DATASET]["num_class"]))
+    # the loader's read of a clip: the native reader, numpy's, and the
+    # in-memory pickle's copy (KeypointDataset copies an in-memory entry)
+    numpy_clips = ClipStore(clips.path, force_numpy=True)
+    read_us = clip_read_us({"native": clips.__getitem__, "numpy": numpy_clips.__getitem__,
+                            "pickle": lambda vid: data_map[vid].copy()}, list(data_map))
+    clips.close()
+    numpy_clips.close()
+    batches = {k: -(-len(v) // 16) for k, v in splits.items()}
+    final = batches["train"] + batches["val"] + 2 * batches["test"]
+    runs, epochs, total = [], [], {"fwd": 0, "bwd": 0}
+    for turn, store in enumerate(TOOLS_ORDER):
+        tag = f"tools_{store}_{turn}"
+        cfg = cli_config(workdir / store, "train", TOOLS_EPOCHS, tag, dataset=TOOLS_DATASET,
+                         n_workers=8)
+        with timed_train_epochs(epochs, f"{store}_{turn}"):
+            results, state, launches, seconds = cli_run(
+                cfg, (TOOLS_EPOCHS + 1) * batches["train"],
+                (TOOLS_EPOCHS + 1) * batches["val"] + final)
+        del state
+        run = {"store": store, "train": {"launches": launches, "seconds": seconds,
+                                         "results": results}}
+        launch_runs = [launches]
+        if store not in TOOLS_ORDER[:turn]:  # test from each store once
+            tcfg = cli_config(workdir / store, "test", TOOLS_EPOCHS, tag,
+                              dataset=TOOLS_DATASET, n_workers=8)
+            tcfg.topk = 5
+            test_results, _, test_launches, test_s = cli_run(tcfg, 0, final)
+            run["test"] = {"launches": test_launches, "seconds": test_s,
+                           "results": test_results}
+            launch_runs.append(test_launches)
+        for launched in launch_runs:
+            for kind in total:
+                total[kind] += launched[kind]
+        runs.append(run)
+        torch.cuda.empty_cache()
+    loader_s = {store: [] for store in ("clipstore", "pickle")}
+    for turn, store in enumerate(TOOLS_ORDER):
+        first = 1 + turn * loader_epochs
+        loader_s[store] += loader_epoch_seconds(workdir, store,
+                                                range(first, first + loader_epochs))
+    warm = {store: sorted(e["seconds"] for e in epochs
+                          if e["run"].startswith(store) and e["epoch"] > 0)
+            for store in loader_s}
+    wait = {store: sorted(e["loader_wait_s"] for e in epochs
+                          if e["run"].startswith(store) and e["epoch"] > 0)
+            for store in loader_s}
+    emit("data_tools", nvidia_smi=nvidia_smi(), dataset=TOOLS_DATASET,
+         clips={k: len(v) for k, v in splits.items()}, frames=TOOLS_FRAMES, batch=16,
+         loader_workers=8, order=TOOLS_ORDER, write_s=write_s, preprocess_s=prep_s,
+         backend="native", clips_bit_for_bit=len(data_map), read_us_per_clip=read_us,
+         runs=runs, train_epochs=epochs,
+         warm_epoch_median_s={k: statistics.median(v) for k, v in warm.items()},
+         warm_epoch_s=warm, warm_loader_wait_s=wait,
+         loader_epoch_median_s={k: statistics.median(v) for k, v in loader_s.items()},
+         loader_epoch_s=loader_s, launches=total)
+    return total
+
+
+# (case, model, compute dtype, attn_impl, the kernel its eval forward launches)
+EXPORTS = (("HWGATE/bfloat16", "HWGATE", "bfloat16", "auto", "window_attention_fwd"),
+           ("HWGATE-hybrid/bfloat16", "HWGATE", "bfloat16", "hybrid", "masked_softmax_fwd"),
+           ("WGATE/float32", "WGATE", "float32", "auto", "banded_attention_fwd"))
+
+# run in a fresh python3: load each exported program with Predictor.load_exported,
+# count the hand kernels one call launches, time it, keep its logits
+EXPORT_CHILD = r"""
+import json, statistics, sys, time
+import numpy as np
+import torch
+from sl_hwgat_tpu_torch.serve import Predictor
+from sl_hwgat_tpu_torch.ops import banded_attention as b, hybrid_attention as h
+from sl_hwgat_tpu_torch.ops import window_attention as w
+
+counters = {w.KERNEL: w.window_attention, w.KERNEL_BWD: w.window_attention_bwd,
+            h.KERNEL: h.masked_softmax, h.KERNEL_BWD: h.masked_softmax_bwd,
+            b.KERNEL: b.banded_attention, b.KERNEL_BWD: b.banded_attention_bwd}
+out = {}
+for job in json.loads(sys.argv[1]):
+    t0 = time.perf_counter()
+    fn = Predictor.load_exported(job["program"])
+    load_s = time.perf_counter() - t0
+    x = torch.from_numpy(np.load(job["x"])).cuda()
+    fn(x)
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    logits = fn(x)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items() if c.launches}
+    np.save(job["logits"], logits.float().cpu().numpy())
+    ms, host = [], []
+    for _ in range(10):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn(x)
+        host.append((time.perf_counter() - t0) / 5 * 1e3)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end) / 5)
+    out[job["case"]] = {"load_s": load_s, "launches": launches, "ms": statistics.median(ms),
+                        "host_ms": statistics.median(host)}
+print(json.dumps({
+    "results": out,
+    "models": [n for n in sys.modules if n.startswith("sl_hwgat_tpu_torch.models")],
+    "reference": [n for n in sys.modules if n == "sl_hwgat_tpu" or n.startswith("sl_hwgat_tpu.")],
+    "jax": [n for n, m in sys.modules.items() if m is not None and n.split(".")[0] in
+            ("jax", "jaxlib", "flax", "optax")],
+}))
+"""
+
+
+def forward_host_and_card_ms(fn, x):
+    """(events ms, host ms) of one call of ``fn(x)``: CUDA events around 5
+    back-to-back calls, and the host's time to return from each (the
+    enqueue), medians of 10."""
+    import torch
+
+    ms, host = [], []
+    fn(x)
+    torch.cuda.synchronize()
+    for _ in range(10):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn(x)
+        host.append((time.perf_counter() - t0) / 5 * 1e3)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end) / 5)
+    return statistics.median(ms), statistics.median(host)
+
+
+def first_differing_module(model, program_path: str, x) -> str | None:
+    """The first submodule, in the eager forward's call order, whose output in
+    the exported program (``torch.export.unflatten``) differs from eager's."""
+    import torch
+
+    program = torch.export.unflatten(torch.export.load(program_path))
+    eager, exported = {}, {}
+
+    def keep(store, name):
+        def hook(_, __, out):
+            if torch.is_tensor(out):
+                store.setdefault(name, out.detach().clone())
+        return hook
+
+    handles = [m.register_forward_hook(keep(eager, n)) for n, m in model.named_modules() if n]
+    handles += [m.register_forward_hook(keep(exported, n))
+                for n, m in program.named_modules() if n]
+    with torch.no_grad():
+        model(x)
+        program(x)
+    for h in handles:
+        h.remove()
+    for name, out in eager.items():
+        if name in exported and not torch.equal(out, exported[name]):
+            return name
+    return None
+
+
+def phase_export(workdir: Path, repo: Path) -> dict:
+    """Main path 14: serving export. HWGATE bf16, HWGATE hybrid bf16 and
+    WGATE f32 at FDMSE-ISL, full width, from a checkpoint through
+    Predictor.export_program at bucket 16; then a fresh python3 loads each
+    with Predictor.load_exported (no module of the port's models, of jax or
+    of sl_hwgat_tpu imported), runs it on a batch of 16 preprocessed clips
+    with the launches of the hand kernels counted (8 K1, 8 K7 or 8 K8
+    forwards a call, no other), and times it; its logits against
+    Predictor.forward's on the same batch, bit for bit expected, else within
+    the model's bar with the first differing submodule named."""
+    import numpy as np
+    import torch
+
+    from sl_hwgat_tpu_torch.constants import DATASET_PARAMS
+    from sl_hwgat_tpu_torch.models import build_model
+    from sl_hwgat_tpu_torch.serve import Predictor
+    from sl_hwgat_tpu_torch.weights import save_state_dict
+
+    rng = np.random.default_rng(SEED + 7)
+    clips = [rng.random((int(f), 543, 4)).astype(np.float32)
+             for f in rng.integers(96, 385, size=16)]
+    jobs, cases = [], {}
+    for case, name, cdt, impl, kernel in EXPORTS:
+        tag = case.replace("/", "_")
+        ckpt = workdir / f"{tag}.pt"
+        save_state_dict(str(ckpt), build_model(name, DATASET_PARAMS["FDMSE-ISL"], 2,
+                                               device="cuda", seed=SEED, compute_dtype=cdt,
+                                               attn_impl=impl))
+        pred = Predictor.from_checkpoint(str(ckpt), model_type=name, dataset="FDMSE-ISL",
+                                         batch_buckets=(16,), compute_dtype=cdt, attn_impl=impl)
+        x = np.stack([pred.preprocess(c) for c in clips])
+        t0 = time.perf_counter()
+        program = pred.export_program(str(workdir / f"{tag}.pt2"), 16, clips[0])
+        export_s = time.perf_counter() - t0
+        np.save(workdir / f"{tag}_x.npy", x)
+        want = pred.forward(x).float().cpu()
+        xt = torch.from_numpy(x).cuda()
+        with torch.inference_mode():
+            fwd_ms, fwd_host_ms = forward_host_and_card_ms(pred.model, xt)
+        jobs.append({"case": case, "program": program, "x": str(workdir / f"{tag}_x.npy"),
+                     "logits": str(workdir / f"{tag}_logits.npy")})
+        cases[case] = {"pred": pred, "want": want, "kernel": kernel, "cdt": cdt,
+                       "export_s": export_s, "program_mb": os.path.getsize(program) / 2**20,
+                       "forward_ms": fwd_ms, "forward_host_ms": fwd_host_ms}
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(repo)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", EXPORT_CHILD, json.dumps(jobs)], cwd=workdir,
+                          env=env, capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"load_exported process: rc {proc.returncode}\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    if child["models"] or child["reference"] or child["jax"]:
+        raise AssertionError(f"load_exported imported {child['models']}, {child['reference']}, "
+                             f"{child['jax']}")
+    out, launches = {}, {}
+    for job in jobs:
+        case, c = job["case"], cases[job["case"]]
+        res = child["results"][case]
+        if res["launches"] != {c["kernel"]: 8}:
+            raise AssertionError(f"exported {case}: one call launched {res['launches']}, "
+                                 f"not 8 of {c['kernel']}")
+        launches[c["kernel"]] = res["launches"][c["kernel"]]
+        got = torch.from_numpy(np.load(job["logits"]))
+        if got.shape != (16, 2002) or not torch.isfinite(got).all():
+            raise AssertionError(f"exported {case}: logits {tuple(got.shape)} or non-finite")
+        bit = torch.equal(got, c["want"])
+        differs = None
+        if not bit:
+            differs = first_differing_module(c["pred"].model, job["program"],
+                                             torch.from_numpy(np.load(job["x"])).cuda())
+            torch.testing.assert_close(got, c["want"], **LOGIT_TOL[c["cdt"]],
+                                       msg=lambda m: f"exported {case} ({differs}): {m}")
+        out[case] = {"bit_for_bit": bit, "max_abs_diff": (got - c["want"]).abs().max().item(),
+                     "first_differing_module": differs, "launches": res["launches"],
+                     "program_ms": res["ms"], "program_host_ms": res["host_ms"],
+                     "forward_ms": c["forward_ms"], "forward_host_ms": c["forward_host_ms"],
+                     "export_s": c["export_s"], "load_s": res["load_s"],
+                     "program_mb": c["program_mb"]}
+        c["pred"].close()
+    del cases
+    torch.cuda.empty_cache()
+    emit("export", nvidia_smi=nvidia_smi(), batch=16, frames=192, classes=2002,
+         tolerance=LOGIT_TOL, child_s=child_s, results=out,
+         note="program_ms / forward_ms: CUDA events around 5 back-to-back calls of the "
+              "loaded program (fresh process) / of Predictor's model in this one; *_host_ms: "
+              "the host's time to return from one call (its enqueue)")
+    return launches
+
+
 def kernel_entry(kind: str, name: str, replaces: str, launches: int, timings: dict,
                  errors: dict) -> dict:
     """One entry of the kernels line: HWGATE's f32 numbers at the top level
@@ -3612,6 +4191,12 @@ def main() -> int:
     bench_steps = phase_bench_cli(repo)
     probe_timings = phase_probe_timings()
     step_launches = phase_step_bench(bench_steps, timings)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_ell(Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        tools_launches = phase_data_tools(Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        export_launches = phase_export(Path(tmp), repo)
 
     from sl_hwgat_tpu_torch.bench import kernel as bench
     from sl_hwgat_tpu_torch.ops import banded_attention, hybrid_attention, probes, window_attention
@@ -3627,6 +4212,8 @@ def main() -> int:
     fwd["cli_launches"] = cli_launches["fwd"]
     fwd["bench_launches"] = bench_launches[window_attention.KERNEL]
     fwd["step_bench_launches"] = step_launches["window_attention"]
+    fwd["data_tools_launches"] = tools_launches["fwd"]
+    fwd["export_launches"] = export_launches[window_attention.KERNEL]
     fwd["wide_design"] = WIDE_DESIGN
     fwd["wide_ptxas"] = {n: r for n, r in wide_kernels.items() if "fwd" in n}
     fwd["edge_cases_max_abs_err"] = edge_errors["window_fwd"]
@@ -3641,6 +4228,7 @@ def main() -> int:
     bwd["hgate_train_launches"] = trained["window_attention_bwd"]
     bwd["cli_launches"] = cli_launches["bwd"]
     bwd["step_bench_launches"] = step_launches["window_attention_bwd"]
+    bwd["data_tools_launches"] = tools_launches["bwd"]
     bwd["wide_design"] = WIDE_DESIGN
     bwd["wide_ptxas"] = {n: r for n, r in wide_kernels.items() if "bwd" in n}
     bwd["edge_cases_max_abs_err"] = edge_errors["window_bwd"]
@@ -3653,6 +4241,7 @@ def main() -> int:
                       banded_serve_launches, banded_timings, banded_fwd_errors, "WGATE/float32")
     bfwd["train_launches"] = banded_train_launches["fwd"]
     bfwd["step_bench_launches"] = step_launches["banded_attention"]
+    bfwd["export_launches"] = export_launches[banded_attention.KERNEL]
     bfwd["edge_cases_max_abs_err"] = edge_errors["banded_fwd"]
     bfwd.update(design=REDESIGNED[banded_attention.KERNEL],
                 ptxas=redesigned.get(banded_attention.KERNEL),
@@ -3674,6 +4263,7 @@ def main() -> int:
                       "HWGATE/float32")
     sfwd["train_launches"] = trained["masked_softmax"]
     sfwd["step_bench_launches"] = step_launches["masked_softmax"]
+    sfwd["export_launches"] = export_launches[hybrid_attention.KERNEL]
     sfwd["edge_cases_max_abs_err"] = edge_errors["softmax_fwd"]
     sfwd.update(design=REDESIGNED[hybrid_attention.KERNEL],
                 ptxas=redesigned.get(hybrid_attention.KERNEL),

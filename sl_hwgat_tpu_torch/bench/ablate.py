@@ -2,7 +2,7 @@
 
     python -m sl_hwgat_tpu_torch.bench.ablate [wide|banded|softmax|window32|banded_fwd|
                                                window32_fwd|tile|fused|layout|fused_bwd|
-                                               relayout] [--parent DIR]
+                                               relayout|wrappers] [--parent DIR]
 
 Builds variants of a kernel's sources that each leave one phase out, under
 ``build/ablate/<variant>/``, and prints one JSON line of the card's times
@@ -107,6 +107,14 @@ ms (``profiling.device_seconds``) and by events around back-to-back calls
 launches per call; then ``window32_fwd`` against the parent (token-major
 K1).
 
+``wrappers`` (needs ``--parent``): the eager host path of the three forward
+wrappers an eval forward calls (``window_attention``, ``masked_softmax``,
+``banded_attention``), this checkout's and the parent's (imported beside
+it), at small calls whose kernels take a few µs (64 units of 32 tokens × dh
+64; 64 units of 32 × 32 scores; 8 planes of 4 frames × 29 joints × dh 16):
+the host's µs a call over 500 back-to-back calls, in turns (12 samples
+each), with ``bit_equal``.
+
 ``layout``: the layout kernel (``csrc/window_attention_layout.cu``) on one
 bench entry of each instantiation and ``tlay_fused_bf16``, each variant
 loaded in turn behind ``window_attention_into`` (``--parent`` is not read):
@@ -144,6 +152,7 @@ import statistics
 import subprocess
 import sys
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -989,6 +998,61 @@ _ARGTYPES_OF = {(ba.KERNEL, "recompute"): ["p"] * 5 + ["ll", "i", "i", "i", "i",
                 (ba.KERNEL_BWD, "recompute"): ["p"] * 8 + ["ll", "i", "i", "i", "i", "f", "p"]}
 
 
+WRAPPER_SOURCES = ("window_attention_fwd", "masked_softmax_fwd", "banded_attention_fwd")
+
+
+def host_us(call, calls: int = 500) -> float:
+    """The host's µs a call over ``calls`` back-to-back calls (the card
+    finishes each in a few µs, so the queue never fills)."""
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        call()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
+
+
+def run_wrappers(parent) -> dict:
+    if parent is None:
+        raise SystemExit("bench.ablate wrappers: --parent is required")
+    pw, ph, pb, pbuild = parent_modules(Path(parent), names=(
+        "ops.window_attention", "ops.hybrid_attention", "ops.banded_attention", "ops._build"))
+    built = threading.Thread(target=pbuild.build, args=(WRAPPER_SOURCES,))
+    built.start()
+    _build.build(WRAPPER_SOURCES)
+    built.join()
+    for name in WRAPPER_SOURCES:  # fails here, not in a timed call, if a build did
+        pbuild.load(name)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    adj = windowed_block_adj(2)[0]
+    q, k, v = (torch.randn(64, 32, 64, generator=g, device="cuda") for _ in range(3))
+    s = torch.randn(64, 32, 32, generator=g, device="cuda")
+    band = make_band(edges_to_dense(BODY29_EDGES, 29, self_loops=False))
+    qb, kb, vb = (torch.randn(8, 4 * 29, 16, generator=g, device="cuda") for _ in range(3))
+    calls = {
+        "window_attention": {m: (lambda m=m: m.window_attention(q, k, v, adj, scale=SCALE))
+                             for m in (pw, wa)},
+        "masked_softmax": {m: (lambda m=m: m.masked_softmax(s, adj)) for m in (ph, ha)},
+        "banded_attention": {m: (lambda m=m: m.banded_attention(qb, kb, vb, band, scale=0.25))
+                             for m in (pb, ba)},
+    }
+    out = {}
+    with torch.no_grad():
+        for name, pair in calls.items():
+            (pmod, pcall), (_, call) = pair.items()
+            times = {"parent": [], "full": []}
+            for _ in range(6):
+                for who, fn in (("parent", pcall), ("full", call), ("full", call),
+                                ("parent", pcall)):
+                    times[who].append(host_us(fn))
+            out[name] = {"host_us": times,
+                         "median_us": {w: statistics.median(t) for w, t in times.items()},
+                         "bit_equal": torch.equal(pcall(), call())}
+    return {"wrappers": out}
+
+
 def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("bench.ablate: no CUDA device", file=sys.stderr)
@@ -997,7 +1061,7 @@ def main(argv=None) -> int:
     parser.add_argument("kernel", nargs="?", default="wide",
                         choices=("wide", "banded", "softmax", "window32", "banded_fwd",
                                  "window32_fwd", "tile", "fused", "layout", "fused_bwd",
-                                 "relayout"))
+                                 "relayout", "wrappers"))
     parser.add_argument("--parent", type=Path, default=None,
                         help="another checkout whose kernel is timed in turns with this one")
     args = parser.parse_args(argv)
@@ -1005,7 +1069,7 @@ def main(argv=None) -> int:
            "window32": run_window32, "banded_fwd": run_banded_fwd,
            "window32_fwd": run_window32_fwd, "tile": run_tile,
            "fused": run_fused, "layout": run_layout, "fused_bwd": run_fused_bwd,
-           "relayout": run_relayout}[args.kernel](args.parent)
+           "relayout": run_relayout, "wrappers": run_wrappers}[args.kernel](args.parent)
     if not out:
         return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

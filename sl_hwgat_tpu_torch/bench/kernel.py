@@ -3,9 +3,8 @@
     python -m sl_hwgat_tpu_torch.bench.kernel <impl> [units] [--tg N] [--device cpu]
 
 Counterpart of ``bench_kernel.py``: every implementation name there has an
-entry in ``IMPLS`` (``ell_*`` raises: the sparse ops are not ported). The
-probes' TPU layouts are kept as inputs and outputs; the work between them
-runs on the port's kernels:
+entry in ``IMPLS``. The probes' TPU layouts are kept as inputs and outputs;
+the work between them runs on the port's kernels:
 
 - stream probes (``floor_copy*``, ``floor_slab*``, ``tlay_copy*``,
   ``*_floor``, ``dmaflr_*``, ``xstrided_ref*``): ``ops/probes.py``
@@ -28,15 +27,23 @@ runs on the port's kernels:
   unit blocks of each supertile that reach the output (K7's row routine);
 - ``hybrid*``: ``hybrid_window_attention`` (K7); ``banded_*``: the banded
   kernels K8/K9;
-- yardsticks, timed only: ``stacked*`` (the plain attention),
-  ``calib_*`` (``torch.matmul``/``torch.bmm``), ``xrelay_copy*`` (an add).
+- ``ell_*``: ``ell_graph_attention`` (``ops/sparse_attention.py``, plain
+  torch as in the JAX package: no kernel) at GATE's batch-16 shape on the
+  BODY29 spatial plane plus ±1-frame links (``bench_kernel.py:1373-1426``);
+  a ``units`` below the default cuts the batch in proportion (at least 1);
+- yardsticks, timed only: ``stacked*`` (the plain attention; also bare
+  ``ell``, which in ``bench_kernel.py`` does not match ``ell_`` and falls
+  to its last branch, ``stacked_window_attention``), ``calib_*``
+  (``torch.matmul``/``torch.bmm``), ``xrelay_copy*`` (an add).
 
 The inputs are drawn as ``bench_kernel.py:104-108`` draws them. One JSON line
 gives the keys of ``bench_kernel.py`` (``impl``, ``edges`` where it has
 them, ``time_us``, ``time_us_min``, ``time_us_max``, ``n_repeats``,
 ``spread_pct``) and ``bound_us``/``bound_by`` (the H100 bound of the call's
 bytes and operations, ``utils/profiling.py``), ``device_us`` (the call's
-time with the card's queue kept full, ``profiling.device_seconds``), the
+time with the card's queue kept full, ``profiling.device_seconds``; None for
+the plain attention's yardsticks, whose masks are copied from the host at
+every call, which waits on the card), the
 kernels' launches per
 call and the device (name and power limit from ``nvidia-smi``). Times come
 from CUDA events around back-to-back calls, the median of the repeats; where
@@ -61,13 +68,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sl_hwgat_tpu_torch.graphs.adjacency import additive_mask, windowed_block_adj
+from sl_hwgat_tpu_torch.graphs.adjacency import (
+    additive_mask,
+    dense_to_ell,
+    spatio_temporal_adj,
+    windowed_block_adj,
+)
 from sl_hwgat_tpu_torch.graphs.skeleton import BODY29_EDGES, edges_to_dense
 from sl_hwgat_tpu_torch.ops import banded_attention as banded_mod
 from sl_hwgat_tpu_torch.ops import hybrid_attention as hybrid_mod
 from sl_hwgat_tpu_torch.ops import layouts, probes
 from sl_hwgat_tpu_torch.ops import window_attention as window_mod
 from sl_hwgat_tpu_torch.ops.attention import stacked_window_attention
+from sl_hwgat_tpu_torch.ops.sparse_attention import ell_graph_attention
 from sl_hwgat_tpu_torch.utils import profiling
 
 UNITS, N, DH, SN, STACK, SCALE, HEADS = 12288, 32, 64, 128, 4, 0.125, 8
@@ -134,6 +147,20 @@ def banded_band() -> np.ndarray:
     return np.stack([additive_mask(eye), additive_mask(spatial), additive_mask(eye)])
 
 
+@functools.lru_cache(maxsize=None)
+def ell_tables(frames: int, joints: int):
+    """(col_idx, valid) of the ``ell_*`` entries: GATE's spatial plane within
+    each frame and same-joint links to the neighbouring frames
+    (``bench_kernel.py:1386-1398``), through ``dense_to_ell``."""
+    return dense_to_ell(spatio_temporal_adj(BODY29_EDGES, frames, joints))
+
+
+def ell_batch(units: int) -> int:
+    """The ``ell_*`` entries' batch: 16 at the default units, cut in
+    proportion below them (at least 1)."""
+    return max(1, BANDED_SHAPE[0] * min(units, UNITS) // UNITS)
+
+
 @functools.lru_cache(maxsize=1)
 def _qkv_draws(units: int):
     """q, k, v as every probe draws them first, and the generator's state
@@ -147,7 +174,8 @@ def draws(impl: str, units: int = UNITS) -> dict:
     """The numpy arrays ``bench_kernel.py`` draws for ``impl``: q, k, v
     (units, 32, 64) from ``default_rng(0)``, then from the same generator
     the relayout probes' x0, or the calibrations' operand; the banded
-    probes' q, k, v (16, 8, 192, 29, 16) from ``default_rng(1)``."""
+    probes' q, k, v (16, 8, 192, 29, 16) from ``default_rng(1)``, and the
+    ``ell_*`` entries' the same draws at ``ell_batch(units)``."""
     qkv, state = _qkv_draws(units)
     out = dict(zip("qkv", qkv))
     r = np.random.default_rng()
@@ -161,10 +189,13 @@ def draws(impl: str, units: int = UNITS) -> dict:
         out["m"] = r.normal(size=(2048, 2048)).astype(np.float32)
     elif impl.startswith("calib_shape") or impl == "pair_tscore_bf16":
         out["ks2"] = r.normal(size=(units // 4, 128, 64)).astype(np.float32)
-    elif impl.startswith("banded_"):
+    elif impl.startswith(("banded_", "ell_")):
+        shape = BANDED_SHAPE
+        if impl.startswith("ell_"):
+            shape = (ell_batch(units),) + BANDED_SHAPE[1:]
         rb = np.random.default_rng(1)
         for name in "qkv":
-            out["b" + name] = rb.normal(size=BANDED_SHAPE).astype(np.float32)
+            out["b" + name] = rb.normal(size=shape).astype(np.float32)
     return out
 
 
@@ -185,6 +216,9 @@ class Probe:
     # map from a storage of the layout to its (…, N, dh) unit view
     into_call: list = field(default_factory=list)
     view: Callable | None = None
+    # False where a call copies from host memory (the plain attention's
+    # masks), which waits on the card: device_seconds cannot queue it ahead
+    queues_ahead: bool = True
 
 
 def _into(record: list, *args, **kw) -> None:
@@ -616,8 +650,38 @@ def _banded_probe(impl, d, dev, tg) -> Probe:
                  flops, dt_name(dt), nnz)
 
 
+def _ell_probe(impl, d, dev, tg) -> Probe:
+    """ell_bf16, ell_bwd, ell_bwd_bf16: the edge-space attention on the
+    BODY29 topology over (B, 8, 192·29, 16); the backward entries give dq
+    of sum(o²) (``bench_kernel.py:1373-1426``)."""
+    _, h, f, v, dh = BANDED_SHAPE
+    col, valid = ell_tables(f, v)
+    dt = BF16 if impl.endswith("bf16") else F32
+    q, k, vv = (torch.from_numpy(d["b" + n]).to(dev).reshape(-1, h, f * v, dh).to(dt)
+                for n in "qkv")
+    colt, valt = torch.from_numpy(col).long().to(dev), torch.from_numpy(valid).to(dev)
+    edges = q.shape[0] * h * int(valid.sum())
+    bwd = "bwd" in impl
+
+    def attend(x):
+        return ell_graph_attention(x, k, vv, colt, valt, scale=BANDED_SCALE)
+
+    if bwd:
+        def loss(leaf):
+            o = attend(leaf)
+            return o, (o**2).sum()
+
+        body = lambda x: _grad_of(loss, x)[1].to(dt)  # noqa: E731
+    else:
+        body = lambda x: attend(x).to(dt)  # noqa: E731
+    # two products of 2·dh operations an edge forward; dA and dq backward,
+    # all in f32 (a bf16 input's products are exact there)
+    return Probe(impl, q, body, (k, vv), edges * 2.0 * dh * (4 if bwd else 2), "float32",
+                 edges)
+
+
 def _yardstick_probe(impl, d, dev, tg) -> Probe:
-    """calib_*, hybrid*, stacked*, tsw1_fused."""
+    """calib_*, hybrid*, stacked*, tsw1_fused, and bare ell."""
     q, k, v = (torch.from_numpy(d[n]).to(dev) for n in "qkv")
     units = q.shape[0]
     adj = window_adj()
@@ -645,9 +709,9 @@ def _yardstick_probe(impl, d, dev, tg) -> Probe:
                          _win_flops(units, 7), dt_name(dt), edges)
         return Probe(impl, q, lambda x: att(x).float(), (kk, vv), _win_flops(units, 2),
                      dt_name(dt), edges)
-    # stacked, stacked_bf16, tsw1_fused: the plain attention
+    # stacked, stacked_bf16, tsw1_fused, ell: the plain attention
     return Probe(impl, q, lambda x: stacked_window_attention(x.to(dt), kk, vv, adj, **kw),
-                 (kk, vv), _win_flops(units, 2), dt_name(dt), edges)
+                 (kk, vv), _win_flops(units, 2), dt_name(dt), edges, queues_ahead=False)
 
 
 def calib_shape(x, ks2):
@@ -665,7 +729,8 @@ _BUILDERS = (
     (("matmul_",), _matmul_probe),
     (("softmax_only",), _softmax_probe),
     (("banded_",), _banded_probe),
-    (("calib_", "hybrid", "stacked", "tsw1_"), _yardstick_probe),
+    (("ell_",), _ell_probe),
+    (("calib_", "hybrid", "stacked", "tsw1_", "ell"), _yardstick_probe),
 )
 
 
@@ -678,10 +743,6 @@ def inputs(impl: str, units: int = UNITS, *, device="cuda", tg: int | None = Non
     256-row tiles)."""
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}")
-    if impl.startswith("ell"):
-        raise NotImplementedError(
-            f"{impl}: the ELL sparse attention (ops/sparse_attention.py, no Pallas kernel) is "
-            "not ported yet: ROADMAP.md queue 1 item 5")
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the kernel bench's inputs live on the card "
@@ -770,14 +831,16 @@ def measure(impl: str, units: int = UNITS, *, device: str = "cuda", tg: int | No
     if p.edges is not None:
         rec["edges"] = p.edges
     rec.update(profiling.repeat_stats(per_call))
-    if impl.startswith("banded_"):
+    if impl.startswith(("banded_", "ell_")):
         rec["edges_per_sec"] = p.edges / (rec["time_us"] / 1e6)
     if impl.startswith("calib_"):
         rec["tflops"] = p.flops / (rec["time_us"] / 1e6) / 1e12
     if device == "cuda":  # the card's time, without the host's launch gaps
-        with torch.no_grad():
-            rec["device_us"] = profiling.device_seconds(p.body, p.state, calls=inner,
-                                                        repeats=repeats) * 1e6
+        rec["device_us"] = None  # where a call waits on the card, events are its time
+        if p.queues_ahead:
+            with torch.no_grad():
+                rec["device_us"] = profiling.device_seconds(p.body, p.state, calls=inner,
+                                                            repeats=repeats) * 1e6
     rec.update(bound_us=bound_s * 1e6, bound_by=bound_by, bytes=nbytes, flops=p.flops,
                launches=counts, clock="cuda_events" if device == "cuda" else "host",
                device=device_info(device))

@@ -71,7 +71,8 @@ def parser(argv=None) -> argparse.Namespace:
                    help="attention path: auto/pallas/stacked (the fused window-attention "
                         "kernels), hybrid (GEMMs around the masked-softmax kernels); "
                         "banded/compact/pallas_banded/pallas_packed select WGATE's and "
-                        "GATE's banded attention (one function); ell is not ported")
+                        "GATE's banded attention (one function), ell its edge-space "
+                        "gather/scatter form")
     p.add_argument("--prng", type=str, default="auto",
                    choices=["auto", "threefry2x32", "rbg", "unsafe_rbg"],
                    help="accepted for the JAX package's command line; ignored")

@@ -11,8 +11,11 @@
 - transforms run in a thread pool (NumPy/SciPy release the GIL on the hot
   paths), ``prefetch`` batches ahead of the consumer.
 
-Data-map entries are in-memory arrays or ``.pkl`` paths; the clip store and
-``.mp4`` entries are not ported yet (see ROADMAP.md).
+The data map is an in-memory pickle of arrays or ``.pkl`` paths, or a
+``{"__clipstore__": path}`` marker that ``load_artifacts`` resolves to a
+``ClipStore`` (``data/clipstore.py``, written by ``preprocess(...,
+store="clipstore")``). ``.mp4`` entries are not ported: they need
+``decord`` (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -159,7 +162,8 @@ class Loader:
 def load_artifacts(input_root: str, dataset_name: str, feature_type: str = "keypoints"):
     """(vid_splits, vid_class, data_map): the preprocessed pickles of
     ``<input_root>/<dataset_name>/`` (the paths of the JAX package's
-    ``DataConfig``). ≡ `utils.py:18-26`."""
+    ``DataConfig``). ≡ `utils.py:18-26`. A clip-store marker in place of
+    the data map gives a ``ClipStore`` on the native reader."""
     folder = os.path.join(input_root, dataset_name)
     paths = (f"vid_splits_{dataset_name}.pkl", f"vid_class_{dataset_name}.pkl",
              f"data_map_{dataset_name}_{feature_type}.pkl")
@@ -168,7 +172,9 @@ def load_artifacts(input_root: str, dataset_name: str, feature_type: str = "keyp
         with open(os.path.join(folder, name), "rb") as f:
             out.append(pickle.load(f))
     if isinstance(out[2], dict) and "__clipstore__" in out[2]:
-        raise NotImplementedError("clip-store data maps are not ported (see ROADMAP.md)")
+        from sl_hwgat_tpu_torch.data.clipstore import ClipStore
+
+        out[2] = ClipStore(out[2]["__clipstore__"])
     return tuple(out)
 
 

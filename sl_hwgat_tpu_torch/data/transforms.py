@@ -1,10 +1,8 @@
 """Keypoint transforms of the train and eval pipelines — NumPy/SciPy, host side.
 
 The port's own copy of ``sl_hwgat_tpu/data/transforms.py`` (reference
-`hwgat/dataTransform.py`), less the transforms no pipeline of the port uses
-yet (``Rectifier3Dto2D``, ``ShearTransform3D``, ``ValidFrames``): every
-callable takes and returns (T, V, C) float arrays and must give exactly the
-JAX package's output. The stochastic ones draw from the
+`hwgat/dataTransform.py`): every callable takes and returns (T, V, C) float
+arrays and must give exactly the JAX package's output. The stochastic ones draw from the
 ``np.random.Generator`` they are handed, in the JAX package's order.
 """
 
@@ -125,6 +123,13 @@ class RandomFlip:
         return data
 
 
+class Rectifier3Dto2D:
+    """Drop z. ≡ `dataTransform.py:123-129`."""
+
+    def __call__(self, data):
+        return data[:, :, :2]
+
+
 class ShearTransform:
     """Random 2D shear about a random origin. ≡ `dataTransform.py:132-160`."""
 
@@ -139,6 +144,34 @@ class ShearTransform:
         shear = np.eye(2)
         shear[0][1] = rng.normal(0, self.shear_std)
         x[:, :, :2] = x[:, :, :2] @ shear
+        return x + origin
+
+
+class ShearTransform3D:
+    """3D shear variant (no default pipeline uses it). ≡ `dataTransform.py:
+    162-198`, with its quirk: the three partial shear matrices alias one
+    identity, so the later writes overwrite the earlier ones before the
+    product ``m @ m @ m``. The reference assigns the (T, V, 3) product into
+    ``x[:, :, :2]``, which raises; here all three coordinates take it, as in
+    the JAX package."""
+
+    stochastic = True
+
+    def __init__(self, shear_std=0.2):
+        self.shear_std = shear_std
+
+    def __call__(self, data, rng):
+        origin = np.clip(rng.normal(0.5, 0.1, size=data.shape[2]), 0, 1)
+        x = data - origin
+        a, b, c = rng.normal(0, self.shear_std, size=3)
+        m = np.eye(3)
+        m[0, 1] = b
+        m[0, 2] = c
+        m[1, 0] = a
+        m[1, 2] = c
+        m[2, 0] = a
+        m[2, 1] = b
+        x[:, :, :3] = np.matmul(x[:, :, :3], m @ m @ m)
         return x + origin
 
 
@@ -284,6 +317,22 @@ class HandCorrection:
     def __call__(self, data):
         data = self._correct(data, self.left_slice)
         return self._correct(data, self.right_slice)
+
+
+class ValidFrames:
+    """Drop frames with a joint out of range. ≡ `dataTransform.py:406-424`."""
+
+    def __init__(self, x_range=(0, 1), y_range=(0, 1)):
+        self.x_range = x_range
+        self.y_range = y_range
+
+    def __call__(self, data):
+        x_ok = (data[:, :, 0] >= self.x_range[0]) & (data[:, :, 0] <= self.x_range[1])
+        y_ok = (data[:, :, 1] >= self.y_range[0]) & (data[:, :, 1] <= self.y_range[1])
+        mask = x_ok.all(axis=1) & y_ok.all(axis=1)
+        if mask.sum() < 2:
+            return data
+        return data[mask]
 
 
 class WindowCreate:

@@ -1,6 +1,8 @@
 """Attention masks of the graph-attention models: the multiplicative {0,1}
 masks of the windowed models (reference `hwgat/models/model_params.py:373-400`)
-and of HGATE (`:461-484`), and the additive {-1e4, 0} form of the banded ones.
+and of HGATE (`:461-484`), GATE's flat spatio-temporal adjacency (`:60-73`),
+the additive {-1e4, 0} form of the banded ones, and the sparse (CSR, ELL)
+forms of a dense adjacency.
 
 Per spatial window over T temporal blocks of V joints: diagonal blocks are
 the spatial adjacency with self loops, the ±1 off-diagonal blocks are the
@@ -53,7 +55,57 @@ def hgate_block_adj(edges=BODY29_EDGES, num_kps: int = 29,
     return block_tridiagonal(edges_to_dense(edges, num_kps, self_loops=True), temporal_patch)
 
 
+def spatio_temporal_adj(edges, num_frames: int, num_kps: int) -> np.ndarray:
+    """(F·K, F·K) flat spatio-temporal adjacency of GATE: per frame the
+    symmetric spatial edges (no self loops), and same-joint links between
+    consecutive frames. ≡ `model_params.py:60-73` (``GATEParams.get_adj``)."""
+    n = num_frames * num_kps
+    a = np.zeros((n, n), dtype=np.float32)
+    for f in range(num_frames):
+        base = f * num_kps
+        for i, j in edges:
+            a[base + i, base + j] = 1
+            a[base + j, base + i] = 1
+        if f < num_frames - 1:
+            for i in range(num_kps):
+                a[base + i, base + i + num_kps] = 1
+                a[base + i + num_kps, base + i] = 1
+    return a
+
+
 def additive_mask(adj: np.ndarray, neg: float = -10000.0) -> np.ndarray:
     """{0,1} adjacency → additive attention mask {neg, 0}
     (`GATE.py:142` / `WGATE.py:190`: masked_fill(adj==0, -1e4) then (==1, 0))."""
     return np.where(adj == 0, np.float32(neg), np.float32(0.0))
+
+
+def dense_to_csr(adj: np.ndarray):
+    """Dense {0,1} adjacency → (indptr, indices) int32 CSR."""
+    indptr = [0]
+    indices = []
+    for row in adj:
+        indices.extend(np.nonzero(row)[0].tolist())
+        indptr.append(len(indices))
+    return np.asarray(indptr, dtype=np.int32), np.asarray(indices, dtype=np.int32)
+
+
+def dense_to_ell(adj: np.ndarray, pad_to: int | None = None):
+    """Dense {0,1} adjacency → fixed-degree ELL form ``(col_idx, valid)`` of
+    shape (N, max_deg): column indices padded with the row's own index, and
+    a {0,1} float32 validity mask."""
+    n = adj.shape[0]
+    degs = (adj != 0).sum(axis=1)
+    max_deg = int(degs.max()) if pad_to is None else pad_to
+    col = np.zeros((n, max_deg), dtype=np.int32)
+    valid = np.zeros((n, max_deg), dtype=np.float32)
+    for i in range(n):
+        nz = np.nonzero(adj[i])[0]
+        col[i, : len(nz)] = nz
+        col[i, len(nz):] = i
+        valid[i, : len(nz)] = 1.0
+    return col, valid
+
+
+def num_edges(adj: np.ndarray) -> int:
+    """Count of nonzero entries (directed edges, self loops included)."""
+    return int((adj != 0).sum())

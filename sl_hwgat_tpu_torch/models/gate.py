@@ -4,7 +4,8 @@ PyTorch counterpart of ``sl_hwgat_tpu/models/gate.py`` (reference
 `hwgat/models/GATE.py:8-216`): 8 blocks at constant width attending over
 all F·29 tokens under the spatio-temporal adjacency of the 29-joint body
 graph (no self loops, so the diagonal is masked), through the ±1-frame band
-(``banded_attention``, the banded CUDA kernels on a card), then a learned
+(``banded_attention``, the banded CUDA kernels on a card; or its edge list
+under ``attn_impl="ell"``), then a learned
 weighted average over tokens (``weightedAvg``: Linear(F·K → 1)). Dtypes and
 the state_dict layout are WGATE's (``models/wgate.py``), plus
 ``weightedAvg.{weight,bias}``.
@@ -34,11 +35,11 @@ class GAttentionBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, band, *, drop: float = 0.0,
                  ff_ratio: float = 2.0, compute_dtype: torch.dtype = torch.float32,
-                 generator: torch.Generator | None = None):
+                 attn_impl: str = "auto", generator: torch.Generator | None = None):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.attn = BandedMSA(dim, num_heads, band, proj_drop=drop, compute_dtype=compute_dtype,
-                              generator=generator)
+                              attn_impl=attn_impl, generator=generator)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.ff = FeedForward(dim, int(dim * ff_ratio), drop, compute_dtype, generator)
 
@@ -66,7 +67,7 @@ class GATE(nn.Module):
         self.pos_encoder = PositionalEncoding(embed_dim, temporal_dim, drop_rate)
         self.layers = nn.ModuleList([
             GAttentionBlock(embed_dim, num_heads, band, drop=drop_rate, ff_ratio=ff_ratio,
-                            compute_dtype=cdt, generator=generator)
+                            compute_dtype=cdt, attn_impl=attn_impl, generator=generator)
             for _ in range(depths)])
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
         self.weightedAvg = Dense(temporal_dim * num_kps, 1, torch.float32, generator)

@@ -5,7 +5,10 @@ PyTorch counterpart of ``sl_hwgat_tpu/models/wgate.py`` (reference
 spatial window of 16 joints attends over all its frames (F·16 tokens) under
 the block-tridiagonal mask of the window graph. The reference materializes
 the (F·16)² additive mask; here every frame attends only to its ±1-frame
-band through ``banded_attention``, the banded CUDA kernels on a card.
+band through ``banded_attention``, the banded CUDA kernels on a card, or,
+under ``attn_impl="ell"``, through the edge-space gather/scatter form of the
+same topology (``ops/sparse_attention.py``, plain torch as in the JAX
+package).
 
 Dtypes are the JAX model's: projections and the FFN run in
 ``compute_dtype``; the attention output is f32 and is cast to it before
@@ -37,19 +40,18 @@ from sl_hwgat_tpu_torch.models.common import (
     layer_norm,
 )
 from sl_hwgat_tpu_torch.ops.banded_attention import banded_attention
+from sl_hwgat_tpu_torch.ops.sparse_attention import ell_from_band, ell_graph_attention
 from sl_hwgat_tpu_torch.ops.window import spatial_window_partition, spatial_window_reverse
 
 
 # The JAX package's ``attn_impl`` names of the banded models (WGATE, GATE).
 # Each of them computes one function, the ±1-frame banded attention, which
-# the port runs through ``banded_attention`` (K8/K9 on a card).
-BANDED_IMPLS = ("auto", "banded", "compact", "pallas_banded", "pallas_packed")
+# the port runs through ``banded_attention`` (K8/K9 on a card); "ell" runs
+# it as the edge-space gather/scatter attention (``ell_graph_attention``).
+BANDED_IMPLS = ("auto", "banded", "compact", "pallas_banded", "pallas_packed", "ell")
 
 
 def check_banded_impl(attn_impl: str) -> str:
-    if attn_impl == "ell":
-        raise NotImplementedError("attn_impl='ell' (the ELL gather/scatter attention) is not "
-                                  "ported (see ROADMAP.md queue 1 item 5)")
     if attn_impl not in BANDED_IMPLS:
         raise ValueError(f"attn_impl={attn_impl!r}: the banded models run {BANDED_IMPLS}")
     return attn_impl
@@ -64,14 +66,18 @@ def make_band(spatial_adj: np.ndarray) -> np.ndarray:
 
 class BandedMSA(nn.Module):
     """MSA over (G, F·V, D) tokens with a ±1-frame banded additive mask.
-    ≡ `WGATE.py:68-108` / `GATE.py:30-69`."""
+    ≡ `WGATE.py:68-108` / `GATE.py:30-69`. ``attn_impl="ell"`` computes the
+    attention on the band's edge list (the spatial plane and ±1-frame
+    links, ``ell_from_band``); every other name of ``BANDED_IMPLS`` runs
+    ``banded_attention``."""
 
     def __init__(self, dim: int, num_heads: int, band: np.ndarray, *, proj_drop: float = 0.0,
-                 compute_dtype: torch.dtype = torch.float32,
+                 compute_dtype: torch.dtype = torch.float32, attn_impl: str = "auto",
                  generator: torch.Generator | None = None):
         super().__init__()
         self.num_heads = num_heads
         self.band = np.asarray(band, dtype=np.float32)
+        self.attn_impl = check_banded_impl(attn_impl)
         self.qkv = Dense(dim, 3 * dim, compute_dtype, generator)
         self.proj = Dense(dim, dim, compute_dtype, generator)
         self.proj_drop = proj_drop
@@ -83,7 +89,12 @@ class BandedMSA(nn.Module):
         qkv = self.qkv(x).reshape(g, n, 3, h, dh).permute(2, 0, 3, 1, 4)
         # planes in (g, h) order, each (F·V, dh) token-major
         q, k, v = (t.reshape(g * h, n, dh).contiguous() for t in qkv)
-        out = banded_attention(q, k, v, self.band, scale=dh**-0.5)
+        if self.attn_impl == "ell":
+            col, val = ell_from_band(self.band[1], n // self.band.shape[1], device=x.device)
+            out = ell_graph_attention(*(t.view(g, h, n, dh) for t in (q, k, v)), col, val,
+                                      scale=dh**-0.5)
+        else:
+            out = banded_attention(q, k, v, self.band, scale=dh**-0.5)
         out = out.reshape(g, h, n, dh).permute(0, 2, 1, 3).reshape(g, n, d)
         out = self.proj(out.to(self.proj.compute_dtype))
         return dropout(out, self.proj_drop, self.training, generator)
@@ -95,13 +106,13 @@ class WPartAttentionBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, window_size: int, band: np.ndarray, *,
                  drop: float = 0.0, ff_ratio: float = 2.0,
-                 compute_dtype: torch.dtype = torch.float32,
+                 compute_dtype: torch.dtype = torch.float32, attn_impl: str = "auto",
                  generator: torch.Generator | None = None):
         super().__init__()
         self.window_size = window_size
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.attn = BandedMSA(dim, num_heads, band, proj_drop=drop, compute_dtype=compute_dtype,
-                              generator=generator)
+                              attn_impl=attn_impl, generator=generator)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.ff = FeedForward(dim, int(dim * ff_ratio), drop, compute_dtype, generator)
 
@@ -118,7 +129,9 @@ class WGATE(nn.Module):
     (B, F, K=64, kp_dim) → logits (B, num_classes). Defaults ≡ ``WGATEParams``
     (`model_params.py:80-96`), with the positional encoding always on. In
     train mode, dropout masks come from the generator passed to
-    ``forward``. ``attn_impl``: any of ``BANDED_IMPLS``, one function."""
+    ``forward``. ``attn_impl``: any of ``BANDED_IMPLS``, one function
+    ("ell" through the gather/scatter form, the others through the banded
+    kernels)."""
 
     def __init__(self, kp_dim: int = 2, temporal_dim: int = 192, num_classes: int = 2002,
                  embed_dim: int = 128, depths: int = 8, num_heads: int = 8, window_size: int = 16,
@@ -132,7 +145,8 @@ class WGATE(nn.Module):
         self.pos_encoder = PositionalEncoding(embed_dim, temporal_dim, drop_rate)
         self.layers = nn.ModuleList([
             WPartAttentionBlock(embed_dim, num_heads, window_size, band, drop=drop_rate,
-                                ff_ratio=ff_ratio, compute_dtype=cdt, generator=generator)
+                                ff_ratio=ff_ratio, compute_dtype=cdt, attn_impl=attn_impl,
+                                generator=generator)
             for _ in range(depths)])
         self.norm = nn.LayerNorm(embed_dim, eps=LN_EPS)
         self.head = Dense(embed_dim, num_classes, torch.float32, generator)

@@ -18,6 +18,10 @@ exact wherever a row has one: the wrapper refuses a band with an edgeless
 row. ``banded_attention.launches`` and ``banded_attention_bwd.launches``
 count the two kernels' launches.
 
+While ``torch.compiler.is_compiling()`` (``torch.export`` tracing an eval
+forward), ``banded_attention`` calls the custom op of ``ops/library.py``
+instead, whose CUDA implementation is the same launch (``launch``).
+
 ``banded_packed_mm`` is the frame-packed kernel's product-only probe (K10,
 `sl_hwgat_tpu/ops/pallas_banded.py:395` ``_fwd_kernel_packed_mm``, reached
 there through ``PALLAS_BANDED_PACKED_MM=1``): per tile of 128/Vp frames, the
@@ -98,13 +102,22 @@ def _bits(band, device) -> torch.Tensor:
             for p in range(3):
                 words[p, :nv] = (e[p].astype(np.uint64) * weights).sum(1)
                 words[3 + p, :nv] = (e[p].T.astype(np.uint64) * weights).sum(1)
-            t = _BITS[key] = torch.from_numpy(words.astype(np.uint32).view(np.int32)).to(device)
+            t = torch.from_numpy(words.astype(np.uint32).view(np.int32)).to(device)
+            if not torch.compiler.is_compiling():  # a traced tensor is no cache entry
+                _BITS[key] = t
         return t
 
 
 def _check(q, tensors: dict, band) -> tuple[int, int, int]:
     """(planes, frames, joints) of a call; raises on what the kernels do not
     take (on every device, so the CPU path keeps the kernels' contract)."""
+    planes, frames, nv = check_planes(q, tensors, np.shape(band)[1])
+    check_band(band, frames)
+    return planes, frames, nv
+
+
+def check_planes(q, tensors: dict, nv: int) -> tuple[int, int, int]:
+    """``_check`` without the band's edge rows."""
     if q.ndim != 3:
         raise ValueError(f"q must be (P, F·V, dh), got {tuple(q.shape)}")
     for name, t in tensors.items():
@@ -113,7 +126,6 @@ def _check(q, tensors: dict, band) -> tuple[int, int, int]:
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"banded attention runs on cuda or cpu, got {q.device}")
     p, n, dh = q.shape
-    nv = np.shape(band)[1]
     if dh != HEAD_DIM:
         raise ValueError(f"the banded kernels take head dim {HEAD_DIM}, got {dh}")
     if n % nv:
@@ -121,23 +133,30 @@ def _check(q, tensors: dict, band) -> tuple[int, int, int]:
     for name, t in {"q": q, **tensors}.items():
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    check_band(band, n // nv)
     return p, n // nv, nv
 
 
 def _kernel(q, k, v, band, *, scale, out_dtype):
+    nv = _check(q, {"k": k, "v": v}, band)[2]
+    return launch(q, k, v, _bits(band, q.device), scale=scale, joints=nv,
+                  edges_per_row=edges_per_row(band), out_dtype=out_dtype)
+
+
+def launch(q, k, v, bits, *, scale, joints, edges_per_row, out_dtype):
+    """One launch of the forward kernel on checked (P, F·V, dh) planes:
+    ``bits`` from ``_bits``, ``edges_per_row`` the band's. Returns the
+    output in ``out_dtype``."""
     if q.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
         raise TypeError(f"the CUDA kernel takes float32/bfloat16, got {q.dtype} → {out_dtype}")
-    planes, frames, nv = _check(q, {"k": k, "v": v}, band)
+    planes, n, _ = q.shape
     out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     if planes == 0:
         return out
     with torch.cuda.device(q.device):
         err = _build.function(KERNEL, _ARGTYPES[KERNEL])(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _bits(band, q.device).data_ptr(), planes, frames, nv, HEAD_DIM,
-            _DTYPE_CODE[q.dtype], _DTYPE_CODE[out_dtype], edges_per_row(band), float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bits.data_ptr(), planes,
+            n // joints, joints, HEAD_DIM, _DTYPE_CODE[q.dtype], _DTYPE_CODE[out_dtype],
+            edges_per_row, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL} launch failed: cudaError {err}")
     with _LOCK:
@@ -203,6 +222,10 @@ def banded_attention(q, k, v, band, *, scale: float,
     contract holds on every device: dh 16, V ≤ 32, every query row with an
     edge."""
     out_dtype = torch.float32 if out_dtype is None else out_dtype
+    if torch.compiler.is_compiling():
+        from sl_hwgat_tpu_torch.ops import library
+
+        return library.banded_attention(q, k, v, band, scale=scale, out_dtype=out_dtype)
     if q.device.type == "cuda":
         return _BandedAttention.apply(q, k, v, band, float(scale), out_dtype)
     _check(q, {"k": k, "v": v}, band)

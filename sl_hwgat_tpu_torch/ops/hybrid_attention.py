@@ -28,6 +28,10 @@ unit's real tokens.
 ``masked_softmax.launches`` and ``masked_softmax_bwd.launches`` count the two
 kernels' launches (plain integers that a run may reset).
 
+While ``torch.compiler.is_compiling()`` (``torch.export`` tracing an eval
+forward), ``masked_softmax`` calls the custom op of ``ops/library.py``
+instead, whose CUDA implementation is the same launch (``launch``).
+
 ``softmax_blocks`` is the kernel bench's ``softmax_only`` function in one
 launch of ``csrc/softmax_probe.cu`` (K7's row routine on the two unit blocks
 of each tile that reach the output, zeros elsewhere; counted by
@@ -83,18 +87,26 @@ def _check_scores(s):
 def _kernel(s, adj, *, stack, zero_quirk, prune_u, tail_adj, units_per_group, groups,
             unit_offset, sel, p_dtype):
     _check_scores(s)
-    if p_dtype not in _DTYPE_CODE:
-        raise TypeError(f"the masked-softmax kernel stores float32/bfloat16, got {p_dtype}")
     s = s.contiguous()
     prune_u, sel = device_args(s, stack, prune_u, sel)
+    return launch(s, device_masks(adj, tail_adj, s.device, wide=True), sel, prune_u,
+                  zero_quirk=zero_quirk,
+                  mode=mask_mode(tail_adj, stack, units_per_group, groups, unit_offset),
+                  p_dtype=p_dtype)
+
+
+def launch(s, masks, sel, prune_u, *, zero_quirk, mode, p_dtype):
+    """One launch of the forward kernel on checked, contiguous scores:
+    ``masks`` from ``device_masks(..., wide=True)``, ``sel`` and ``prune_u``
+    from ``device_args``, ``mode`` from ``mask_mode``. Returns P."""
+    if p_dtype not in _DTYPE_CODE:
+        raise TypeError(f"the masked-softmax kernel stores float32/bfloat16, got {p_dtype}")
     u, n, _ = s.shape
     p = torch.empty(s.shape, dtype=p_dtype, device=s.device)
     with torch.cuda.device(s.device):
         err = _build.function(KERNEL, _ARGTYPES[KERNEL])(
-            s.data_ptr(), p.data_ptr(),
-            device_masks(adj, tail_adj, s.device, wide=True).data_ptr(), ptr(sel),
-            ptr(prune_u), u, n, _DTYPE_CODE[p_dtype], int(zero_quirk),
-            *mask_mode(tail_adj, stack, units_per_group, groups, unit_offset),
+            s.data_ptr(), p.data_ptr(), masks.data_ptr(), ptr(sel), ptr(prune_u), u, n,
+            _DTYPE_CODE[p_dtype], int(zero_quirk), *mode,
             torch.cuda.current_stream(s.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL} launch failed: cudaError {err}")
@@ -162,6 +174,10 @@ def masked_softmax(s, adj, *, stack: int = 4, zero_quirk: bool = True, prune_u=N
     kw = dict(stack=stack, zero_quirk=zero_quirk, tail_adj=tail_adj,
               units_per_group=units_per_group, groups=groups, unit_offset=unit_offset,
               p_dtype=p_dtype)
+    if torch.compiler.is_compiling():
+        from sl_hwgat_tpu_torch.ops import library
+
+        return library.masked_softmax(s, adj, prune_u=prune_u, sel=sel, **kw)
     if s.device.type == "cuda":
         prune_u, sel = device_args(s, stack, prune_u, sel)
         return _MaskedSoftmax.apply(s, prune_u, sel, adj, kw)

@@ -26,6 +26,11 @@ writing dq, dk, dv where they lie, with K2's arithmetic (bit for bit K2's).
 ``layout_window_attention`` differentiates the pair on storages of one
 layout, one launch each way. ``window_attention_into.launches`` and
 ``window_attention_bwd_into.launches`` count their launches.
+
+While ``torch.compiler.is_compiling()`` (``torch.export`` tracing an eval
+forward), ``window_attention`` calls the custom op of ``ops/library.py``
+instead, whose CUDA implementation is the same launch (``launch``); eager
+calls never go through it.
 """
 
 from __future__ import annotations
@@ -108,7 +113,9 @@ def device_masks(adj, tail_adj, device, wide: bool = False) -> torch.Tensor:
         if m is None:
             bits = np.stack([_row_bits(a), _row_bits(t)])
             bits = bits.view(np.int64) if wide else bits.astype(np.uint32).view(np.int32)
-            m = _MASKS[key] = torch.from_numpy(bits).to(device)
+            m = torch.from_numpy(bits).to(device)
+            if not torch.compiler.is_compiling():  # a traced tensor is no cache entry
+                _MASKS[key] = m
         return m
 
 
@@ -131,8 +138,8 @@ def device_args(x, stack, prune_u, sel, units: int | None = None):
     return prune_u, sel
 
 
-def _kernel_args(q, adj, *, stack, pad_tokens, prune_u, tail_adj, sel, tensors):
-    """Check what the kernels take; return the device (masks, prune_u, sel)."""
+def _check_kernel_inputs(q, pad_tokens, tensors):
+    """Raise on what the kernels do not take."""
     u, n, dh = q.shape
     if pad_tokens not in (None, n) and not n < pad_tokens <= _WIDE_TOKENS:
         raise ValueError(f"pad_tokens={pad_tokens} for {n}-token units: the kernels pad "
@@ -147,6 +154,11 @@ def _kernel_args(q, adj, *, stack, pad_tokens, prune_u, tail_adj, sel, tensors):
     for name, t in tensors.items():
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def _kernel_args(q, adj, *, stack, pad_tokens, prune_u, tail_adj, sel, tensors):
+    """Check what the kernels take; return the device (masks, prune_u, sel)."""
+    _check_kernel_inputs(q, pad_tokens, tensors)
     return (device_masks(adj, tail_adj, q.device), *device_args(q, stack, prune_u, sel))
 
 
@@ -163,11 +175,20 @@ def mask_mode(tail_adj, stack, units_per_group, groups, unit_offset):
 
 def _kernel(q, k, v, adj, *, scale, stack, pad_tokens, zero_quirk, prune_u,
             tail_adj, units_per_group, groups, unit_offset, sel, out_dtype):
-    if q.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
-        raise TypeError(f"the CUDA kernel takes float32/bfloat16, got {q.dtype} → {out_dtype}")
     masks, prune_u, sel = _kernel_args(q, adj, stack=stack, pad_tokens=pad_tokens,
                                        prune_u=prune_u, tail_adj=tail_adj, sel=sel,
                                        tensors={"q": q, "k": k, "v": v})
+    return launch(q, k, v, masks, sel, prune_u, scale=scale, zero_quirk=zero_quirk,
+                  mode=mask_mode(tail_adj, stack, units_per_group, groups, unit_offset),
+                  out_dtype=out_dtype)
+
+
+def launch(q, k, v, masks, sel, prune_u, *, scale, zero_quirk, mode, out_dtype):
+    """One launch of the forward kernel on checked inputs: ``masks`` from
+    ``device_masks``, ``sel`` and ``prune_u`` from ``device_args``, ``mode``
+    from ``mask_mode``. Returns the (U, N, dh) output in ``out_dtype``."""
+    if q.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
+        raise TypeError(f"the CUDA kernel takes float32/bfloat16, got {q.dtype} → {out_dtype}")
     u, n, dh = q.shape
     dev = q.device
     out = torch.empty((u, n, dh), dtype=out_dtype, device=dev)
@@ -177,9 +198,7 @@ def _kernel(q, k, v, adj, *, scale, stack, pad_tokens, zero_quirk, prune_u,
         err = _build.function(KERNEL, _ARGTYPES[KERNEL])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), masks.data_ptr(),
             ptr(sel), ptr(prune_u), u, n, dh, _DTYPE_CODE[q.dtype], _DTYPE_CODE[out_dtype],
-            float(scale), int(zero_quirk),
-            *mask_mode(tail_adj, stack, units_per_group, groups, unit_offset),
-            torch.cuda.current_stream(dev).cuda_stream)
+            float(scale), int(zero_quirk), *mode, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL} launch failed: cudaError {err}")
     with _LOCK:
@@ -281,6 +300,10 @@ def window_attention(q, k, v, adj, *, scale: float, stack: int = 4,
     kw = dict(scale=scale, stack=stack, pad_tokens=pad_tokens, zero_quirk=zero_quirk,
               tail_adj=tail_adj, units_per_group=units_per_group, groups=groups,
               unit_offset=unit_offset, out_dtype=out_dtype)
+    if torch.compiler.is_compiling():
+        from sl_hwgat_tpu_torch.ops import library
+
+        return library.window_attention(q, k, v, adj, prune_u=prune_u, sel=sel, **kw)
     if q.device.type == "cuda":
         if prune_u is not None and not torch.is_tensor(prune_u):
             prune_u = torch.full((1,), float(prune_u), dtype=torch.float32, device=q.device)

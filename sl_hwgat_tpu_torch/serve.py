@@ -6,12 +6,18 @@ Counterpart of ``sl_hwgat_tpu/serve.py`` on PyTorch:
   dropped), so each bucket always runs one shape;
 - raw keypoint clips (any frame count, the extractor's (F, K, C) layout) go
   through the eval transform the training pipeline used;
-- checkpoints: a port or reference ``.pt`` (``weights.load_state_dict``).
+- checkpoints: a port or reference ``.pt`` (``weights.load_state_dict``);
+- export: ``Predictor.export_program`` writes the eval forward of one
+  bucket, weights included, as a ``torch.export`` program (``.pt2``);
+  ``Predictor.load_exported`` runs it with the port's custom ops
+  (``ops/library.py``) and none of its models.
 
 Usage::
 
     pred = Predictor.from_checkpoint("model.pt", model_type="HWGATE", dataset="FDMSE-ISL")
     out = pred.predict_topk([clip1, clip2], k=5)   # clips: (F_i, 543, 4) arrays
+    pred.export_program("hwgate16.pt2", 16, clip1)
+    logits = Predictor.load_exported("hwgate16.pt2")(batch)   # (16, F, K, C) float32
 """
 
 from __future__ import annotations
@@ -29,7 +35,6 @@ import torch
 from sl_hwgat_tpu_torch import configs
 from sl_hwgat_tpu_torch.constants import DATASET_PARAMS
 from sl_hwgat_tpu_torch.data import transforms as T
-from sl_hwgat_tpu_torch.models import MODEL_NUM_KPS, build_model, resolve_device
 from sl_hwgat_tpu_torch.weights import load_state_dict
 
 
@@ -60,6 +65,10 @@ class Predictor:
         models the 29-joint skeleton one (``MODEL_NUM_KPS``).
         ``model_overrides`` reach the model's constructor, e.g.
         ``attn_impl="hybrid"`` for HWGATE and HGATE."""
+        # imported here: a process that only runs exported programs
+        # (load_exported) imports no model
+        from sl_hwgat_tpu_torch.models import MODEL_NUM_KPS, build_model, resolve_device
+
         dev = resolve_device(device)
         ds = DATASET_PARAMS[dataset]
         model = build_model(model_type, ds, 2, device=dev, **model_overrides)
@@ -131,6 +140,48 @@ class Predictor:
             self.forward(np.zeros((b,) + shape, np.float32))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    # -- export ----------------------------------------------------------------
+    def export_program(self, path: str, batch: int, sample_clip) -> str:
+        """Write the eval forward at bucket ``batch``, weights included, as a
+        ``torch.export`` program (``torch.export.save``, a ``.pt2`` file):
+        the port's counterpart of the JAX ``Predictor.export_stablehlo``.
+        Returns ``path``.
+
+        The program takes one (batch, *transform output shape) float32
+        tensor on the Predictor's device and returns logits. Its attention
+        runs through the custom ops of ``ops/library.py`` (the hand kernels
+        on a card), so ``load_exported`` needs that module and none of the
+        port's models. The masks and tables the forward builds are
+        constants of this bucket. One eager forward runs first (the kernels
+        built, the masks cached as device tensors); the trace runs under
+        ``no_grad`` (``inference_mode`` tensors cannot be traced)."""
+        x = torch.zeros((batch,) + self.preprocess(sample_clip).shape, dtype=torch.float32,
+                        device=self.device)
+        self.model.eval()
+        with torch.no_grad():
+            self.model(x)
+            program = torch.export.export(self.model, (x,))
+        torch.export.save(program, path)
+        return path
+
+    @staticmethod
+    def load_exported(path: str):
+        """Load an ``export_program`` artifact; returns a callable
+        (batch, ...) float32 → logits, run on the device the program was
+        exported on. Imports ``ops.library`` (the custom ops) and nothing of
+        the port's models."""
+        from sl_hwgat_tpu_torch.ops import library  # noqa: F401  (registers the ops)
+
+        program = torch.export.load(path)
+        module = program.module()
+        device = next(iter(program.state_dict.values())).device
+
+        def call(xb):
+            with torch.no_grad():
+                return module(torch.as_tensor(xb, dtype=torch.float32, device=device))
+
+        return call
 
     def close(self) -> None:
         if self._pool is not None:

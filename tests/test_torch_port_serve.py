@@ -182,6 +182,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference_package():
     for name in ("serve", "ops.window_attention", "ops.hybrid_attention", "models.hgate",
                  "train.loop", "train.state", "train.losses", "data.dataset", "data.synthetic",
                  "ops.probes", "ops.layouts", "bench.kernel", "bench.run", "utils.profiling",
-                 "cli", "configs", "train.checkpoint", "train.reporting", "train.inference"):
+                 "cli", "configs", "train.checkpoint", "train.reporting", "train.inference",
+                 "ops.sparse_attention", "ops.library", "data.clipstore", "data.meta_generators",
+                 "data.preprocess"):
         assert f"sl_hwgat_tpu_torch.{name}" in seen["modules"]
     assert seen["reference"] == [] and seen["jax"] == []
