@@ -206,6 +206,25 @@ Phases, each printing one JSON line (any failure ends the run non-zero):
               kernel; logits against Predictor.forward's (bit for bit, else
               within the model's bar with the first differing submodule
               named); card and host ms of both.
+24. parallel — the parallel layer (dp, sp, tp over torch.distributed): four
+              ranks sharing cuda:0 over gloo run HWGATE at FDMSE-ISL (batch
+              16, f32 and bf16, prune on, dropout 0) at mesh (1, 2, 2), its
+              eval logits, one train step and the eval step against the
+              single-process steps on the card (the logit and gradient bars),
+              and one attn_impl="hybrid" eval forward; WGATE and GATE (f32)
+              at (2, 2, 1) with K8 on each rank's halo-extended planes; every
+              rank launching exactly 8 K1 a forward, 8 K2 a step, 8 K7 a
+              hybrid forward, 8 K8 forwards and 8 backwards a step (counts
+              from 0 in each rank, read after each step). Then
+              run_distributed on 2 ranks at (2, 1, 1) over SYNTH (2 epochs,
+              batch 16) with each checkpoint backend: the ranks agree, each
+              reads 8 rows of every batch, rank 0's checkpoint is its epoch's
+              weights bit for bit and serves their logits through
+              Predictor.from_checkpoint; and one HWGATE f32 step in a
+              one-rank NCCL group, bit for bit the single-process step.
+              Prints host ms per sharded step beside the nvidia-smi name and
+              power limit. Gloo ranks that share a card show the functions
+              right and the launches per rank, not scaling.
 
 The last lines are the kernels line, the nvidia-smi line and
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -4074,6 +4093,242 @@ def phase_export(workdir: Path, repo: Path) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The parallel layer (phase 24).
+
+PARALLEL_HWGATE_MESH = (1, 2, 2)
+PARALLEL_BANDED_MESH = (2, 2, 1)
+PARALLEL_RUN_MESH = (2, 1, 1)
+PARALLEL_EPOCHS = 1  # --epochs 1: epochs 0 and 1
+# the kernel launches each rank must make in each step of a job, by the kind
+# of model, attention and step
+PARALLEL_LAUNCHES = {
+    "window": {"logits": {"window_attention": 8}, "eval": {"window_attention": 8},
+               "train": {"window_attention": 8, "window_attention_bwd": 8}},
+    "hybrid": {"logits": {"masked_softmax": 8}},
+    "banded": {"logits": {"banded_attention": 8},
+               "train": {"banded_attention": 8, "banded_attention_bwd": 8}},
+}
+
+
+def check_parallel_launches(case: str, kind: str, ranks: list) -> None:
+    """Every rank launched exactly its kernels in each step of ``case``."""
+    for rank in ranks:
+        for step, want in PARALLEL_LAUNCHES[kind].items():
+            if step not in rank["launches"]:
+                continue
+            got = {k: v for k, v in rank["launches"][step].items() if v}
+            if got != want:
+                raise AssertionError(f"parallel {case}, rank {rank['coords']}, {step}: "
+                                     f"launched {got}, not {want}")
+
+
+def parallel_reference(workdir: Path, case: str, model, batch, *, train: bool) -> dict:
+    """The single-process steps on the card that a sharded job is held to:
+    eval logits, then one train step's loss, gradients and parameters, then
+    the eval step. Writes the model's state and the batch for the ranks."""
+    import torch
+
+    from sl_hwgat_tpu_torch.train.loop import make_steps
+    from sl_hwgat_tpu_torch.train.state import make_optimizer
+
+    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
+               workdir / f"{case}.state.pt")
+    torch.save(tuple(t.cpu() for t in batch), workdir / f"{case}.batch.pt")
+    x, y, valid = batch
+    ref = {}
+    model.eval()
+    with torch.no_grad():
+        ref["logits"] = model(x).float().cpu()
+    if train:
+        step, evaluate = make_steps(model, make_optimizer("adamw", LR, model.parameters()))
+        ref["loss"] = step(x, y, valid, SEED, 0, 0)[0].item()
+        ref["grads"] = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+        ref["params"] = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        ref["eval_loss"] = evaluate(x, y, valid, 1)[0].item()
+    return ref
+
+
+def parallel_job(workdir: Path, case: str, model: str, mesh, steps, overrides, **kw) -> dict:
+    from sl_hwgat_tpu_torch.constants import DATASET_PARAMS
+
+    return dict(model=model, dataset=DATASET_PARAMS["FDMSE-ISL"], overrides=overrides,
+                state=str(workdir / f"{case}.state.pt"), batch=str(workdir / f"{case}.batch.pt"),
+                mesh=mesh, device="cuda:0", steps=steps, seed=SEED,
+                out=str(workdir / f"{case}.out.pt"), **kw)
+
+
+def check_parallel_step(case: str, cdt: str, got: dict, ref: dict) -> dict:
+    """A sharded job's logits, loss, gradients and eval loss against the
+    single-process step's, at the models' card bars."""
+    import torch
+
+    tol = LOGIT_TOL[cdt]
+    out = {"logits_max_abs_err": (got["logits"] - ref["logits"]).abs().max().item()}
+    if not torch.allclose(got["logits"], ref["logits"], **tol):
+        raise AssertionError(f"parallel {case}: logits {out['logits_max_abs_err']} off")
+    if "loss" in ref:
+        loss = got["train"][0].item()
+        out["loss"], out["loss_single"] = loss, ref["loss"]
+        if not math.isclose(loss, ref["loss"], abs_tol=tol["atol"], rel_tol=tol["rtol"]):
+            raise AssertionError(f"parallel {case}: loss {loss} against {ref['loss']}")
+        grads = {k: g.to(ref["grads"][k].device) for k, g in got["grads"].items()}
+        worst = grad_errors(f"parallel {case}", cdt, grads, ref["grads"])
+        out["grad_err_worst"] = max(worst.values())
+        out["grad_err_worst_param"] = max(worst, key=worst.get)
+    if "eval" in got:
+        out["eval_loss"], out["eval_loss_single"] = got["eval"][0].item(), ref["eval_loss"]
+        if not math.isclose(out["eval_loss"], ref["eval_loss"], abs_tol=tol["atol"],
+                            rel_tol=tol["rtol"]):
+            raise AssertionError(f"parallel {case}: eval loss {out['eval_loss']} against "
+                                 f"{ref['eval_loss']}")
+    return out
+
+
+def phase_parallel(workdir: Path, smi: str) -> dict:
+    """Phase 24, the parallel layer on the card: ranks that share cuda:0
+    over gloo (the card's machine has one card, and NCCL takes one rank a
+    card), so this shows the sharded functions right and launching their
+    kernels per rank, not scaling.
+
+    (a) HWGATE at FDMSE-ISL, batch 16, f32 and bf16, prune on, dropout off,
+        4 ranks at mesh (1, 2, 2): eval logits, one train step, the eval
+        step, against the single-process steps the parent runs first; one
+        attn_impl="hybrid" eval forward. (b) WGATE and GATE at FDMSE-ISL,
+        f32, mesh (2, 2, 1): logits and one train step. (a) and (b) run in
+        one spawn. (c) run_distributed on 2 ranks at (2, 1, 1): SYNTH, two
+        epochs, batch 16, each checkpoint backend; the ranks' metrics agree,
+        each read its rows only, rank 0's checkpoint holds the weights of its
+        epoch bit for bit and Predictor.from_checkpoint serves their logits;
+        then one HWGATE f32 step in a one-rank NCCL group, bit for bit the
+        single-process step. Returns each kernel's launches over the ranks."""
+    import torch
+
+    from sl_hwgat_tpu_torch.configs import RunConfig
+    from sl_hwgat_tpu_torch.data.dataset import load_artifacts
+    from sl_hwgat_tpu_torch.data.synthetic import write_synthetic_dataset
+    from sl_hwgat_tpu_torch.models import build_model
+    from sl_hwgat_tpu_torch.parallel.dryrun import run_jobs, runs_worker, spawn
+    from sl_hwgat_tpu_torch.serve import Predictor
+    from sl_hwgat_tpu_torch.train.checkpoint import read_checkpoint
+
+    t0 = time.perf_counter()
+    jobs, refs, kinds = [], {}, {}
+    batch = train_batch()
+    for cdt in ("float32", "bfloat16"):
+        case = f"HWGATE/{cdt}"
+        name = case.replace("/", "_")
+        refs[case] = parallel_reference(workdir, name, flagship(cdt, drop_rate=0.0), batch,
+                                        train=True)
+        jobs.append(parallel_job(workdir, name, "HWGATE", PARALLEL_HWGATE_MESH,
+                                 ["logits", "train", "eval"] + (["repeats"] if cdt == "bfloat16"
+                                                                 else []),
+                                 dict(compute_dtype=cdt, drop_rate=0.0), repeats=3))
+        kinds[case] = "window"
+        torch.cuda.empty_cache()
+    refs["HWGATE-hybrid/float32"] = parallel_reference(
+        workdir, "HWGATE-hybrid", flagship("float32", drop_rate=0.0, attn_impl="hybrid"), batch,
+        train=False)
+    jobs.append(parallel_job(workdir, "HWGATE-hybrid", "HWGATE", PARALLEL_HWGATE_MESH,
+                             ["logits"], dict(attn_impl="hybrid", drop_rate=0.0)))
+    kinds["HWGATE-hybrid/float32"] = "hybrid"
+    for name in BANDED_MODELS:
+        refs[f"{name}/float32"] = parallel_reference(
+            workdir, name, banded_model(name, "float32", drop_rate=0.0),
+            banded_batch(name, train=True), train=True)
+        jobs.append(parallel_job(workdir, name, name, PARALLEL_BANDED_MESH, ["logits", "train"],
+                                 dict(drop_rate=0.0), use_tp=False))
+        kinds[f"{name}/float32"] = "banded"
+        torch.cuda.empty_cache()
+    reference_s = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    results = dict(zip(refs, run_jobs(jobs, 4)))
+    steps_s = time.perf_counter() - t1
+    out, host_ms, totals = {}, {}, {}
+    for case, (got, ranks) in results.items():
+        check_parallel_launches(case, kinds[case], ranks)
+        out[case] = check_parallel_step(case, case.split("/")[1], got, refs[case])
+        out[case]["mesh"] = jobs[list(refs).index(case)]["mesh"]
+        host_ms[case] = {step: max(r["host_ms"][step] for r in ranks)
+                         for step in ranks[0]["host_ms"]}
+        for rank in ranks:
+            for step, counts in rank["launches"].items():
+                for kernel, n in counts.items():
+                    totals[kernel] = totals.get(kernel, 0) + n
+
+    # (c) run_distributed, each backend, then a one-rank NCCL step
+    t2 = time.perf_counter()
+    write_synthetic_dataset(str(workdir / "input"))
+    configs = [dict(dataset="SYNTH", model_type="HWGATE", mode="train", time=f"dist_{b}",
+                    input_root=str(workdir / "input"), output_root=str(workdir / "out"),
+                    device="cuda:0", epochs=PARALLEL_EPOCHS, batch_size=16, n_workers=2,
+                    ckpt_backend=b) for b in ("pickle", "orbax")]
+    runs = [dict(config=c, mesh=PARALLEL_RUN_MESH, out=str(workdir / f"run_{c['ckpt_backend']}"))
+            for c in configs]
+    spawn(runs_worker, 2, runs, device="cuda:0")
+    run_out = {}
+    for config, run in zip(configs, runs):
+        r0, r1 = (torch.load(f"{run['out']}.{r}", weights_only=False) for r in range(2))
+        if r0["metrics"] != r1["metrics"] or r0["history"] != r1["history"]:
+            raise AssertionError(f"run_distributed {config['ckpt_backend']}: the ranks' metrics "
+                                 f"differ: {r0['metrics']} / {r1['metrics']}")
+        cfg = RunConfig(**config)
+        n_train = len(load_artifacts(cfg.input_root, cfg.dataset)[0]["train"])
+        reads = [len([i for e, n, i in got["reads"] if e == 0 and n == n_train])
+                 for got in (r0, r1)]
+        if reads != [-(-n_train // 16) * 8] * 2:  # 8 rows of each batch of 16, a rank
+            raise AssertionError(f"run_distributed: the ranks read {reads} train clips of "
+                                 f"epoch 0, not their rows of every batch")
+        path = f"{cfg.save_model_path}_best_loss.ckpt"
+        saved = read_checkpoint(path)
+        weights = r0["states"][saved["epoch"]]
+        if any(not torch.equal(saved["model_state_dict"][k], v) for k, v in weights.items()):
+            raise AssertionError(f"run_distributed {config['ckpt_backend']}: the checkpoint "
+                                 f"is not the weights of epoch {saved['epoch']}")
+        pred = Predictor.from_checkpoint(path, model_type="HWGATE", dataset="SYNTH")
+        model = build_model("HWGATE", cfg.dataset_params, 2, device="cuda")
+        model.load_state_dict(weights)
+        clips = torch.rand(4, 32, 64, 2, generator=torch.Generator().manual_seed(SEED)).cuda()
+        with torch.no_grad():
+            served, want = pred.model(clips), model(clips)
+        if not torch.equal(served, want):
+            raise AssertionError(f"run_distributed {config['ckpt_backend']}: the served logits "
+                                 f"are not the trained weights' "
+                                 f"({(served - want).abs().max().item()})")
+        run_out[config["ckpt_backend"]] = {
+            "history": r0["history"], "checkpoint_epoch": saved["epoch"],
+            "is_directory": os.path.isdir(path), "train_clips_read_epoch0": reads}
+        del pred, model
+    nccl_case = "HWGATE/float32"
+    nccl_job = dict(jobs[0], steps=["train", "params"], out=str(workdir / "nccl.out.pt"),
+                    mesh=(1, 1, 1))
+    (nccl, nccl_ranks), = run_jobs([nccl_job], 1, backend="nccl")
+    check_parallel_launches("nccl", "window", nccl_ranks)
+    ref = refs[nccl_case]
+    same = (nccl["train"][0].item() == ref["loss"]
+            and all(torch.equal(g.cuda(), ref["grads"][k]) for k, g in nccl["grads"].items())
+            and all(torch.equal(v, ref["params"][k]) for k, v in nccl["params"].items()))
+    if not same:
+        raise AssertionError("the one-rank NCCL step is not the single-process step bit for bit")
+    run_s = time.perf_counter() - t2
+    emit("parallel", nvidia_smi=smi, ranks_share="cuda:0",
+         backend="gloo (a, b, c), nccl (one rank)",
+         meshes={"HWGATE": PARALLEL_HWGATE_MESH, "banded": PARALLEL_BANDED_MESH,
+                 "run_distributed": PARALLEL_RUN_MESH},
+         tolerance={"logits": LOGIT_TOL, "grads": {"float32": GRAD_ATOL_F32,
+                                                   "bfloat16": GRAD_REL_BF16}},
+         results=out, host_ms_per_step=host_ms, launches_per_rank={
+             case: {step: {k: n for k, n in counts.items() if n}
+                    for step, counts in results[case][1][0]["launches"].items()}
+             for case in results},
+         launches_total=totals, run_distributed=run_out,
+         nccl_one_rank={"bit_for_bit": True, "host_ms": nccl_ranks[0]["host_ms"]},
+         seconds={"references": reference_s, "sharded_steps": steps_s, "runs": run_s,
+                  "phase": time.perf_counter() - t0})
+    return totals
+
+
 def kernel_entry(kind: str, name: str, replaces: str, launches: int, timings: dict,
                  errors: dict) -> dict:
     """One entry of the kernels line: HWGATE's f32 numbers at the top level
@@ -4197,6 +4452,8 @@ def main() -> int:
         tools_launches = phase_data_tools(Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         export_launches = phase_export(Path(tmp), repo)
+    with tempfile.TemporaryDirectory() as tmp:
+        parallel_launches = phase_parallel(Path(tmp), smi)
 
     from sl_hwgat_tpu_torch.bench import kernel as bench
     from sl_hwgat_tpu_torch.ops import banded_attention, hybrid_attention, probes, window_attention
@@ -4214,6 +4471,7 @@ def main() -> int:
     fwd["step_bench_launches"] = step_launches["window_attention"]
     fwd["data_tools_launches"] = tools_launches["fwd"]
     fwd["export_launches"] = export_launches[window_attention.KERNEL]
+    fwd["parallel_launches"] = parallel_launches["window_attention"]
     fwd["wide_design"] = WIDE_DESIGN
     fwd["wide_ptxas"] = {n: r for n, r in wide_kernels.items() if "fwd" in n}
     fwd["edge_cases_max_abs_err"] = edge_errors["window_fwd"]
@@ -4229,6 +4487,7 @@ def main() -> int:
     bwd["cli_launches"] = cli_launches["bwd"]
     bwd["step_bench_launches"] = step_launches["window_attention_bwd"]
     bwd["data_tools_launches"] = tools_launches["bwd"]
+    bwd["parallel_launches"] = parallel_launches["window_attention_bwd"]
     bwd["wide_design"] = WIDE_DESIGN
     bwd["wide_ptxas"] = {n: r for n, r in wide_kernels.items() if "bwd" in n}
     bwd["edge_cases_max_abs_err"] = edge_errors["window_bwd"]
@@ -4242,6 +4501,7 @@ def main() -> int:
     bfwd["train_launches"] = banded_train_launches["fwd"]
     bfwd["step_bench_launches"] = step_launches["banded_attention"]
     bfwd["export_launches"] = export_launches[banded_attention.KERNEL]
+    bfwd["parallel_launches"] = parallel_launches["banded_attention"]
     bfwd["edge_cases_max_abs_err"] = edge_errors["banded_fwd"]
     bfwd.update(design=REDESIGNED[banded_attention.KERNEL],
                 ptxas=redesigned.get(banded_attention.KERNEL),
@@ -4253,6 +4513,7 @@ def main() -> int:
                       "WGATE/float32")
     bbwd["edge_cases_max_abs_err"] = edge_errors["banded_bwd"]
     bbwd["step_bench_launches"] = step_launches["banded_attention_bwd"]
+    bbwd["parallel_launches"] = parallel_launches["banded_attention_bwd"]
     bbwd.update(design=REDESIGNED[banded_attention.KERNEL_BWD],
                 ptxas=redesigned.get(banded_attention.KERNEL_BWD),
                 block=blocks[banded_attention.KERNEL_BWD])
@@ -4264,6 +4525,7 @@ def main() -> int:
     sfwd["train_launches"] = trained["masked_softmax"]
     sfwd["step_bench_launches"] = step_launches["masked_softmax"]
     sfwd["export_launches"] = export_launches[hybrid_attention.KERNEL]
+    sfwd["parallel_launches"] = parallel_launches["masked_softmax"]
     sfwd["edge_cases_max_abs_err"] = edge_errors["softmax_fwd"]
     sfwd.update(design=REDESIGNED[hybrid_attention.KERNEL],
                 ptxas=redesigned.get(hybrid_attention.KERNEL),

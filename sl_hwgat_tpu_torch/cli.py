@@ -13,7 +13,9 @@ final top-k table over the three splits and the confusion CSV.
 is ``cuda:0``), or ``cpu`` to ask for the CPU. There is no fallback: without
 a card a run raises unless it was given ``-c cpu``. ``--prng`` is accepted
 and ignored (the port draws its dropout masks and prune scalars from a
-``torch.Generator`` seeded per step); ``--ckpt-backend orbax`` is refused.
+``torch.Generator`` seeded per step); ``--ckpt-backend orbax`` writes the
+sharded checkpoint directories of ``train/checkpoint.py`` (the flag keeps
+the JAX package's name), which resume, transfer and test read back.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ def parser(argv=None) -> argparse.Namespace:
     p.add_argument("--ckpt-backend", type=str, default="pickle",
                    choices=["pickle", "orbax"],
                    help="checkpoint format: 'pickle' is the port's torch.save file; "
-                        "'orbax' is refused")
+                        "'orbax' the sharded torch.distributed.checkpoint directory")
     p.add_argument("--attn-dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
                    help="attention type of HWGATE and HGATE (bfloat16 under f32 projections)")
@@ -168,9 +170,6 @@ def main(argv=None):
     from sl_hwgat_tpu_torch.configs import RunConfig
 
     args = parser(argv)
-    if args.ckpt_backend == "orbax":
-        raise SystemExit("--ckpt-backend orbax has no counterpart in the port, which writes "
-                         "one torch.save format (see ROADMAP.md queue 1 item 8)")
     cfg = RunConfig(
         dataset=args.dataset,
         model_type=args.model,
@@ -181,6 +180,7 @@ def main(argv=None):
         model_weights=args.model_weights,
         topk=args.topk,
         device=device_of(args.device),
+        ckpt_backend=args.ckpt_backend,
     )
     if args.epochs is not None:
         cfg.epochs = args.epochs

@@ -136,6 +136,7 @@ class RunConfig:
 
     input_root: str = "input"
     output_root: str = "output"
+    ckpt_backend: str = "pickle"   # 'pickle' (one file) | 'orbax' (sharded directory)
     grad_accum: int = 1            # microbatches per optimizer update
     device: str = "cuda"
 

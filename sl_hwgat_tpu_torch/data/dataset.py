@@ -74,7 +74,10 @@ class Loader:
     epochs (validation, checkpoints, curves). ``cache_transforms``: the
     batches of the first pass are kept and replayed by every later one; only
     for a transform that draws no randomness and does not depend on the
-    epoch (the eval transform of the val and test loaders).
+    epoch (the eval transform of the val and test loaders). ``row_slice``
+    (lo, hi): read and transform only rows [lo, hi) of every batch (a rank
+    of a sharded run, ``train/dist.py``); the batch order and padding are
+    the global ones, so the ranks' rows make up the same batches.
     """
 
     dataset: KeypointDataset
@@ -85,6 +88,7 @@ class Loader:
     prefetch: int = 2
     auto_warm_next: bool = False
     cache_transforms: bool = False
+    row_slice: tuple | None = None
     _pool: ThreadPoolExecutor | None = field(default=None, repr=False)
     _warm: dict = field(default_factory=dict, repr=False)
     _cache: list | None = field(default=None, repr=False)
@@ -99,6 +103,9 @@ class Loader:
             pad = self.batch_size - len(ids)
             ids = np.concatenate([ids, np.repeat(ids[-1:], pad)])
             valid = np.concatenate([valid, np.zeros(pad, np.float32)])
+        if self.row_slice is not None:
+            lo, hi = self.row_slice
+            ids, valid = ids[lo:hi], valid[lo:hi]
         return ids, valid
 
     def _order(self, epoch: int) -> np.ndarray:

@@ -17,6 +17,10 @@ from a ``torch.Generator`` that the caller passes down, so a train step is
 reproducible from its seed. ``remat`` recomputes a block in the backward
 pass on a replay of that generator, so the recomputed masks are the
 forward's.
+
+Inside a sharded step (``parallel/``), ``FeedForward`` runs its tp shard
+(``tp`` > 1: fc1's rows, fc2's columns, Megatron's pair of collectives)
+and ``PositionalEncoding`` adds the rows of the rank's first frame.
 """
 
 from __future__ import annotations
@@ -72,6 +76,29 @@ def lecun_normal_(w: torch.Tensor, generator: torch.Generator | None = None) -> 
     return variance_scaling_(w, 1.0, "fan_in", "truncated_normal", generator)
 
 
+class Splittable(nn.Module):
+    """A registry model, and what a sharded step (``parallel/sharding.py``)
+    may split in it. Every model trains under dp. ``sp_path``: its frames
+    split over sp ranks; ``tp_path``: its heads and FFN over tp ranks
+    (``parallel.sharding.TP_RULES``); ``sp_replicated``: the patterns of
+    the parameters after the sp pool, whose whole gradient every sp rank
+    computes. ``check_split`` refuses a split the model has no path for or
+    that does not divide."""
+
+    sp_path = False
+    tp_path = False
+    sp_replicated: tuple[str, ...] = ()
+
+    def check_split(self, sp: int, tp: int, frames: int | None = None) -> None:
+        name = type(self).__name__
+        if sp > 1 and not self.sp_path:
+            raise ValueError(f"{name} has no sp path (sp = {sp}): pass shard_sequence=False")
+        if tp > 1 and not self.tp_path:
+            raise ValueError(f"{name} has no tp path (tp = {tp}): pass use_tp=False")
+        if frames is not None and frames % sp:
+            raise ValueError(f"{frames} frames do not split over sp {sp}")
+
+
 class Dense(nn.Linear):
     """``nn.Linear`` that computes in ``compute_dtype`` (float32 parameters)."""
 
@@ -96,6 +123,74 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
         return x
     keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+def dropout_shard(x: torch.Tensor, rate: float, training: bool,
+                  generator: torch.Generator | None, index: int, count: int) -> torch.Tensor:
+    """``dropout`` of shard ``index`` of ``count`` along the last axis: the
+    mask is drawn at the full width and this shard's columns are kept, so
+    ranks that share ``generator`` stay in step and their shards' masks
+    differ."""
+    if not training or rate == 0.0:
+        return x
+    w = x.shape[-1]
+    keep = torch.rand((*x.shape[:-1], w * count), generator=generator, device=x.device)
+    keep = keep[..., index * w:(index + 1) * w] >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+def row_split_linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, group,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """``F.linear(x, weight) + bias`` of a layer whose input is split over
+    ``group``: this rank holds ``x``'s features of its shard and
+    ``weight``'s columns for them. The partial products are summed over
+    ``group`` in at least float32 (all-reduce forward, identity backward),
+    then the replicated bias is added once; computed in ``dtype``."""
+    from sl_hwgat_tpu_torch.parallel.comm import reduce_from
+
+    y = F.linear(x.to(dtype), weight.to(dtype))
+    y = reduce_from(y.to(torch.promote_types(dtype, torch.float32)), group)
+    return y.to(dtype) + bias.to(dtype)
+
+
+def tp_branch_input(x: torch.Tensor, tp: int) -> torch.Tensor:
+    """The input of a tp-split branch: identity forward, all-reduce of the
+    gradient over the active layout's tp group backward (Megatron's f)."""
+    if tp == 1:
+        return x
+    from sl_hwgat_tpu_torch.parallel.comm import copy_to
+    from sl_hwgat_tpu_torch.parallel.mesh import active
+
+    return copy_to(x, active().group("tp"))
+
+
+def sequence_layout():
+    """The active layout when it splits the frames over sp ranks, else None."""
+    from sl_hwgat_tpu_torch.parallel.mesh import active
+
+    layout = active()
+    return layout if layout is not None and layout.sp > 1 else None
+
+
+def frame_offset(frames: int) -> int:
+    """The clip index of this rank's first frame, of its ``frames`` local
+    ones (0 outside a frame-sharded step)."""
+    layout = sequence_layout()
+    return 0 if layout is None else layout.rank("sp") * frames
+
+
+def token_mean(x: torch.Tensor) -> torch.Tensor:
+    """(B, F, K, D) → (B, D): the mean over the clip's frames and joints;
+    under sp the local sums are summed over the sp ranks (every rank then
+    holds the clip's mean, and each rank's frames get their share of its
+    gradient)."""
+    layout = sequence_layout()
+    if layout is None:
+        return x.mean(dim=(1, 2))
+    from sl_hwgat_tpu_torch.parallel.comm import reduce_from
+
+    count = x.shape[1] * layout.sp * x.shape[2]
+    return reduce_from(x.sum(dim=(1, 2)), layout.group("sp")) / count
 
 
 def layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -138,11 +233,15 @@ class PositionalEncoding(nn.Module):
         self.drop_rate = drop_rate
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-        return dropout(x + self.pe[:, : x.shape[1]], self.drop_rate, self.training, generator)
+        lo = frame_offset(x.shape[1])
+        return dropout(x + self.pe[:, lo:lo + x.shape[1]], self.drop_rate, self.training,
+                       generator)
 
 
 class FeedForward(nn.Module):
-    """fc1 → GELU → drop → fc2 → drop. ≡ `HWGATE.py:120-136`."""
+    """fc1 → GELU → drop → fc2 → drop. ≡ `HWGATE.py:120-136`. With ``tp``
+    > 1 (set by ``parallel.sharding.shard_model``) the module holds fc1's
+    rows and fc2's columns of its tp rank."""
 
     def __init__(self, dim: int, hidden: int, drop_rate: float = 0.0,
                  compute_dtype: torch.dtype = torch.float32,
@@ -151,10 +250,21 @@ class FeedForward(nn.Module):
         self.fc1 = Dense(dim, hidden, compute_dtype, generator)
         self.fc2 = Dense(hidden, dim, compute_dtype, generator)
         self.drop_rate = drop_rate
+        self.tp = 1
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-        x = dropout(gelu_exact(self.fc1(x)), self.drop_rate, self.training, generator)
-        return dropout(self.fc2(x), self.drop_rate, self.training, generator)
+        if self.tp == 1:
+            x = dropout(gelu_exact(self.fc1(x)), self.drop_rate, self.training, generator)
+            return dropout(self.fc2(x), self.drop_rate, self.training, generator)
+        from sl_hwgat_tpu_torch.parallel.mesh import active
+
+        layout = active()
+        x = gelu_exact(self.fc1(tp_branch_input(x, self.tp)))
+        x = dropout_shard(x, self.drop_rate, self.training, generator, layout.rank("tp"),
+                          self.tp)
+        x = row_split_linear(x, self.fc2.weight, self.fc2.bias, layout.group("tp"),
+                             self.fc2.compute_dtype)
+        return dropout(x, self.drop_rate, self.training, generator)
 
 
 def remat(block: nn.Module, x: torch.Tensor,

@@ -30,7 +30,7 @@ from torch.nn import functional as F
 
 from sl_hwgat_tpu_torch.graphs.partition import spatial_graph
 from sl_hwgat_tpu_torch.graphs.skeleton import BODY29_EDGES
-from sl_hwgat_tpu_torch.models.common import dropout, variance_scaling_
+from sl_hwgat_tpu_torch.models.common import Splittable, dropout, variance_scaling_
 from sl_hwgat_tpu_torch.models.stgcn import _Head, data_norm
 
 
@@ -184,7 +184,7 @@ class DecoupledBlock(nn.Module):
         return torch.relu(y + skip)
 
 
-class DecoupledGCN(nn.Module):
+class DecoupledGCN(Splittable):
     """10-block decoupled GCN classifier: (B, T, V=29, C) → logits.
     Defaults ≡ ``DecoupledGCNParams`` (`model_params.py:540-588`)."""
 

@@ -8,7 +8,10 @@ graph (no self loops, so the diagonal is masked), through the ±1-frame band
 under ``attn_impl="ell"``), then a learned
 weighted average over tokens (``weightedAvg``: Linear(F·K → 1)). Dtypes and
 the state_dict layout are WGATE's (``models/wgate.py``), plus
-``weightedAvg.{weight,bias}``.
+``weightedAvg.{weight,bias}``. Under sp (``parallel/``) the banded MSA and
+the positional encoding run as WGATE's do, and ``weightedAvg`` takes the
+columns of the rank's tokens, sums the partial averages over the sp ranks
+and adds its bias once.
 """
 
 from __future__ import annotations
@@ -23,9 +26,12 @@ from sl_hwgat_tpu_torch.models.common import (
     Dense,
     FeedForward,
     PositionalEncoding,
+    Splittable,
     fourier_embed,
     fourier_matrix,
     layer_norm,
+    row_split_linear,
+    sequence_layout,
 )
 from sl_hwgat_tpu_torch.models.wgate import BandedMSA, check_banded_impl, make_band
 
@@ -48,11 +54,14 @@ class GAttentionBlock(nn.Module):
         return x + self.ff(layer_norm(self.norm2, x), generator)
 
 
-class GATE(nn.Module):
+class GATE(Splittable):
     """Flat spatio-temporal graph-attention classifier:
     (B, F, K=29, kp_dim) → logits (B, num_classes). Defaults ≡ ``GATEParams``
     (`model_params.py:5-19`), with the positional encoding always on.
     ``attn_impl``: any of ``models.wgate.BANDED_IMPLS``, one function."""
+
+    sp_path = True
+    sp_replicated = (r"^head\.", r"^weightedAvg\.bias$")
 
     def __init__(self, kp_dim: int = 2, num_kps: int = 29, temporal_dim: int = 192,
                  num_classes: int = 2002, embed_dim: int = 128, depths: int = 8,
@@ -81,7 +90,13 @@ class GATE(nn.Module):
             x = block(x, generator)
         x = layer_norm(self.norm, x)
         # learned weighted average over tokens, `GATE.py:210`
-        x = self.weightedAvg(x.transpose(1, 2))[..., 0]
+        layout = sequence_layout()
+        if layout is None:
+            x = self.weightedAvg(x.transpose(1, 2))[..., 0]
+        else:  # the columns of the rank's tokens, summed over the sp ranks
+            avg, lo = self.weightedAvg, layout.rank("sp") * f * k
+            x = row_split_linear(x.transpose(1, 2), avg.weight[:, lo:lo + f * k], avg.bias,
+                                 layout.group("sp"), avg.compute_dtype)[..., 0]
         return self.head(x)
 
 

@@ -41,6 +41,7 @@ from sl_hwgat_tpu_torch.models.common import (
     Dense,
     FeedForward,
     PositionalEncoding,
+    Splittable,
     fourier_embed,
     fourier_matrix,
     layer_norm,
@@ -92,7 +93,7 @@ class _Stage(nn.Module):
         self.blocks = nn.ModuleList(blocks)
 
 
-class HGATE(nn.Module):
+class HGATE(Splittable):
     """Hierarchical whole-skeleton graph-attention classifier:
     (B, F, K=29, kp_dim) → logits (B, num_classes). Defaults ≡ ``HGATEParams``
     (`model_params.py:405-420`). ``compute_dtype``: 'float32' or 'bfloat16'

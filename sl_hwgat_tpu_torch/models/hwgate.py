@@ -28,7 +28,16 @@ PyTorch counterpart of ``sl_hwgat_tpu/models/hwgate.py`` on the token-major
 - train-time pruning (``prune_attn``) draws one uniform scalar per MSA call
   on the device, and dropout its masks, from the generator passed to
   ``forward`` (the train step seeds one per step);
-- the zero-score quirk is always on.
+- the zero-score quirk is always on;
+- inside a sharded step (``parallel/``) a rank runs its own units: its dp
+  rows, its sp frames and, with ``tp`` > 1 (``parallel.sharding.
+  shard_model``), its heads of ``attn.qkv``, its columns of ``attn.proj``
+  and its FFN shard. The shifted blocks' roll then crosses sp ranks as a
+  ring exchange of one frame each way, the dual-mask selector comes from
+  the rank's global temporal groups (``parallel.kernel_sharding``), the
+  positional encoding starts at the rank's first frame, the pool is summed
+  over the sp ranks, and every rank of a call prunes with the step's one
+  scalar per MSA call (``prune_scalar``).
 
 The state_dict uses the reference's key layout (``B``, ``pos_encoder.pe``,
 ``layers.{i}.blocks.{j}.{norm1,attn.qkv,attn.proj,norm2,ff.fc1,ff.fc2}``,
@@ -50,12 +59,19 @@ from sl_hwgat_tpu_torch.models.common import (
     Dense,
     FeedForward,
     PositionalEncoding,
+    Splittable,
     dropout,
     fourier_embed,
     fourier_matrix,
     layer_norm,
     remat,
+    row_split_linear,
+    sequence_layout,
+    token_mean,
+    tp_branch_input,
 )
+from sl_hwgat_tpu_torch.parallel import kernel_sharding
+from sl_hwgat_tpu_torch.parallel.mesh import active
 from sl_hwgat_tpu_torch.ops.hybrid_attention import hybrid_window_attention
 from sl_hwgat_tpu_torch.ops.window import temporal_merge, window_partition, window_reverse
 from sl_hwgat_tpu_torch.ops.window_attention import window_attention
@@ -82,6 +98,32 @@ def _supertile_stack(tokens: int) -> tuple[int, int | None]:
         pad = ((tokens + 7) // 8) * 8
     stack = max(1, 128 // pad)
     return stack, (pad if pad != tokens else None)
+
+
+def prune_scalar(module: nn.Module, generator: torch.Generator | None, device) -> torch.Tensor:
+    """The prune scalar of one MSA call: drawn from ``generator``, or inside
+    a sharded train step the step's scalar for ``module``, the same on every
+    rank (each rank's generator draws masks of its own shapes, so their
+    states part ways)."""
+    layout = active()
+    if layout is not None and layout.prune_scalars is not None:
+        return layout.prune_scalars[module]
+    return torch.rand((1,), generator=generator, device=device)
+
+
+def roll_frames(x: torch.Tensor, shift: int) -> torch.Tensor:
+    """``torch.roll(x, shift, dims=1)`` of the clip's frames; under sp the
+    frames that cross a rank boundary come from the neighbouring rank
+    (cyclic: the last rank's follow the first rank's)."""
+    layout = sequence_layout()
+    if layout is None:
+        return torch.roll(x, shift, dims=1)
+    from sl_hwgat_tpu_torch.parallel.comm import ring_take
+
+    group = layout.group("sp")
+    if shift < 0:
+        return torch.cat([x[:, -shift:], ring_take(x[:, :-shift], group, 1)], 1)
+    return torch.cat([ring_take(x[:, -shift:], group, -1), x[:, :-shift]], 1)
 
 
 def shift_tail_mask(tokens_per_frame: int, temporal_patch: int, shift: int) -> np.ndarray:
@@ -120,14 +162,16 @@ class WindowedMSA(nn.Module):
         self.qkv = Dense(dim, 3 * dim, compute_dtype, generator)
         self.proj = Dense(dim, dim, compute_dtype, generator)
         self.proj_drop = proj_drop
+        self.tp = 1  # head shards (``parallel.sharding.shard_model``)
 
     def forward(self, x: torch.Tensor, windows_per_frame: int, temporal_groups: int,
                 generator: torch.Generator | None = None):
         g, n, d = x.shape
-        h = self.num_heads
-        dh = d // h
+        h = self.num_heads // self.tp
+        dh = d // self.num_heads
         cdt = self.proj.compute_dtype
-        qkv = self.qkv(x).reshape(g, n, 3, h, dh).permute(2, 0, 3, 1, 4)
+        qkv = self.qkv(tp_branch_input(x, self.tp)).reshape(g, n, 3, h, dh)
+        qkv = qkv.permute(2, 0, 3, 1, 4)
         # units in (b, f, nW, h) order, each (n, dh), in the attention's type
         adt = self.attn_dtype
         q, k, v = (t.reshape(g * h, n, dh).to(adt).contiguous() for t in qkv)
@@ -135,7 +179,7 @@ class WindowedMSA(nn.Module):
         # train-time pruning: one uniform scalar per call, drawn on the device
         prune_u = None
         if self.prune and self.training:
-            prune_u = torch.rand((1,), generator=generator, device=x.device)
+            prune_u = prune_scalar(self, generator, x.device)
         stack, pad = _supertile_stack(n)
         tail_kw = {}
         if self.tail_adj is not None:
@@ -145,15 +189,23 @@ class WindowedMSA(nn.Module):
                 # temporal groups. One unit per supertile gives the function
                 # of the JAX model's split by group, since units never mix.
                 stack = 1
+            # under sp, the selector of the rank's global temporal groups
+            sel = kernel_sharding.rank_sel(q.shape[0] // stack, stack, per_group,
+                                           temporal_groups, q.device)
             tail_kw = dict(tail_adj=self.tail_adj, units_per_group=per_group,
-                           groups=temporal_groups)
+                           groups=temporal_groups, sel=sel)
         kw = dict(scale=dh**-0.5, stack=stack, pad_tokens=pad, prune_u=prune_u, **tail_kw)
         if self.attn_impl == "hybrid":
             out = hybrid_window_attention(q, k, v, self.adj, **kw)
         else:
             out = window_attention(q, k, v, self.adj, out_dtype=adt, **kw)
-        out = out.to(cdt).reshape(g, h, n, dh).permute(0, 2, 1, 3).reshape(g, n, d)
-        return dropout(self.proj(out), self.proj_drop, self.training, generator)
+        out = out.to(cdt).reshape(g, h, n, dh).permute(0, 2, 1, 3).reshape(g, n, h * dh)
+        if self.tp > 1:
+            out = row_split_linear(out, self.proj.weight, self.proj.bias, active().group("tp"),
+                                   cdt)
+        else:
+            out = self.proj(out)
+        return dropout(out, self.proj_drop, self.training, generator)
 
 
 class PartAttentionBlock(nn.Module):
@@ -189,13 +241,13 @@ class PartAttentionBlock(nn.Module):
         _, f_total, k, _ = x.shape
         shortcut = x
         if self.shift_size > 0:
-            x = torch.roll(x, -self.shift_size, dims=1)
+            x = roll_frames(x, -self.shift_size)
         xw = window_partition(x, self.window_size, self.temporal_patch)
         xw = self.attn(layer_norm(self.norm1, xw).to(sdt), k // self.window_size,
                        f_total // self.temporal_patch, generator)
         x = window_reverse(xw, self.window_size, self.temporal_patch, f_total, k)
         if self.shift_size > 0:
-            x = torch.roll(x, self.shift_size, dims=1)
+            x = roll_frames(x, self.shift_size)
         x = shortcut + x.to(sdt)
         return x + self.ff(layer_norm(self.norm2, x).to(sdt), generator).to(sdt)
 
@@ -206,7 +258,7 @@ class _Stage(nn.Module):
         self.blocks = nn.ModuleList(blocks)
 
 
-class HWGATE(nn.Module):
+class HWGATE(Splittable):
     """Hierarchical windowed graph-attention classifier:
     (B, F, K=64, kp_dim) → logits (B, num_classes).
 
@@ -220,6 +272,22 @@ class HWGATE(nn.Module):
     block in the backward pass. All are the JAX model's options of the same
     names.
     """
+
+    sp_path = tp_path = True
+    sp_replicated = (r"^head\.",)
+
+    def check_split(self, sp: int, tp: int, frames: int | None = None) -> None:
+        """Also: heads that divide by tp at every stage, and a rank's frames
+        by the temporal patch at every merge."""
+        super().check_split(sp, tp, frames)
+        for stage in self.layers:
+            for block in stage.blocks:
+                if block.attn.num_heads % tp:
+                    raise ValueError(f"{block.attn.num_heads} heads do not split over tp {tp}")
+        need = self.temporal_patch ** len(self.layers)
+        if frames is not None and sp > 1 and (frames // sp) % need:
+            raise ValueError(f"{frames // sp} frames a rank do not divide by the temporal "
+                             f"patch at every stage ({need})")
 
     def __init__(self, kp_dim: int = 2, temporal_dim: int = 192,
                  num_classes: int = 2002, embed_dim: int = 128, temporal_patch: int = 2,
@@ -266,7 +334,7 @@ class HWGATE(nn.Module):
             if i < len(self.layers) - 1:
                 x = temporal_merge(x, self.temporal_patch)
         x = layer_norm(self.norm, x)
-        x = x.mean(dim=(1, 2))  # AvgPool1d over f·K tokens, `HWGATE.py:328,354`
+        x = token_mean(x)  # AvgPool1d over f·K tokens, `HWGATE.py:328,354`
         return self.head(x)
 
 

@@ -29,7 +29,7 @@ from torch import nn
 
 from sl_hwgat_tpu_torch.graphs.partition import GraphPartition
 from sl_hwgat_tpu_torch.graphs.skeleton import BODY29_EDGES
-from sl_hwgat_tpu_torch.models.common import dropout, lecun_normal_
+from sl_hwgat_tpu_torch.models.common import Splittable, dropout, lecun_normal_
 
 # (out_channels, stride) of the ten blocks, `STGCN.py:215-228`
 SCHEDULE = ((64, 1), (64, 1), (64, 1), (64, 1), (128, 2),
@@ -116,7 +116,7 @@ class _Head(nn.Module):
             self.classifier.bias.zero_()
 
 
-class STGCN(nn.Module):
+class STGCN(Splittable):
     """10-block ST-GCN classifier: (B, T, V=29, C) → logits (B, num_classes).
     Defaults ≡ ``STGCNParams`` (`model_params.py:490-538`)."""
 

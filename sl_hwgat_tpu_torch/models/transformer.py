@@ -29,6 +29,7 @@ from torch.nn import functional as F
 from sl_hwgat_tpu_torch.models.common import (
     DTYPES,
     LN_EPS,
+    Splittable,
     dropout,
     sinusoid_table,
     variance_scaling_,
@@ -141,7 +142,7 @@ class _Encoder(nn.Module):
         self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
 
 
-class TransformerClassifier(nn.Module):
+class TransformerClassifier(Splittable):
     """(B, T, V, C) → logits (B, num_classes). Defaults ≡ ``TransformerParams``
     (`model_params.py:590-605`)."""
 

@@ -15,6 +15,12 @@ Dtypes are the JAX model's: projections and the FFN run in
 ``proj``; LayerNorm is f32, so the residual stream stays f32 (an f32
 shortcut plus a bf16 branch promotes).
 
+Inside a sharded step with the frames split over sp ranks
+(``parallel/``), ``BandedMSA`` runs on the rank's frames with its
+neighbours' boundary frames of k and v attached
+(``parallel.edge_partition.call_sharded_banded``), the positional encoding
+starts at the rank's first frame and the pool is summed over the sp ranks.
+
 The state_dict uses the reference's flat key layout (``B``,
 ``pos_encoder.pe``, ``layers.{i}.{norm1,attn.qkv,attn.proj,norm2,ff.fc1,
 ff.fc2}``, ``norm``, ``head``), with one fused ``attn.qkv`` whose rows are
@@ -34,12 +40,15 @@ from sl_hwgat_tpu_torch.models.common import (
     Dense,
     FeedForward,
     PositionalEncoding,
+    Splittable,
     dropout,
     fourier_embed,
     fourier_matrix,
     layer_norm,
+    token_mean,
 )
 from sl_hwgat_tpu_torch.ops.banded_attention import banded_attention
+from sl_hwgat_tpu_torch.parallel import edge_partition
 from sl_hwgat_tpu_torch.ops.sparse_attention import ell_from_band, ell_graph_attention
 from sl_hwgat_tpu_torch.ops.window import spatial_window_partition, spatial_window_reverse
 
@@ -89,7 +98,12 @@ class BandedMSA(nn.Module):
         qkv = self.qkv(x).reshape(g, n, 3, h, dh).permute(2, 0, 3, 1, 4)
         # planes in (g, h) order, each (F·V, dh) token-major
         q, k, v = (t.reshape(g * h, n, dh).contiguous() for t in qkv)
-        if self.attn_impl == "ell":
+        if edge_partition.sp_active():
+            if self.attn_impl == "ell":
+                raise ValueError("attn_impl='ell' has no sp path: the frames split over "
+                                 "ranks run the banded kernels")
+            out = edge_partition.call_sharded_banded(q, k, v, self.band, scale=dh**-0.5)
+        elif self.attn_impl == "ell":
             col, val = ell_from_band(self.band[1], n // self.band.shape[1], device=x.device)
             out = ell_graph_attention(*(t.view(g, h, n, dh) for t in (q, k, v)), col, val,
                                       scale=dh**-0.5)
@@ -124,7 +138,7 @@ class WPartAttentionBlock(nn.Module):
         return x + self.ff(layer_norm(self.norm2, x), generator)
 
 
-class WGATE(nn.Module):
+class WGATE(Splittable):
     """Windowed (non-hierarchical) graph-attention classifier:
     (B, F, K=64, kp_dim) → logits (B, num_classes). Defaults ≡ ``WGATEParams``
     (`model_params.py:80-96`), with the positional encoding always on. In
@@ -132,6 +146,9 @@ class WGATE(nn.Module):
     ``forward``. ``attn_impl``: any of ``BANDED_IMPLS``, one function
     ("ell" through the gather/scatter form, the others through the banded
     kernels)."""
+
+    sp_path = True
+    sp_replicated = (r"^head\.",)
 
     def __init__(self, kp_dim: int = 2, temporal_dim: int = 192, num_classes: int = 2002,
                  embed_dim: int = 128, depths: int = 8, num_heads: int = 8, window_size: int = 16,
@@ -156,7 +173,7 @@ class WGATE(nn.Module):
         for block in self.layers:
             x = block(x, generator)
         x = layer_norm(self.norm, x)
-        return self.head(x.mean(dim=(1, 2)))
+        return self.head(token_mean(x))
 
 
 def wgate_from_dataset(dataset_params: dict, input_dim: int, **overrides) -> WGATE:

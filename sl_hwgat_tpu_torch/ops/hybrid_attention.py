@@ -226,7 +226,8 @@ def plain_masked_softmax_bwd(s, dp, adj, *, stack=4, zero_quirk=True, prune_u=No
 def hybrid_window_attention(q, k, v, adj, *, scale: float, stack: int = 4,
                             pad_tokens: int | None = None, zero_quirk: bool = True,
                             prune_u=None, tail_adj=None, units_per_group: int | None = None,
-                            groups: int | None = None, unit_offset: int = 0) -> torch.Tensor:
+                            groups: int | None = None, unit_offset: int = 0,
+                            sel=None) -> torch.Tensor:
     """Masked window attention over (U, N, dh) units with
     ``window_attention``'s contract (`sl_hwgat_tpu/ops/hybrid_attention.py:
     151-186`): the two GEMMs through ``torch.bmm`` and the masking and
@@ -247,7 +248,7 @@ def hybrid_window_attention(q, k, v, adj, *, scale: float, stack: int = 4,
     s = torch.bmm(scaled.float(), k.float().transpose(1, 2))
     p = masked_softmax(s, adj, stack=stack, zero_quirk=zero_quirk, prune_u=prune_u,
                        tail_adj=tail_adj, units_per_group=units_per_group, groups=groups,
-                       unit_offset=unit_offset, p_dtype=v.dtype)
+                       unit_offset=unit_offset, sel=sel, p_dtype=v.dtype)
     return torch.bmm(p.float(), v.float())
 
 

@@ -230,14 +230,18 @@ def run_epochs(cfg, state: TrainState, train_step, eval_step, train_loader, val_
         hist["val_acc"].append(val_acc)
         state.epoch = epoch
 
+        backend = cfg.ckpt_backend
         if val_loss < best_val_loss:
             best_val_loss = val_loss
-            ckpt_lib.save_checkpoint(f"{cfg.save_model_path}_best_loss.ckpt", state, cfg.lr)
+            ckpt_lib.save_checkpoint(f"{cfg.save_model_path}_best_loss.ckpt", state, cfg.lr,
+                                     backend)
         if val_acc > best_val_acc:
             best_val_acc = val_acc
-            ckpt_lib.save_checkpoint(f"{cfg.save_model_path}_best_acc.ckpt", state, cfg.lr)
+            ckpt_lib.save_checkpoint(f"{cfg.save_model_path}_best_acc.ckpt", state, cfg.lr,
+                                     backend)
         if epoch > 0 and epoch % cfg.save_interval == 0:
-            ckpt_lib.save_checkpoint(f"{cfg.save_model_path}_{epoch}.ckpt", state, cfg.lr)
+            ckpt_lib.save_checkpoint(f"{cfg.save_model_path}_{epoch}.ckpt", state, cfg.lr,
+                                     backend)
 
         if progress is not None:
             progress(epoch, dict(train_loss=train_loss, train_acc=train_acc,

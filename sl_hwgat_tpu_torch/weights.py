@@ -19,6 +19,7 @@ Port checkpoints are ``torch.save({"model_state_dict": state_dict})``.
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Mapping
 
@@ -243,7 +244,12 @@ def strip_model_prefix(state_dict: Mapping) -> dict:
 
 
 def load_state_dict(path: str) -> dict[str, torch.Tensor]:
-    """A reference or port ``.pt`` file → the port's state_dict (on the CPU)."""
+    """A reference or port ``.pt`` file, or a port checkpoint (a file, or a
+    sharded checkpoint's directory) → the port's state_dict (on the CPU)."""
+    if os.path.isdir(path):
+        from sl_hwgat_tpu_torch.train.checkpoint import read_checkpoint
+
+        return read_checkpoint(path)["model_state_dict"]
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = ckpt.get("model_state_dict", ckpt)
     return {k: v for k, v in strip_model_prefix(sd).items() if not _rebuilt(k)}

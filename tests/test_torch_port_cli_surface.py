@@ -122,25 +122,27 @@ def test_without_cpu_flag_and_card_the_run_raises(monkeypatch, tmp_path):
 
 
 def test_orbax_and_ell_are_refused(monkeypatch, tmp_path):
+    """Neither flag is refused any more: ``--ckpt-backend orbax`` (the
+    sharded checkpoint since the parallel layer was ported) and
+    ``--attn-impl ell`` (since the ELL attention was ported) reach the run's
+    config; here the run stops at the absent dataset, after the model was
+    configured."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(SystemExit, match="orbax has no counterpart.*ROADMAP.md"):
-        cli.main(["-d", "SYNTH", "--model", "HWGATE", "--ckpt-backend", "orbax", "-c", "cpu"])
-    assert not os.path.exists(tmp_path / "output")
-    # --attn-impl ell is accepted since the ELL attention was ported: it
-    # reaches WGATE's and GATE's constructors (here the run stops at the
-    # absent dataset, after the model was configured)
     seen = []
     real = cli.run
 
     def capture(cfg, **kw):
-        seen.append(cfg.overrides)
+        seen.append((cfg.ckpt_backend, cfg.overrides))
         return real(cfg, **kw)
 
     monkeypatch.setattr(cli, "run", capture)
+    with pytest.raises(FileNotFoundError):
+        cli.main(["-d", "SYNTH", "--model", "HWGATE", "--ckpt-backend", "orbax", "-c", "cpu"])
     for model in ("WGATE", "GATE"):
         with pytest.raises(FileNotFoundError):
             cli.main(["-d", "SYNTH", "--model", model, "--attn-impl", "ell", "-c", "cpu"])
-    assert seen == [{"attn_impl": "ell"}] * 2
+    assert seen == [("orbax", {}), ("pickle", {"attn_impl": "ell"}),
+                    ("pickle", {"attn_impl": "ell"})]
 
 
 _RUN_MAIN = """

@@ -184,6 +184,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference_package():
                  "ops.probes", "ops.layouts", "bench.kernel", "bench.run", "utils.profiling",
                  "cli", "configs", "train.checkpoint", "train.reporting", "train.inference",
                  "ops.sparse_attention", "ops.library", "data.clipstore", "data.meta_generators",
-                 "data.preprocess"):
+                 "data.preprocess", "parallel", "parallel.mesh", "parallel.comm",
+                 "parallel.sharding", "parallel.kernel_sharding", "parallel.edge_partition",
+                 "parallel.dryrun", "train.dist"):
         assert f"sl_hwgat_tpu_torch.{name}" in seen["modules"]
     assert seen["reference"] == [] and seen["jax"] == []
