@@ -520,8 +520,14 @@ def redesigned_blocks() -> dict:
     return out
 
 
+_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line; ``elapsed_s``: seconds since the script
+    started, so a phase's time is the difference to the line before."""
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": time.perf_counter() - _START}), flush=True)
 
 
 def nvidia_smi() -> str:
@@ -644,6 +650,28 @@ def wide_unit_cases(dtype):
                 yield case, q, k, v, do, adj, kw
 
 
+def stack1_cases(dtype):
+    """(case, q, k, v, dO, kwargs) of K1/K2 at HGATE's 58-token units with
+    one unit a supertile: what a shifted block runs with one head a rank
+    (stage 0 of the defaults at tp 2, 16 clips × 48 temporal groups of
+    one unit at sp 2), single and dual mask; "sel" is the last sp rank's
+    selector (its last group is the clip's last), "sel0" the first rank's
+    (no group of it is)."""
+    from sl_hwgat_tpu_torch.parallel.kernel_sharding import local_sel
+
+    units, groups = 16 * 48, 48
+    q, k, v = (t[:units] for t in attention_inputs(dtype, "HGATE"))
+    do = output_grad(dtype, "HGATE")[:units]
+    _, tail = masks("HGATE")
+    base = dict(scale=HEAD_DIM**-0.5, stack=1, pad_tokens=64)
+    dual = dict(base, tail_adj=tail, units_per_group=1, groups=groups)
+    cases = {"single": base, "dual": dual,
+             "sel": dict(dual, sel=local_sel(units, 1, 1, groups, groups, 2 * groups, "cuda")),
+             "sel0": dict(dual, sel=local_sel(units, 1, 1, groups, 0, 2 * groups, "cuda"))}
+    for mask, kw in cases.items():
+        yield f"HGATE/{dtype_name(dtype)}/stack1/{mask}", q, k, v, do, kw
+
+
 def case_prefix(model: str) -> str:
     """The prefix of ``model``'s cases in the kernel phases' error keys."""
     return "" if model == "HWGATE" else f"{model}/"
@@ -671,7 +699,9 @@ def phase_kernel(model: str = "HWGATE"):
                 if not err <= TOL[name]:
                     raise AssertionError(f"kernel vs plain {case}: max abs err {err} > {TOL[name]}")
         if model == "HGATE":
-            for case, q, k, v, _, adj_n, kw in wide_unit_cases(dtype):
+            cases = [(c, q, k, v, a, kw) for c, q, k, v, _, a, kw in wide_unit_cases(dtype)]
+            cases += [(c, q, k, v, adj, kw) for c, q, k, v, _, kw in stack1_cases(dtype)]
+            for case, q, k, v, adj_n, kw in cases:
                 got = window_attention(q, k, v, adj_n, out_dtype=dtype, **kw)
                 want = plain_window_attention(q, k, v, adj_n, out_dtype=dtype, **kw)
                 torch.cuda.synchronize()
@@ -726,7 +756,9 @@ def phase_backward(model: str = "HWGATE"):
                 case = f"{case_prefix(model)}{name}/{'dual' if dual else 'single'}/prune={prune_u}"
                 errors[case] = check_gradients(detail, case, got, want, dtype)
         if model == "HGATE":
-            for case, q, k, v, do, adj_n, kw in wide_unit_cases(dtype):
+            cases = list(wide_unit_cases(dtype))
+            cases += [(c, q, k, v, do, adj, kw) for c, q, k, v, do, kw in stack1_cases(dtype)]
+            for case, q, k, v, do, adj_n, kw in cases:
                 got = window_attention_bwd(q, k, v, do, adj_n, **kw)
                 want = plain_window_attention_bwd(q, k, v, do, adj_n, **kw)
                 errors[case] = check_gradients(detail, case, got, want, dtype)
@@ -4097,6 +4129,8 @@ def phase_export(workdir: Path, repo: Path) -> dict:
 # The parallel layer (phase 24).
 
 PARALLEL_HWGATE_MESH = (1, 2, 2)
+PARALLEL_HGATE_MESH = (1, 2, 2)
+PARALLEL_TRANSFORMER_MESH = (2, 1, 2)
 PARALLEL_BANDED_MESH = (2, 2, 1)
 PARALLEL_RUN_MESH = (2, 1, 1)
 PARALLEL_EPOCHS = 1  # --epochs 1: epochs 0 and 1
@@ -4108,6 +4142,7 @@ PARALLEL_LAUNCHES = {
     "hybrid": {"logits": {"masked_softmax": 8}},
     "banded": {"logits": {"banded_attention": 8},
                "train": {"banded_attention": 8, "banded_attention_bwd": 8}},
+    "none": {"logits": {}, "train": {}, "eval": {}},  # the Transformer
 }
 
 
@@ -4194,9 +4229,13 @@ def phase_parallel(workdir: Path, smi: str) -> dict:
     (a) HWGATE at FDMSE-ISL, batch 16, f32 and bf16, prune on, dropout off,
         4 ranks at mesh (1, 2, 2): eval logits, one train step, the eval
         step, against the single-process steps the parent runs first; one
-        attn_impl="hybrid" eval forward. (b) WGATE and GATE at FDMSE-ISL,
-        f32, mesh (2, 2, 1): logits and one train step. (a) and (b) run in
-        one spawn. (c) run_distributed on 2 ranks at (2, 1, 1): SYNTH, two
+        attn_impl="hybrid" eval forward; HGATE the same at its full width
+        (K1/K2 at 58 tokens, one head a rank in stage 0). (b) WGATE and
+        GATE at FDMSE-ISL, f32, mesh (2, 2, 1): logits and one train step;
+        the Transformer, f32, mesh (2, 1, 2) (tp only): logits and one train
+        step, then Predictor.from_checkpoint on its gathered parameters
+        serves the single-process model's logits. (a) and (b) run in one
+        spawn. (c) run_distributed on 2 ranks at (2, 1, 1): SYNTH, two
         epochs, batch 16, each checkpoint backend; the ranks' metrics agree,
         each read its rows only, rank 0's checkpoint holds the weights of its
         epoch bit for bit and Predictor.from_checkpoint serves their logits;
@@ -4205,12 +4244,14 @@ def phase_parallel(workdir: Path, smi: str) -> dict:
     import torch
 
     from sl_hwgat_tpu_torch.configs import RunConfig
+    from sl_hwgat_tpu_torch.constants import DATASET_PARAMS
     from sl_hwgat_tpu_torch.data.dataset import load_artifacts
     from sl_hwgat_tpu_torch.data.synthetic import write_synthetic_dataset
     from sl_hwgat_tpu_torch.models import build_model
     from sl_hwgat_tpu_torch.parallel.dryrun import run_jobs, runs_worker, spawn
     from sl_hwgat_tpu_torch.serve import Predictor
-    from sl_hwgat_tpu_torch.train.checkpoint import read_checkpoint
+    from sl_hwgat_tpu_torch.train.checkpoint import read_checkpoint, save_checkpoint
+    from sl_hwgat_tpu_torch.train.state import TrainState, make_optimizer
 
     t0 = time.perf_counter()
     jobs, refs, kinds = [], {}, {}
@@ -4232,6 +4273,30 @@ def phase_parallel(workdir: Path, smi: str) -> dict:
     jobs.append(parallel_job(workdir, "HWGATE-hybrid", "HWGATE", PARALLEL_HWGATE_MESH,
                              ["logits"], dict(attn_impl="hybrid", drop_rate=0.0)))
     kinds["HWGATE-hybrid/float32"] = "hybrid"
+    hgate_batch = banded_batch("HGATE", train=True)
+    for cdt, impl in (("float32", "auto"), ("bfloat16", "auto"), ("float32", "hybrid")):
+        name = "HGATE" + ("-hybrid" if impl == "hybrid" else "")
+        case = f"{name}/{cdt}"
+        refs[case] = parallel_reference(
+            workdir, case.replace("/", "_"), windowed_model("HGATE", impl, cdt, drop_rate=0.0),
+            hgate_batch, train=impl == "auto")
+        # the eval step in f32 only: the bf16 eval step was trimmed to keep
+        # the whole script inside 900 s
+        steps = {("float32", "auto"): ["logits", "train", "eval"],
+                 ("bfloat16", "auto"): ["logits", "train"]}.get((cdt, impl), ["logits"])
+        jobs.append(parallel_job(workdir, case.replace("/", "_"), "HGATE", PARALLEL_HGATE_MESH,
+                                 steps, dict(attn_impl=impl, compute_dtype=cdt, drop_rate=0.0)))
+        kinds[case] = "hybrid" if impl == "hybrid" else "window"
+        torch.cuda.empty_cache()
+    tr_batch = banded_batch("Transformer", train=True)
+    tr_batch[0][1, 150:] = -1.0  # padded frames: the key padding mask
+    tr_model = build_model("Transformer", DATASET_PARAMS["FDMSE-ISL"], 2, device="cuda",
+                           seed=SEED, dropout=0.0)
+    refs["Transformer/float32"] = parallel_reference(workdir, "Transformer", tr_model, tr_batch,
+                                                     train=True)
+    jobs.append(parallel_job(workdir, "Transformer", "Transformer", PARALLEL_TRANSFORMER_MESH,
+                             ["logits", "train", "params"], dict(dropout=0.0)))
+    kinds["Transformer/float32"] = "none"
     for name in BANDED_MODELS:
         refs[f"{name}/float32"] = parallel_reference(
             workdir, name, banded_model(name, "float32", drop_rate=0.0),
@@ -4256,6 +4321,23 @@ def phase_parallel(workdir: Path, smi: str) -> dict:
             for step, counts in rank["launches"].items():
                 for kernel, n in counts.items():
                     totals[kernel] = totals.get(kernel, 0) + n
+
+    # the Transformer's tp-sharded parameters, gathered, served from a
+    # checkpoint: the single-process model's logits on the same weights
+    params = results["Transformer/float32"][0]["params"]
+    tr_model.load_state_dict(params)
+    tr_path = str(workdir / "transformer_tp_best_loss.ckpt")
+    save_checkpoint(tr_path, TrainState(tr_model, make_optimizer("adamw", LR,
+                                                                 tr_model.parameters())), LR)
+    pred = Predictor.from_checkpoint(tr_path, model_type="Transformer", dataset="FDMSE-ISL")
+    tr_model.eval()
+    with torch.no_grad():
+        served, want = pred.model(tr_batch[0]), tr_model(tr_batch[0])
+    if not torch.equal(served, want):
+        raise AssertionError(f"the served tp-sharded Transformer checkpoint's logits are not "
+                             f"the model's ({(served - want).abs().max().item()})")
+    out["Transformer/float32"]["served_logits_equal"] = True
+    del pred, tr_model
 
     # (c) run_distributed, each backend, then a one-rank NCCL step
     t2 = time.perf_counter()
@@ -4314,7 +4396,8 @@ def phase_parallel(workdir: Path, smi: str) -> dict:
     run_s = time.perf_counter() - t2
     emit("parallel", nvidia_smi=smi, ranks_share="cuda:0",
          backend="gloo (a, b, c), nccl (one rank)",
-         meshes={"HWGATE": PARALLEL_HWGATE_MESH, "banded": PARALLEL_BANDED_MESH,
+         meshes={"HWGATE": PARALLEL_HWGATE_MESH, "HGATE": PARALLEL_HGATE_MESH,
+                 "Transformer": PARALLEL_TRANSFORMER_MESH, "banded": PARALLEL_BANDED_MESH,
                  "run_distributed": PARALLEL_RUN_MESH},
          tolerance={"logits": LOGIT_TOL, "grads": {"float32": GRAD_ATOL_F32,
                                                    "bfloat16": GRAD_REL_BF16}},

@@ -126,16 +126,18 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
 
 
 def dropout_shard(x: torch.Tensor, rate: float, training: bool,
-                  generator: torch.Generator | None, index: int, count: int) -> torch.Tensor:
-    """``dropout`` of shard ``index`` of ``count`` along the last axis: the
-    mask is drawn at the full width and this shard's columns are kept, so
-    ranks that share ``generator`` stay in step and their shards' masks
-    differ."""
+                  generator: torch.Generator | None, index: int, count: int,
+                  dim: int = -1) -> torch.Tensor:
+    """``dropout`` of shard ``index`` of ``count`` along ``dim``: the mask is
+    drawn at the full width and this shard's slice is kept, so ranks that
+    share ``generator`` stay in step and their shards' masks differ."""
     if not training or rate == 0.0:
         return x
-    w = x.shape[-1]
-    keep = torch.rand((*x.shape[:-1], w * count), generator=generator, device=x.device)
-    keep = keep[..., index * w:(index + 1) * w] >= rate
+    w = x.shape[dim]
+    full = list(x.shape)
+    full[dim] = w * count
+    keep = torch.rand(full, generator=generator, device=x.device)
+    keep = keep.narrow(dim, index * w, w) >= rate
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 

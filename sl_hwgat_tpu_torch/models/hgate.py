@@ -20,6 +20,14 @@ adjacency (``hgate_block_adj``). No train-time pruning.
   the residual stream stay f32 (an f32 shortcut plus a bf16 branch promotes).
 - ``remat`` recomputes each block in the backward pass
   (``models.common.remat``, which replays the block's generator).
+- Inside a sharded step (``parallel/``) a rank runs its own units, as
+  HWGATE's: its dp rows, its sp frames and, with ``tp`` > 1, its heads and
+  FFN shard. The shifted blocks' roll is then a ring exchange of one frame
+  each way, the last group's selector comes from the rank's global
+  temporal groups (only the last sp rank holds a clip's last group), the
+  positional encoding starts at the rank's first frame and the pool sums
+  over the sp ranks. With one head a rank, a shifted block's supertiles
+  hold one unit each (``WindowedMSA``'s stack rule).
 
 The state_dict uses the reference's key layout, as HWGATE's (``B``,
 ``pos_encoder.pe``, ``layers.{i}.blocks.{j}.{norm1,attn.qkv,attn.proj,norm2,
@@ -41,13 +49,18 @@ from sl_hwgat_tpu_torch.models.common import (
     Dense,
     FeedForward,
     PositionalEncoding,
-    Splittable,
     fourier_embed,
     fourier_matrix,
     layer_norm,
     remat,
+    token_mean,
 )
-from sl_hwgat_tpu_torch.models.hwgate import WindowedMSA, shift_tail_mask
+from sl_hwgat_tpu_torch.models.hwgate import (
+    WindowedHierarchy,
+    WindowedMSA,
+    roll_frames,
+    shift_tail_mask,
+)
 from sl_hwgat_tpu_torch.ops.window import block_partition, block_reverse, temporal_merge
 
 
@@ -77,12 +90,12 @@ class GraphAttentionBlock(nn.Module):
         _, f_total, k, _ = x.shape
         shortcut = x
         if self.shift_size > 0:
-            x = torch.roll(x, -self.shift_size, dims=1)
+            x = roll_frames(x, -self.shift_size)
         xb = block_partition(x, self.temporal_patch)
         xb = self.attn(layer_norm(self.norm1, xb), 1, f_total // self.temporal_patch, generator)
         x = block_reverse(xb, self.temporal_patch, f_total, k)
         if self.shift_size > 0:
-            x = torch.roll(x, self.shift_size, dims=1)
+            x = roll_frames(x, self.shift_size)
         x = shortcut + x
         return x + self.ff(layer_norm(self.norm2, x), generator)
 
@@ -93,7 +106,7 @@ class _Stage(nn.Module):
         self.blocks = nn.ModuleList(blocks)
 
 
-class HGATE(Splittable):
+class HGATE(WindowedHierarchy):
     """Hierarchical whole-skeleton graph-attention classifier:
     (B, F, K=29, kp_dim) → logits (B, num_classes). Defaults ≡ ``HGATEParams``
     (`model_params.py:405-420`). ``compute_dtype``: 'float32' or 'bfloat16'
@@ -138,7 +151,7 @@ class HGATE(Splittable):
             if i < len(self.layers) - 1:
                 x = temporal_merge(x, self.temporal_patch)
         x = layer_norm(self.norm, x)
-        return self.head(x.mean(dim=(1, 2)))
+        return self.head(token_mean(x))
 
 
 def hgate_from_dataset(dataset_params: dict, input_dim: int, **overrides) -> HGATE:

@@ -208,6 +208,28 @@ class WindowedMSA(nn.Module):
         return dropout(out, self.proj_drop, self.training, generator)
 
 
+class WindowedHierarchy(Splittable):
+    """A hierarchy of ``WindowedMSA`` stages joined by temporal merges
+    (HWGATE, HGATE): split over dp, sp and tp; the head after the sp pool is
+    replicated. ``check_split`` also asks for heads that divide by tp at
+    every stage, and a rank's frames by the temporal patch at every
+    merge."""
+
+    sp_path = tp_path = True
+    sp_replicated = (r"^head\.",)
+
+    def check_split(self, sp: int, tp: int, frames: int | None = None) -> None:
+        super().check_split(sp, tp, frames)
+        for stage in self.layers:
+            for block in stage.blocks:
+                if block.attn.num_heads % tp:
+                    raise ValueError(f"{block.attn.num_heads} heads do not split over tp {tp}")
+        need = self.temporal_patch ** len(self.layers)
+        if frames is not None and sp > 1 and (frames // sp) % need:
+            raise ValueError(f"{frames // sp} frames a rank do not divide by the temporal "
+                             f"patch at every stage ({need})")
+
+
 class PartAttentionBlock(nn.Module):
     """LN → windowed MSA (with the temporal roll in shifted blocks) →
     residual → LN → FFN → residual. ≡ `HWGATE.py:138-221`."""
@@ -258,7 +280,7 @@ class _Stage(nn.Module):
         self.blocks = nn.ModuleList(blocks)
 
 
-class HWGATE(Splittable):
+class HWGATE(WindowedHierarchy):
     """Hierarchical windowed graph-attention classifier:
     (B, F, K=64, kp_dim) → logits (B, num_classes).
 
@@ -272,22 +294,6 @@ class HWGATE(Splittable):
     block in the backward pass. All are the JAX model's options of the same
     names.
     """
-
-    sp_path = tp_path = True
-    sp_replicated = (r"^head\.",)
-
-    def check_split(self, sp: int, tp: int, frames: int | None = None) -> None:
-        """Also: heads that divide by tp at every stage, and a rank's frames
-        by the temporal patch at every merge."""
-        super().check_split(sp, tp, frames)
-        for stage in self.layers:
-            for block in stage.blocks:
-                if block.attn.num_heads % tp:
-                    raise ValueError(f"{block.attn.num_heads} heads do not split over tp {tp}")
-        need = self.temporal_patch ** len(self.layers)
-        if frames is not None and sp > 1 and (frames // sp) % need:
-            raise ValueError(f"{frames // sp} frames a rank do not divide by the temporal "
-                             f"patch at every stage ({need})")
 
     def __init__(self, kp_dim: int = 2, temporal_dim: int = 192,
                  num_classes: int = 2002, embed_dim: int = 128, temporal_patch: int = 2,

@@ -16,6 +16,15 @@ The state_dict carries the reference's keys (``encoder``, ``pos_encoder.pe``
 (1, T, D), ``transformer_encoder.layers.{i}.{self_attn.in_proj_weight,
 self_attn.in_proj_bias, self_attn.out_proj, linear1, linear2, norm1, norm2}``,
 ``transformer_encoder.norm``, ``classifier``).
+
+Inside a sharded step with ``tp`` > 1 (``parallel.sharding.shard_model``)
+each encoder layer runs Megatron's pair of collectives twice: the attention
+holds its heads' rows of each third of ``in_proj`` and its columns of
+``out_proj``, the FFN its rows of ``linear1`` and its columns of
+``linear2``. Dropout on a split tensor (A over its heads, the FFN's hidden
+units) takes this rank's share of the full-width mask; on the replicated
+stream every tp rank draws the same mask. The frames are not split (no sp
+path).
 """
 
 from __future__ import annotations
@@ -31,9 +40,13 @@ from sl_hwgat_tpu_torch.models.common import (
     LN_EPS,
     Splittable,
     dropout,
+    dropout_shard,
+    row_split_linear,
     sinusoid_table,
+    tp_branch_input,
     variance_scaling_,
 )
+from sl_hwgat_tpu_torch.parallel.mesh import active
 
 BIG_NEG = -1e9
 
@@ -74,7 +87,9 @@ class CastLinear(nn.Linear):
 
 
 class TorchMHA(nn.Module):
-    """torch ``nn.MultiheadAttention``-compatible self-attention (batch first)."""
+    """torch ``nn.MultiheadAttention``-compatible self-attention (batch first).
+    With ``tp`` > 1 it runs ``nhead // tp`` heads: ``in_proj`` holds their
+    rows of q, k and v, ``out_proj`` the matching input columns."""
 
     def __init__(self, d_model: int, nhead: int, drop: float = 0.1,
                  compute_dtype: torch.dtype | None = None,
@@ -85,24 +100,36 @@ class TorchMHA(nn.Module):
         variance_scaling_(self.in_proj_weight, 1.0, "fan_avg", "uniform", generator)
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = xavier_linear(d_model, d_model, compute_dtype, generator)
+        self.tp = 1  # head shards (``parallel.sharding.shard_model``)
 
     def forward(self, x: torch.Tensor, key_padding_mask: torch.Tensor | None = None,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         b, t, d = x.shape
-        h = self.nhead
-        dh = d // h
-        qkv = cast_linear(x, self.in_proj_weight, self.in_proj_bias, self.compute_dtype)
+        h = self.nhead // self.tp
+        dh = d // self.nhead
+        qkv = cast_linear(tp_branch_input(x, self.tp), self.in_proj_weight, self.in_proj_bias,
+                          self.compute_dtype)
         q, k, v = qkv.reshape(b, t, 3, h, dh).permute(2, 0, 3, 1, 4)
         s = torch.matmul(accumulate_type(q / math.sqrt(dh)), accumulate_type(k).transpose(-1, -2))
         if key_padding_mask is not None:
             s = s + torch.where(key_padding_mask, BIG_NEG, 0.0).to(s.dtype)[:, None, None, :]
-        a = dropout(torch.softmax(s, dim=-1), self.drop, self.training, generator)
+        a = torch.softmax(s, dim=-1)
+        if self.tp == 1:
+            a = dropout(a, self.drop, self.training, generator)
+        else:
+            a = dropout_shard(a, self.drop, self.training, generator, active().rank("tp"),
+                              self.tp, dim=1)
         out = torch.matmul(accumulate_type(a.to(v.dtype)), accumulate_type(v))
-        return self.out_proj(out.to(qkv.dtype).transpose(1, 2).reshape(b, t, d))
+        out = out.to(qkv.dtype).transpose(1, 2).reshape(b, t, h * dh)
+        if self.tp == 1:
+            return self.out_proj(out)
+        return row_split_linear(out, self.out_proj.weight, self.out_proj.bias,
+                                active().group("tp"), qkv.dtype)
 
 
 class EncoderLayer(nn.Module):
-    """Post-norm encoder layer. ≡ `Transformer.py:102-144`."""
+    """Post-norm encoder layer. ≡ `Transformer.py:102-144`. With ``tp`` > 1
+    it holds ``linear1``'s rows and ``linear2``'s columns of its rank."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int, drop: float = 0.1,
                  compute_dtype: torch.dtype | None = None,
@@ -114,14 +141,25 @@ class EncoderLayer(nn.Module):
         self.linear2 = xavier_linear(dim_feedforward, d_model, compute_dtype, generator)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.tp = 1
 
     def forward(self, x: torch.Tensor, key_padding_mask: torch.Tensor | None = None,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         sa = self.self_attn(x, key_padding_mask, generator)
         sa = dropout(sa, self.drop, self.training, generator)
         x = self.norm1(x + sa)  # the stream's type: bf16 sa promotes to it
-        hid = dropout(torch.relu(self.linear1(x)), self.drop, self.training, generator)
-        hid = dropout(self.linear2(hid), self.drop, self.training, generator)
+        hid = torch.relu(self.linear1(tp_branch_input(x, self.tp)))
+        if self.tp == 1:
+            hid = dropout(hid, self.drop, self.training, generator)
+            hid = self.linear2(hid)
+        else:
+            layout = active()
+            hid = dropout_shard(hid, self.drop, self.training, generator, layout.rank("tp"),
+                                self.tp)
+            hid = row_split_linear(hid, self.linear2.weight, self.linear2.bias,
+                                   layout.group("tp"),
+                                   self.linear2.compute_dtype or self.linear2.weight.dtype)
+        hid = dropout(hid, self.drop, self.training, generator)
         return self.norm2(x + hid)
 
 
@@ -145,6 +183,18 @@ class _Encoder(nn.Module):
 class TransformerClassifier(Splittable):
     """(B, T, V, C) → logits (B, num_classes). Defaults ≡ ``TransformerParams``
     (`model_params.py:590-605`)."""
+
+    tp_path = True
+
+    def check_split(self, sp: int, tp: int, frames: int | None = None) -> None:
+        """Also: a head count and an FFN width that divide by tp."""
+        super().check_split(sp, tp, frames)
+        for layer in self.transformer_encoder.layers:
+            if layer.self_attn.nhead % tp:
+                raise ValueError(f"{layer.self_attn.nhead} heads do not split over tp {tp}")
+            if layer.linear1.out_features % tp:
+                raise ValueError(f"an FFN of {layer.linear1.out_features} does not split over "
+                                 f"tp {tp}")
 
     def __init__(self, input_dim: int = 58, num_classes: int = 1000, pad_index: float = -1.0,
                  d_model: int = 512, nhead: int = 8, dim_feedforward: int = 2048,

@@ -4,8 +4,9 @@
 
 The fused kernels (K1/K2, and K7 between two ``torch.bmm``) are a map over
 units with no traffic between them, so a rank simply runs them on the units
-it holds. Inside a sharded step (``mesh.activate``), HWGATE's
-``WindowedMSA`` runs its usual call on the (b, f, nW, h) units of the rank:
+it holds. Inside a sharded step (``mesh.activate``), HWGATE's and HGATE's
+``WindowedMSA`` runs its usual call on the (b, f, nW, h) units of the rank
+(HGATE: nW = 1, 58-token units):
 the rows of its dp shard, the temporal groups of its sp shard and the
 heads of its tp shard, in that order, so no unit moves.
 

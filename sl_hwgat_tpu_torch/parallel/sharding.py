@@ -9,9 +9,9 @@
 - **sp**: each rank takes its frames of every clip; the models' sp hooks
   (the shifted roll, the positional encoding's offset, the pool, the
   banded models' halo) make a rank's work its share of the clip's.
-- **tp** (HWGATE): Megatron over heads. ``TP_RULES`` name the state_dict
-  entries a tp rank holds a slice of; ``shard_model`` keeps only that
-  slice in each parameter.
+- **tp** (HWGATE, HGATE, the Transformer): Megatron over heads and the
+  FFN. ``TP_RULES`` name the state_dict entries a tp rank holds a slice
+  of; ``shard_model`` keeps only that slice in each parameter.
 
 Every rank holds the same loss and logits. Gradients are summed over the
 ranks that share this rank's tp coordinate (``Layout.grad_group``; the tp
@@ -42,11 +42,16 @@ from sl_hwgat_tpu_torch.parallel.comm import all_reduce, gather_rows, reduce_sum
 #        kernels column-split by head);
 # "rows": a rank holds a contiguous block of rows (JAX's column split);
 # "cols": a rank holds a contiguous block of columns (JAX's row split).
+# HWGATE's and HGATE's blocks, then the Transformer's encoder layers.
 TP_RULES: list[tuple[str, str]] = [
     (r".*attn\.qkv\.(weight|bias)$", "qkv"),
     (r".*attn\.proj\.weight$", "cols"),
     (r".*ff\.fc1\.(weight|bias)$", "rows"),
     (r".*ff\.fc2\.weight$", "cols"),
+    (r".*self_attn\.in_proj_(weight|bias)$", "qkv"),
+    (r".*self_attn\.out_proj\.weight$", "cols"),
+    (r".*linear1\.(weight|bias)$", "rows"),
+    (r".*linear2\.weight$", "cols"),
 ]
 
 
@@ -137,6 +142,7 @@ def shard_model(model, layout: mesh_lib.Layout) -> None:
         return
     from sl_hwgat_tpu_torch.models.common import FeedForward
     from sl_hwgat_tpu_torch.models.hwgate import WindowedMSA
+    from sl_hwgat_tpu_torch.models.transformer import EncoderLayer, TorchMHA
 
     local = shard_state_dict(dict(model.named_parameters()), layout)
     with torch.no_grad():
@@ -144,7 +150,7 @@ def shard_model(model, layout: mesh_lib.Layout) -> None:
             if tp_kind(name) is not None:
                 p.data = local[name].detach().clone()
     for m in model.modules():
-        if isinstance(m, (WindowedMSA, FeedForward)):
+        if isinstance(m, (WindowedMSA, FeedForward, TorchMHA, EncoderLayer)):
             m.tp = layout.tp
 
 

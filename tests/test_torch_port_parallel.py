@@ -17,7 +17,14 @@
   round trip is bit for bit, and resume and ``Predictor.from_checkpoint``
   read the directory;
 - a mesh that does not divide, or a model without the asked-for path, is
-  refused at setup.
+  refused at setup, and HGATE's and the Transformer's splits are accepted;
+- ``TP_RULES`` give each model's names the kind its layers need, from its
+  own rules only; the Transformer's shard → merge is bit for bit; its
+  attention dropout over split heads is the full-width draw;
+- HGATE's shifted-block MSA on each sp rank's groups (58-token units, one
+  and two heads) under a tail plane far from the adjacency, put together,
+  is the unsharded call bit for bit (the whole model's logits move by only
+  about 1e-4 with the tail, inside the sharded tests' bars).
 """
 
 import numpy as np
@@ -255,10 +262,18 @@ def test_sharded_checkpoint_reads_into_a_live_model(tmp_path):
     ("HWGATE", 1, 4, None, "heads do not split"),
     ("HWGATE", 2, 1, 12, "temporal patch"),
     ("HWGATE", 4, 1, 18, "do not split over sp"),
+    ("HGATE", 1, 4, None, "2 heads do not split"),
+    ("HGATE", 2, 1, 12, "temporal patch"),
+    ("Transformer", 1, 4, None, "3 heads do not split"),
+    ("Transformer", 1, 3, None, "FFN of 64 does not split"),
+    ("Transformer", 2, 1, None, "no sp path"),
 ])
 def test_meshes_that_do_not_divide_are_refused(name, sp, tp, frames, match):
     overrides = {"HWGATE": dict(SMALL, num_heads=(2, 2)), "WGATE": dict(embed_dim=32, depths=1,
-                                                                         num_heads=2)}
+                                                                         num_heads=2),
+                 "HGATE": dict(SMALL, num_heads=(2, 4)),
+                 "Transformer": dict(d_model=36, nhead=3, dim_feedforward=64,
+                                     num_encoder_layers=1)}
     model = build_model(name, DS, 2, device="cpu", **overrides.get(name, {}))
     with pytest.raises(ValueError, match=match):
         model.check_split(sp, tp, frames)
@@ -283,3 +298,122 @@ def test_dropout_shards_are_the_full_width_draw_and_keep_the_rate():
     seeds = {rank_seed(0, 1, 2, micro, dp, sp) for micro in (None, 0) for dp in range(2)
              for sp in range(2)}
     assert len(seeds) == 8
+
+
+@pytest.mark.parametrize("name, sp, tp, frames", [
+    ("HGATE", 2, 2, 16), ("HGATE", 4, 1, 16), ("Transformer", 1, 2, 16),
+])
+def test_meshes_that_divide_are_accepted(name, sp, tp, frames):
+    overrides = {"HGATE": dict(SMALL, num_heads=(2, 4)),
+                 "Transformer": dict(d_model=32, nhead=2, dim_feedforward=64,
+                                     num_encoder_layers=1)}
+    build_model(name, DS, 2, device="cpu", **overrides[name]).check_split(sp, tp, frames)
+
+
+# the state_dict names a tp rank holds a slice of, by the last two parts of
+# the name, and the rules (by index in TP_RULES) each model's names may match
+TP_NAMES = {
+    "block": ({"qkv.weight": "qkv", "qkv.bias": "qkv", "proj.weight": "cols",
+               "fc1.weight": "rows", "fc1.bias": "rows", "fc2.weight": "cols"}, range(0, 4)),
+    "transformer": ({"self_attn.in_proj_weight": "qkv", "self_attn.in_proj_bias": "qkv",
+                     "out_proj.weight": "cols", "linear1.weight": "rows",
+                     "linear1.bias": "rows", "linear2.weight": "cols"}, range(4, 8)),
+}
+
+
+@pytest.mark.parametrize("name, family", [
+    ("HWGATE", "block"), ("HGATE", "block"), ("WGATE", "block"), ("GATE", "block"),
+    ("Transformer", "transformer"), ("STGCN", None), ("DecoupledGCN", None),
+])
+def test_tp_rules_give_each_models_names_their_kind(name, family):
+    """Each name gets the kind its layer needs, from its own model's rules
+    only: no block rule catches the Transformer's ``self_attn.out_proj``,
+    and no Transformer rule a block's or a GCN's name."""
+    import re
+
+    from sl_hwgat_tpu_torch.parallel.sharding import TP_RULES
+
+    kinds, own = TP_NAMES[family] if family else ({}, range(0))
+    model = build_model(name, DS, 2, device="cpu")
+    for key in model.state_dict():
+        tail = ".".join(key.split(".")[-2:])
+        assert tp_kind(key) == kinds.get(tail), key
+        matched = [i for i, (pattern, _) in enumerate(TP_RULES) if re.match(pattern, key)]
+        assert all(i in own for i in matched), (key, matched)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_transformer_shard_then_merge_is_bit_for_bit(tp):
+    model = build_model("Transformer", DS, 2, device="cpu", d_model=32, nhead=4,
+                        dim_feedforward=64, num_encoder_layers=2)
+    full = model.state_dict()
+    pieces = [{k: shard_tensor(v, tp_kind(k), tp, t) for k, v in full.items()}
+              for t in range(tp)]
+    back = merge_state_dicts(pieces)
+    assert back.keys() == full.keys()
+    for k, v in full.items():
+        assert torch.equal(back[k], v), k
+    base = "transformer_encoder.layers.1"
+    w = full[f"{base}.self_attn.in_proj_weight"]  # (3·h·dh, d), h = 4, dh = 8
+    for t in range(tp):
+        heads = range(t * 4 // tp, (t + 1) * 4 // tp)
+        want = torch.cat([w[part * 32 + h * 8:part * 32 + (h + 1) * 8]
+                          for part in range(3) for h in heads])
+        assert torch.equal(pieces[t][f"{base}.self_attn.in_proj_weight"], want)
+        assert torch.equal(pieces[t][f"{base}.self_attn.out_proj.weight"],
+                           full[f"{base}.self_attn.out_proj.weight"][:, t * 32 // tp:
+                                                                     (t + 1) * 32 // tp])
+        assert torch.equal(pieces[t][f"{base}.linear1.bias"],
+                           full[f"{base}.linear1.bias"][t * 64 // tp:(t + 1) * 64 // tp])
+        assert torch.equal(pieces[t][f"{base}.linear2.weight"],
+                           full[f"{base}.linear2.weight"][:, t * 64 // tp:(t + 1) * 64 // tp])
+        assert torch.equal(pieces[t][f"{base}.linear2.bias"], full[f"{base}.linear2.bias"])
+
+
+def test_attention_dropout_shards_over_heads_are_the_full_draw():
+    """The Transformer's attention dropout under tp: each rank keeps its
+    heads of one mask drawn at the full head count, so the tp ranks' masks
+    put together are the unsharded model's draw."""
+    from sl_hwgat_tpu_torch.models.common import dropout, dropout_shard
+
+    a = torch.rand(3, 2, 16, 16, generator=torch.Generator().manual_seed(1))
+    full = dropout(torch.cat([a, a], 1), 0.1, True, torch.Generator().manual_seed(7))
+    shards = [dropout_shard(a, 0.1, True, torch.Generator().manual_seed(7), t, 2, dim=1)
+              for t in range(2)]
+    assert torch.equal(torch.cat(shards, 1), full)
+    assert not torch.equal(shards[0] != 0, shards[1] != 0)
+
+
+@pytest.mark.parametrize("heads", [1, 2])
+def test_hgate_units_of_each_sp_rank_put_together_are_the_unsharded_call(monkeypatch, heads):
+    """HGATE's shifted-block MSA on each sp rank's temporal groups (58-token
+    units; one head gives one unit a supertile) under a tail plane far from
+    the adjacency: only the last sp rank's last group of each clip attends
+    under it, so the ranks' outputs put together are the unsharded call's."""
+    from types import SimpleNamespace
+
+    from sl_hwgat_tpu_torch.graphs.adjacency import hgate_block_adj
+    from sl_hwgat_tpu_torch.models.hwgate import WindowedMSA
+    from sl_hwgat_tpu_torch.parallel import mesh as mesh_lib
+
+    adj = hgate_block_adj()
+    tail = adj * (np.random.default_rng(5).random(adj.shape) > 0.5)
+    torch.manual_seed(0)
+    msa = WindowedMSA(16 * heads, heads, adj, tail_adj=tail, prune=False).eval()
+    clips, groups = 3, 4
+    x = torch.randn(clips * groups, 58, 16 * heads)
+    with torch.no_grad():
+        want = msa(x, 1, groups).reshape(clips, groups, 58, -1)
+        got = []
+        for rank in range(2):
+            layout = SimpleNamespace(sp=2, rank=lambda axis, r=rank: r)
+            monkeypatch.setattr(mesh_lib, "active", lambda layout=layout: layout)
+            mine = x.reshape(clips, groups, 58, -1)[:, rank * 2:(rank + 1) * 2]
+            got.append(msa(mine.reshape(clips * 2, 58, -1), 1, 2).reshape(clips, 2, 58, -1))
+    assert torch.equal(torch.cat(got, 1), want)
+    # the tail plane matters: every group under the plain adjacency differs
+    msa.tail_adj = None
+    with torch.no_grad():
+        plain = msa(x, 1, groups).reshape(clips, groups, 58, -1)
+    assert not torch.allclose(plain[:, -1], want[:, -1], atol=1e-3)
+    assert torch.equal(plain[:, :-1], want[:, :-1])

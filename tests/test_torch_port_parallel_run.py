@@ -11,9 +11,9 @@ checkpoint through the CLI, and ``dryrun_multichip``.
   resumes;
 - ``--ckpt-backend orbax`` through ``cli.main`` (what ``main_torch.py``
   runs): train, resume (``-m load``) and test on the checkpoint directory;
-- HGATE and the Transformer, which train under dp only: a dp = 2 step
-  against the port's unsharded step (loss, gradients and parameters at
-  2e-4 / 1e-4);
+- HGATE and the Transformer at dp 2 (their sp and tp splits are held in
+  ``tests/test_torch_port_parallel_hgate.py``): a step against the port's
+  unsharded step (loss, gradients and parameters at 2e-4 / 1e-4);
 - ``dryrun_multichip(4)`` at the flagship geometry (slow).
 """
 
