@@ -14,8 +14,8 @@
 The data map is an in-memory pickle of arrays or ``.pkl`` paths, or a
 ``{"__clipstore__": path}`` marker that ``load_artifacts`` resolves to a
 ``ClipStore`` (``data/clipstore.py``, written by ``preprocess(...,
-store="clipstore")``). ``.mp4`` entries are not ported: they need
-``decord`` (see ROADMAP.md).
+store="clipstore")``). A ``.mp4`` entry is read as its frames through
+``decord`` (an ImportError without it, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -30,13 +30,20 @@ import numpy as np
 
 
 def load_entry(data):
-    """Resolve a data-map entry: in-memory array | .pkl path. ≡ `dataset.py:21-28`."""
+    """Resolve a data-map entry: in-memory array | .pkl path | .mp4 path (its
+    frames, through decord). ≡ `dataset.py:21-28`."""
     if isinstance(data, np.ndarray):
         return data
     if isinstance(data, str) and data.endswith("pkl"):
         with open(data, "rb") as f:
             return pickle.load(f)
-    raise ValueError(f"unsupported data-map entry: {type(data)} (.mp4 is not ported)")
+    if isinstance(data, str) and data.endswith("mp4"):
+        try:
+            from decord import VideoReader, cpu
+        except ImportError as e:
+            raise ImportError("decord is required to read .mp4 data-map entries") from e
+        return VideoReader(data, ctx=cpu(0)).asnumpy()
+    raise ValueError(f"unsupported data-map entry: {type(data)}")
 
 
 @dataclass

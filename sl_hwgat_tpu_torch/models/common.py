@@ -20,7 +20,12 @@ forward's.
 
 Inside a sharded step (``parallel/``), ``FeedForward`` runs its tp shard
 (``tp`` > 1: fc1's rows, fc2's columns, Megatron's pair of collectives)
-and ``PositionalEncoding`` adds the rows of the rank's first frame.
+and ``PositionalEncoding`` adds the rows of the rank's first frame. The
+baselines in the (N, C, T, V) layout split with ``frame_conv`` (a temporal
+convolution over a rank's frames and its neighbours' halo), ``frame_mean``
+(a mean over the clip's frames) and ``gather_clips`` / ``own_clips`` /
+``dropout_clips`` (a draw at the global batch's shape, of which a rank
+keeps its rows and frames).
 """
 
 from __future__ import annotations
@@ -82,12 +87,16 @@ class Splittable(nn.Module):
     split over sp ranks; ``tp_path``: its heads and FFN over tp ranks
     (``parallel.sharding.TP_RULES``); ``sp_replicated``: the patterns of
     the parameters after the sp pool, whose whole gradient every sp rank
-    computes. ``check_split`` refuses a split the model has no path for or
-    that does not divide."""
+    computes. ``global_draws``: its random draws are made at the global
+    batch's shape from a generator every rank seeds alike (the unsharded
+    step's), of which each rank keeps its rows and frames, so the sharded
+    step draws what the unsharded one does. ``check_split`` refuses a split
+    the model has no path for or that does not divide."""
 
     sp_path = False
     tp_path = False
     sp_replicated: tuple[str, ...] = ()
+    global_draws = False
 
     def check_split(self, sp: int, tp: int, frames: int | None = None) -> None:
         name = type(self).__name__
@@ -181,18 +190,104 @@ def frame_offset(frames: int) -> int:
     return 0 if layout is None else layout.rank("sp") * frames
 
 
-def token_mean(x: torch.Tensor) -> torch.Tensor:
-    """(B, F, K, D) → (B, D): the mean over the clip's frames and joints;
-    under sp the local sums are summed over the sp ranks (every rank then
-    holds the clip's mean, and each rank's frames get their share of its
-    gradient)."""
+def batch_layout():
+    """The active layout when it splits the batch or the frames, else None."""
+    from sl_hwgat_tpu_torch.parallel.mesh import active
+
+    layout = active()
+    return layout if layout is not None and (layout.dp > 1 or layout.sp > 1) else None
+
+
+def gather_clips(x: torch.Tensor, frame_dim: int | None = None) -> torch.Tensor:
+    """(N_loc, ...) of this rank → (N, ...) of the global batch, with no
+    gradient: the dp ranks' rows in order and, with ``frame_dim``, the sp
+    ranks' frames joined along it (without, ``x`` is the same on the sp
+    ranks). Outside a split step, ``x``."""
+    layout = batch_layout()
+    if layout is None:
+        return x
+    from sl_hwgat_tpu_torch.parallel.comm import gather
+
+    # the gradient group holds the (dp, sp) ranks of this tp coordinate in
+    # rank order, dp major
+    parts = gather(x, layout.grad_group)
+    sp = layout.sp
+    rows = [torch.cat(parts[d * sp:(d + 1) * sp], frame_dim) if frame_dim is not None
+            else parts[d * sp] for d in range(layout.dp)]
+    return torch.cat(rows, 0)
+
+
+def own_clips(x: torch.Tensor, frame_dim: int | None = None) -> torch.Tensor:
+    """This rank's rows (and, with ``frame_dim``, frames) of a tensor of the
+    global batch (inverse of ``gather_clips``)."""
+    layout = batch_layout()
+    if layout is None:
+        return x
+    lo, hi = layout.rows(x.shape[0])
+    x = x[lo:hi]
+    if frame_dim is not None:
+        f0, f1 = layout.frames(x.shape[frame_dim])
+        x = x.narrow(frame_dim, f0, f1 - f0)
+    return x
+
+
+def dropout_clips(x: torch.Tensor, rate: float, training: bool,
+                  generator: torch.Generator | None = None) -> torch.Tensor:
+    """``dropout`` of (N_loc, ...) activations that are the same on the sp
+    ranks (after the pool), whose mask is drawn at the global batch's shape
+    and of which this rank keeps its rows: a generator every rank seeds
+    alike draws the unsharded model's mask."""
+    layout = batch_layout()
+    if not training or rate == 0.0 or layout is None:
+        return dropout(x, rate, training, generator)
+    full = (x.shape[0] * layout.dp, *x.shape[1:])
+    keep = own_clips(torch.rand(full, generator=generator, device=x.device)) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+def frame_mean(x: torch.Tensor, dims: tuple, replicated_grad: bool = False) -> torch.Tensor:
+    """``x.mean(dims)`` where ``dims`` hold the frame axis (the models' pools
+    over (B, F, K, D) tokens or (B, T, D) frames, the GCNs' means over (N,
+    C, T, V)). Under sp the local sums are summed over the sp ranks, so
+    every rank holds the clip's mean. In the backward,
+    ``replicated_grad=True`` (the pool before a head that every sp rank
+    computes whole, so each holds the clip's downstream gradient) keeps the
+    gradient as it is; otherwise (a gate that scales the rank's own frames,
+    whose gradient is partial) it is summed over the sp ranks."""
     layout = sequence_layout()
     if layout is None:
-        return x.mean(dim=(1, 2))
-    from sl_hwgat_tpu_torch.parallel.comm import reduce_from
+        return x.mean(dim=dims)
+    from sl_hwgat_tpu_torch.parallel.comm import all_reduce, reduce_from
 
-    count = x.shape[1] * layout.sp * x.shape[2]
-    return reduce_from(x.sum(dim=(1, 2)), layout.group("sp")) / count
+    count = math.prod(x.shape[d] for d in dims) * layout.sp
+    reduce = reduce_from if replicated_grad else all_reduce
+    return reduce(x.sum(dim=dims), layout.group("sp")) / count
+
+
+def frame_conv(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``conv(x)`` for an ``nn.Conv2d`` with a (k, 1) kernel or an
+    ``nn.Conv1d``, whose axis 2 is the frames, zero-padded by
+    ``conv.padding[0]``. Under sp the rank's frames are extended by that
+    many of each neighbour's (``comm.halo_extend``), and zeros only at the
+    clip's two ends, so a rank computes its frames of the whole clip's
+    convolution; with a stride the rank's first frame must lie on its grid
+    (``check_split``)."""
+    pad = conv.padding[0]
+    layout = sequence_layout()
+    if layout is None or pad == 0:
+        return conv(x)
+    from sl_hwgat_tpu_torch.parallel.comm import halo_extend
+
+    r, n = layout.rank("sp"), layout.sp
+    ext = halo_extend(x.transpose(1, 2), layout.group("sp"), pad).transpose(1, 2)
+    ends = (pad if r == 0 else 0, pad if r == n - 1 else 0)
+    ext = F.pad(ext, ((0, 0) * (x.ndim - 3)) + ends)
+    padding = (0, *conv.padding[1:])
+    if x.ndim == 4:
+        return F.conv2d(ext, conv.weight, conv.bias, conv.stride, padding, conv.dilation,
+                        conv.groups)
+    return F.conv1d(ext, conv.weight, conv.bias, conv.stride, padding, conv.dilation,
+                    conv.groups)
 
 
 def layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -238,6 +333,14 @@ class PositionalEncoding(nn.Module):
         lo = frame_offset(x.shape[1])
         return dropout(x + self.pe[:, lo:lo + x.shape[1]], self.drop_rate, self.training,
                        generator)
+
+
+def encode_positions(pos_encoder: PositionalEncoding | None, x: torch.Tensor,
+                     generator: torch.Generator | None = None) -> torch.Tensor:
+    """``pos_encoder(x, generator)``, or ``x`` itself for a model built with
+    ``pe=False`` (no positional encoding, and no dropout after it: the JAX
+    models skip the module whole)."""
+    return x if pos_encoder is None else pos_encoder(x, generator)
 
 
 class FeedForward(nn.Module):

@@ -30,8 +30,15 @@ from torch.nn import functional as F
 
 from sl_hwgat_tpu_torch.graphs.partition import spatial_graph
 from sl_hwgat_tpu_torch.graphs.skeleton import BODY29_EDGES
-from sl_hwgat_tpu_torch.models.common import Splittable, dropout, variance_scaling_
-from sl_hwgat_tpu_torch.models.stgcn import _Head, data_norm
+from sl_hwgat_tpu_torch.models.common import (
+    dropout_clips,
+    frame_conv,
+    frame_mean,
+    gather_clips,
+    own_clips,
+    variance_scaling_,
+)
+from sl_hwgat_tpu_torch.models.stgcn import FrameSplit, _Head, data_norm
 
 
 def find_drop_size(num_nodes: int, num_edges: int, k: int = 1) -> float:
@@ -44,31 +51,40 @@ def find_drop_size(num_nodes: int, num_edges: int, k: int = 1) -> float:
 
 def drop_graph_temporal(x: torch.Tensor, keep_prob: float, block_size: int,
                         generator: torch.Generator | None = None) -> torch.Tensor:
-    """Temporal DropGraph on (N, C, T, V). ≡ `DecoupledGCN.py:29-54`."""
-    t = x.shape[2]
-    ia = x.abs().mean(dim=(1, 3))                                # (N, T)
-    ia = ia / ia.sum() * ia.numel()
-    gamma = (1.0 - keep_prob) / block_size
-    m = torch.bernoulli(torch.clamp(ia * gamma, max=1.0), generator=generator)
-    # max over the block_size frames m[t - pad .. t - pad + block_size - 1]
-    m = F.max_pool1d(m[:, None], block_size, stride=1, padding=block_size // 2)[:, 0, :t]
-    mask = 1.0 - m
-    return x * mask[:, None, :, None] * mask.numel() / mask.sum()
+    """Temporal DropGraph on (N, C, T, V). ≡ `DecoupledGCN.py:29-54`.
+    Inside a split step the seed map is drawn over the global batch (the
+    ranks' (N, T) activations gathered) and this rank keeps its rows and
+    frames of the mask; ``ia`` and the mask's scale are the whole batch's,
+    as the JAX function's sums are under GSPMD."""
+    with torch.no_grad():
+        ia = gather_clips(x.abs().mean(dim=(1, 3)), frame_dim=1)      # (N, T)
+        t = ia.shape[1]
+        ia = ia / ia.sum() * ia.numel()
+        gamma = (1.0 - keep_prob) / block_size
+        m = torch.bernoulli(torch.clamp(ia * gamma, max=1.0), generator=generator)
+        # max over the block_size frames m[t - pad .. t - pad + block_size - 1]
+        m = F.max_pool1d(m[:, None], block_size, stride=1, padding=block_size // 2)[:, 0, :t]
+        mask = 1.0 - m
+    return x * own_clips(mask, frame_dim=1)[:, None, :, None] * mask.numel() / mask.sum()
 
 
 def drop_graph_spatial(x: torch.Tensor, keep_prob: float, adj_sum: torch.Tensor,
                        drop_size: float, generator: torch.Generator | None = None
                        ) -> torch.Tensor:
-    """Spatial DropGraph on (N, C, T, V). ≡ `DecoupledGCN.py:57-82`."""
-    ia = x.abs().mean(dim=(1, 2))                                # (N, V)
-    ia = ia / ia.sum() * ia.numel()
-    gamma = (1.0 - keep_prob) / (1.0 + drop_size)
-    seed = torch.bernoulli(torch.clamp(ia * gamma, max=1.0), generator=generator)
-    m = seed @ adj_sum
-    m = torch.where(m > 0.001, 1.0, m)
-    m = torch.where(m < 0.5, 0.0, m)
-    mask = (1.0 - m)[:, None, None, :]                           # (N, 1, 1, V)
-    return x * mask * mask.numel() / mask.sum()
+    """Spatial DropGraph on (N, C, T, V). ≡ `DecoupledGCN.py:57-82`. Inside
+    a split step ``ia`` is the mean over the clip's frames (summed over sp)
+    and the seed map, ``ia``'s normalisation and the mask's scale are the
+    global batch's, as in ``drop_graph_temporal``."""
+    with torch.no_grad():
+        ia = gather_clips(frame_mean(x.abs(), (1, 2)))               # (N, V)
+        ia = ia / ia.sum() * ia.numel()
+        gamma = (1.0 - keep_prob) / (1.0 + drop_size)
+        seed = torch.bernoulli(torch.clamp(ia * gamma, max=1.0), generator=generator)
+        m = seed @ adj_sum
+        m = torch.where(m > 0.001, 1.0, m)
+        m = torch.where(m < 0.5, 0.0, m)
+        mask = (1.0 - m)[:, None, None, :]                           # (N, 1, 1, V)
+    return x * own_clips(mask) * mask.numel() / mask.sum()
 
 
 def kaiming_conv(cin: int, cout: int, kernel=(1, 1), stride=(1, 1), padding=(0, 0),
@@ -91,7 +107,7 @@ class TCNUnit(nn.Module):
         self.bn = nn.BatchNorm2d(cout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.bn(self.conv(x))
+        return self.bn(frame_conv(self.conv, x))
 
 
 class DecoupledGCNUnit(nn.Module):
@@ -165,11 +181,11 @@ class DecoupledBlock(nn.Module):
                 generator: torch.Generator | None = None) -> torch.Tensor:
         y = self.gcn1(x)
         # spatial attention: a conv over joints on the time-averaged features
-        y = y * torch.sigmoid(self.conv_sa(y.mean(dim=2)))[:, :, None, :] + y
+        y = y * torch.sigmoid(self.conv_sa(frame_mean(y, (2,))))[:, :, None, :] + y
         # temporal attention
-        y = y * torch.sigmoid(self.conv_ta(y.mean(dim=3)))[:, :, :, None] + y
+        y = y * torch.sigmoid(frame_conv(self.conv_ta, y.mean(dim=3)))[:, :, :, None] + y
         # channel attention
-        se = torch.relu(self.fc1c(y.mean(dim=(2, 3))))
+        se = torch.relu(self.fc1c(frame_mean(y, (2, 3))))
         y = y * torch.sigmoid(self.fc2c(se))[:, :, None, None] + y
 
         y = self.tcn1(y)
@@ -184,7 +200,7 @@ class DecoupledBlock(nn.Module):
         return torch.relu(y + skip)
 
 
-class DecoupledGCN(Splittable):
+class DecoupledGCN(FrameSplit):
     """10-block decoupled GCN classifier: (B, T, V=29, C) → logits.
     Defaults ≡ ``DecoupledGCNParams`` (`model_params.py:540-588`)."""
 
@@ -213,7 +229,8 @@ class DecoupledGCN(Splittable):
         x = data_norm(self.data_bn, x.to(self.data_bn.weight.dtype))
         for i, kp in enumerate(self.keep_probs):
             x = getattr(self, f"l{i + 1}")(x, kp, generator)
-        x = dropout(x.mean(dim=(2, 3)), self.dropout_ratio, self.training, generator)
+        x = frame_mean(x, (2, 3), replicated_grad=True)
+        x = dropout_clips(x, self.dropout_ratio, self.training, generator)
         return self.head.classifier(x)
 
 

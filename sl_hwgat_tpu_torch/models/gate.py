@@ -27,6 +27,7 @@ from sl_hwgat_tpu_torch.models.common import (
     FeedForward,
     PositionalEncoding,
     Splittable,
+    encode_positions,
     fourier_embed,
     fourier_matrix,
     layer_norm,
@@ -64,7 +65,7 @@ class GATE(Splittable):
     sp_replicated = (r"^head\.", r"^weightedAvg\.bias$")
 
     def __init__(self, kp_dim: int = 2, num_kps: int = 29, temporal_dim: int = 192,
-                 num_classes: int = 2002, embed_dim: int = 128, depths: int = 8,
+                 num_classes: int = 2002, embed_dim: int = 128, pe: bool = True, depths: int = 8,
                  num_heads: int = 8, drop_rate: float = 0.1, ff_ratio: float = 2.0,
                  attn_impl: str = "auto", compute_dtype: str = "float32",
                  generator: torch.Generator | None = None):
@@ -73,7 +74,8 @@ class GATE(Splittable):
         cdt = DTYPES[compute_dtype]
         band = make_band(edges_to_dense(BODY29_EDGES, num_kps, self_loops=False))
         self.register_buffer("B", fourier_matrix(embed_dim, kp_dim, generator))
-        self.pos_encoder = PositionalEncoding(embed_dim, temporal_dim, drop_rate)
+        self.pos_encoder = PositionalEncoding(embed_dim, temporal_dim, drop_rate) if pe \
+            else None
         self.layers = nn.ModuleList([
             GAttentionBlock(embed_dim, num_heads, band, drop=drop_rate, ff_ratio=ff_ratio,
                             compute_dtype=cdt, attn_impl=attn_impl, generator=generator)
@@ -83,7 +85,7 @@ class GATE(Splittable):
         self.head = Dense(embed_dim, num_classes, torch.float32, generator)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-        x = self.pos_encoder(fourier_embed(x.float(), self.B), generator)
+        x = encode_positions(self.pos_encoder, fourier_embed(x.float(), self.B), generator)
         b, f, k, d = x.shape
         x = x.reshape(b, f * k, d)
         for block in self.layers:

@@ -49,11 +49,12 @@ from sl_hwgat_tpu_torch.models.common import (
     Dense,
     FeedForward,
     PositionalEncoding,
+    encode_positions,
     fourier_embed,
     fourier_matrix,
+    frame_mean,
     layer_norm,
     remat,
-    token_mean,
 )
 from sl_hwgat_tpu_torch.models.hwgate import (
     WindowedHierarchy,
@@ -116,7 +117,8 @@ class HGATE(WindowedHierarchy):
     passed to ``forward``."""
 
     def __init__(self, kp_dim: int = 2, num_kps: int = 29, temporal_dim: int = 192,
-                 num_classes: int = 2002, embed_dim: int = 128, temporal_patch: int = 2,
+                 num_classes: int = 2002, embed_dim: int = 128, pe: bool = True,
+                 temporal_patch: int = 2,
                  depths: Sequence[int] = (2, 2, 4), num_heads: Sequence[int] = (2, 4, 8),
                  drop_rate: float = 0.1, ff_ratio: float = 2.0, attn_impl: str = "auto",
                  attn_dtype: str = "float32", compute_dtype: str = "float32",
@@ -128,7 +130,8 @@ class HGATE(WindowedHierarchy):
         adj = hgate_block_adj(num_kps=num_kps, temporal_patch=temporal_patch)
 
         self.register_buffer("B", fourier_matrix(embed_dim, kp_dim, generator))
-        self.pos_encoder = PositionalEncoding(embed_dim, temporal_dim, drop_rate)
+        self.pos_encoder = PositionalEncoding(embed_dim, temporal_dim, drop_rate) if pe \
+            else None
         self.layers = nn.ModuleList()
         for i, depth in enumerate(depths):
             dim = int(embed_dim * 2**i)
@@ -144,14 +147,14 @@ class HGATE(WindowedHierarchy):
         self.head = Dense(last, num_classes, torch.float32, generator)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-        x = self.pos_encoder(fourier_embed(x.float(), self.B), generator)
+        x = encode_positions(self.pos_encoder, fourier_embed(x.float(), self.B), generator)
         for i, stage in enumerate(self.layers):
             for block in stage.blocks:
                 x = remat(block, x, generator) if self.remat else block(x, generator)
             if i < len(self.layers) - 1:
                 x = temporal_merge(x, self.temporal_patch)
         x = layer_norm(self.norm, x)
-        return self.head(token_mean(x))
+        return self.head(frame_mean(x, (1, 2), replicated_grad=True))
 
 
 def hgate_from_dataset(dataset_params: dict, input_dim: int, **overrides) -> HGATE:

@@ -61,13 +61,14 @@ from sl_hwgat_tpu_torch.models.common import (
     PositionalEncoding,
     Splittable,
     dropout,
+    encode_positions,
     fourier_embed,
     fourier_matrix,
+    frame_mean,
     layer_norm,
     remat,
     row_split_linear,
     sequence_layout,
-    token_mean,
     tp_branch_input,
 )
 from sl_hwgat_tpu_torch.parallel import kernel_sharding
@@ -291,12 +292,14 @@ class HWGATE(WindowedHierarchy):
     ``attn_dtype``: 'bfloat16' runs the attention in bf16 under f32
     projections. ``prune_attn``: train-time attention pruning; ``attn_impl``
     ("auto", "pallas", "stacked" or "hybrid"); ``remat``: recompute each
-    block in the backward pass. All are the JAX model's options of the same
+    block in the backward pass; ``pe=False`` leaves out the positional
+    encoding (and its dropout). All are the JAX model's options of the same
     names.
     """
 
     def __init__(self, kp_dim: int = 2, temporal_dim: int = 192,
-                 num_classes: int = 2002, embed_dim: int = 128, temporal_patch: int = 2,
+                 num_classes: int = 2002, embed_dim: int = 128, pe: bool = True,
+                 temporal_patch: int = 2,
                  depths: Sequence[int] = (2, 2, 4), num_heads: Sequence[int] = (2, 4, 8),
                  window_size: int = 16, drop_rate: float = 0.1, ff_ratio: float = 2.0,
                  prune_attn: bool = True, attn_impl: str = "auto",
@@ -313,7 +316,8 @@ class HWGATE(WindowedHierarchy):
         adj = windowed_block_adj(temporal_patch, window_size, 1)[0]
 
         self.register_buffer("B", fourier_matrix(embed_dim, kp_dim, generator))
-        self.pos_encoder = PositionalEncoding(embed_dim, temporal_dim, drop_rate)
+        self.pos_encoder = PositionalEncoding(embed_dim, temporal_dim, drop_rate) if pe \
+            else None
         self.layers = nn.ModuleList()
         for i, depth in enumerate(depths):
             dim = int(embed_dim * 2**i)
@@ -333,14 +337,16 @@ class HWGATE(WindowedHierarchy):
         """Logits of a (B, F, K, kp_dim) batch. In train mode, the prune
         scalars and dropout masks come from ``generator`` (on x's device;
         None = torch's default generator)."""
-        x = self.pos_encoder(fourier_embed(x.float(), self.B), generator).to(self.stream_dtype)
+        x = encode_positions(self.pos_encoder, fourier_embed(x.float(), self.B), generator)
+        x = x.to(self.stream_dtype)
         for i, stage in enumerate(self.layers):
             for block in stage.blocks:
                 x = remat(block, x, generator) if self.remat else block(x, generator)
             if i < len(self.layers) - 1:
                 x = temporal_merge(x, self.temporal_patch)
         x = layer_norm(self.norm, x)
-        x = token_mean(x)  # AvgPool1d over f·K tokens, `HWGATE.py:328,354`
+        # AvgPool1d over f·K tokens, `HWGATE.py:328,354`
+        x = frame_mean(x, (1, 2), replicated_grad=True)
         return self.head(x)
 
 

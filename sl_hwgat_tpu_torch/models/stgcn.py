@@ -17,6 +17,16 @@ JAX model's (T, V·C) reshape. The state_dict carries the reference's keys
 ``edge_importance.{i}``, ``head.classifier``); the partition stack ``A`` is
 rebuilt from the graph, not stored. Dropout draws from the generator the
 train step passes in.
+
+Both GCNs split over dp and sp (``FrameSplit``): a rank holds its rows and
+frames; its temporal convolutions read 4 frames of each neighbour
+(``common.frame_conv``), the pool sums over the sp ranks
+(``common.frame_mean``), every BatchNorm takes the statistics of the global
+batch over dp × sp (``parallel.sharding``), and the dropout masks after the
+pool (and DecoupledGCN's DropGraph maps) are drawn at the global batch's
+shape from the unsharded step's generator (``common.dropout_clips``), so the
+sharded step computes the unsharded one. STGCN builds its blocks at dropout
+rate 0 (`STGCN.py:215-228`), so their plain ``dropout`` draws nothing.
 """
 
 from __future__ import annotations
@@ -29,11 +39,46 @@ from torch import nn
 
 from sl_hwgat_tpu_torch.graphs.partition import GraphPartition
 from sl_hwgat_tpu_torch.graphs.skeleton import BODY29_EDGES
-from sl_hwgat_tpu_torch.models.common import Splittable, dropout, lecun_normal_
+from sl_hwgat_tpu_torch.models.common import (
+    Splittable,
+    dropout,
+    dropout_clips,
+    frame_conv,
+    frame_mean,
+    lecun_normal_,
+)
 
 # (out_channels, stride) of the ten blocks, `STGCN.py:215-228`
 SCHEDULE = ((64, 1), (64, 1), (64, 1), (64, 1), (128, 2),
             (128, 1), (128, 1), (256, 2), (256, 1), (256, 1))
+# the frames a temporal convolution of 9 taps reads on each side, and the
+# product of the blocks' temporal strides (STGCN's and DecoupledGCN's)
+TEMPORAL_HALO = 4
+TEMPORAL_STRIDE = 4
+
+
+class FrameSplit(Splittable):
+    """A GCN baseline that splits its frames over sp (and its batch over
+    dp; no tp path): the head is replicated after the pool, and every random
+    draw is the global batch's (``Splittable.global_draws``)."""
+
+    sp_path = True
+    sp_replicated = (r"^head\.",)
+    global_draws = True
+
+    def check_split(self, sp: int, tp: int, frames: int | None = None) -> None:
+        """Also: a rank's first frame on the grid of both stride-2 blocks,
+        and at least the halo's frames a rank at the coarsest block."""
+        super().check_split(sp, tp, frames)
+        if frames is None or sp == 1:
+            return
+        if frames % (TEMPORAL_STRIDE * sp):
+            raise ValueError(f"{frames} frames do not split over sp {sp} on the stride-2 "
+                             f"blocks' grid (a multiple of {TEMPORAL_STRIDE * sp})")
+        if frames // (TEMPORAL_STRIDE * sp) < TEMPORAL_HALO:
+            raise ValueError(f"{frames} frames over sp {sp} leave "
+                             f"{frames // (TEMPORAL_STRIDE * sp)} frames a rank at the "
+                             f"coarsest block, fewer than the halo of {TEMPORAL_HALO}")
 
 
 def conv2d(cin: int, cout: int, kernel=(1, 1), stride=(1, 1), padding=(0, 0),
@@ -99,7 +144,7 @@ class STGCNBlock(nn.Module):
                "conv": lambda: self.residual(x)}[self.residual_kind]()
         y = self.gcn(x, a)
         bn1, relu, conv, bn2 = self.tcn
-        y = bn2(conv(relu(bn1(y))))
+        y = bn2(frame_conv(conv, relu(bn1(y))))
         y = dropout(y, self.dropout_rate, self.training, generator)
         return torch.relu(y + res)
 
@@ -116,7 +161,7 @@ class _Head(nn.Module):
             self.classifier.bias.zero_()
 
 
-class STGCN(Splittable):
+class STGCN(FrameSplit):
     """10-block ST-GCN classifier: (B, T, V=29, C) → logits (B, num_classes).
     Defaults ≡ ``STGCNParams`` (`model_params.py:490-538`)."""
 
@@ -146,8 +191,8 @@ class STGCN(Splittable):
         for idx, block in enumerate(self.st_gcn_networks):
             a = self.A if self.edge_importance is None else self.A * self.edge_importance[idx]
             x = block(x, a, generator)
-        x = x.mean(dim=(2, 3))  # global average over (T, V)
-        x = dropout(x, self.dropout_ratio, self.training, generator)
+        x = frame_mean(x, (2, 3), replicated_grad=True)  # global average over (T, V)
+        x = dropout_clips(x, self.dropout_ratio, self.training, generator)
         return self.head.classifier(x)
 
 

@@ -23,8 +23,16 @@ holds its heads' rows of each third of ``in_proj`` and its columns of
 ``out_proj``, the FFN its rows of ``linear1`` and its columns of
 ``linear2``. Dropout on a split tensor (A over its heads, the FFN's hidden
 units) takes this rank's share of the full-width mask; on the replicated
-stream every tp rank draws the same mask. The frames are not split (no sp
-path).
+stream every tp rank draws the same mask.
+
+Under sp (frames split; with tp too at (1, 2, 2)) a rank adds the PE rows
+of its frames; its queries stay local, while the keys and values, and the
+key-padding mask, are the clip's, gathered over the sp ranks
+(``comm.gather_along``: the gradient of a rank's keys is summed over the
+ranks whose queries read them). Dropout draws from the rank's own
+generator. The ``mean`` pool sums over the sp ranks; ``max`` and
+``concat`` gather the frames first; the classifier after them is whole on
+every sp rank.
 """
 
 from __future__ import annotations
@@ -41,14 +49,27 @@ from sl_hwgat_tpu_torch.models.common import (
     Splittable,
     dropout,
     dropout_shard,
+    frame_mean,
+    frame_offset,
     row_split_linear,
+    sequence_layout,
     sinusoid_table,
     tp_branch_input,
     variance_scaling_,
 )
+from sl_hwgat_tpu_torch.parallel.comm import gather_along
 from sl_hwgat_tpu_torch.parallel.mesh import active
 
 BIG_NEG = -1e9
+
+
+def clip_frames(x: torch.Tensor, dim: int = 1, replicated: bool = False) -> torch.Tensor:
+    """A rank's frames along ``dim`` → the clip's, under sp (the sp ranks'
+    frames joined in order; ``comm.gather_along``'s backward); else ``x``."""
+    layout = sequence_layout()
+    if layout is None:
+        return x
+    return gather_along(x, layout.group("sp"), dim, replicated)
 
 
 def xavier_linear(din: int, dout: int, compute_dtype: torch.dtype | None = None,
@@ -110,6 +131,9 @@ class TorchMHA(nn.Module):
         qkv = cast_linear(tp_branch_input(x, self.tp), self.in_proj_weight, self.in_proj_bias,
                           self.compute_dtype)
         q, k, v = qkv.reshape(b, t, 3, h, dh).permute(2, 0, 3, 1, 4)
+        layout = sequence_layout()
+        if layout is not None:  # the clip's keys and values
+            k, v = gather_along(torch.cat([k, v], -1), layout.group("sp"), 2).split(dh, -1)
         s = torch.matmul(accumulate_type(q / math.sqrt(dh)), accumulate_type(k).transpose(-1, -2))
         if key_padding_mask is not None:
             s = s + torch.where(key_padding_mask, BIG_NEG, 0.0).to(s.dtype)[:, None, None, :]
@@ -184,7 +208,9 @@ class TransformerClassifier(Splittable):
     """(B, T, V, C) → logits (B, num_classes). Defaults ≡ ``TransformerParams``
     (`model_params.py:590-605`)."""
 
+    sp_path = True
     tp_path = True
+    sp_replicated = (r"^classifier\.",)
 
     def check_split(self, sp: int, tp: int, frames: int | None = None) -> None:
         """Also: a head count and an FFN width that divide by tp."""
@@ -220,17 +246,20 @@ class TransformerClassifier(Splittable):
         b, t = x.shape[:2]
         x = x.to(self.encoder.weight.dtype).reshape(b, t, -1)
         mask = x[:, :, 0] == self.pad_index  # key padding, `Transformer.py:40-49`
-        x = self.encoder(x) * math.sqrt(self.d_model) + self.pos_encoder.pe[:, :t]
+        layout = sequence_layout()
+        if layout is not None:  # the clip's mask: padding may span ranks
+            mask = clip_frames(mask.to(torch.uint8)).bool()
+        lo = frame_offset(t)
+        x = self.encoder(x) * math.sqrt(self.d_model) + self.pos_encoder.pe[:, lo:lo + t]
         x = dropout(x, self.drop, self.training, generator)
         for layer in self.transformer_encoder.layers:
             x = layer(x, mask, generator)
         x = self.transformer_encoder.norm(x)
-        if self.pool == "concat":
-            x = x.reshape(b, -1)
-        elif self.pool == "max":
-            x = x.max(dim=1).values
+        if self.pool == "mean":
+            x = frame_mean(x, (1,), replicated_grad=True)
         else:
-            x = x.mean(dim=1)
+            x = clip_frames(x, replicated=True)
+            x = x.reshape(b, -1) if self.pool == "concat" else x.max(dim=1).values
         return self.classifier(x)
 
 

@@ -42,10 +42,11 @@ from sl_hwgat_tpu_torch.models.common import (
     PositionalEncoding,
     Splittable,
     dropout,
+    encode_positions,
     fourier_embed,
     fourier_matrix,
+    frame_mean,
     layer_norm,
-    token_mean,
 )
 from sl_hwgat_tpu_torch.ops.banded_attention import banded_attention
 from sl_hwgat_tpu_torch.parallel import edge_partition
@@ -151,7 +152,8 @@ class WGATE(Splittable):
     sp_replicated = (r"^head\.",)
 
     def __init__(self, kp_dim: int = 2, temporal_dim: int = 192, num_classes: int = 2002,
-                 embed_dim: int = 128, depths: int = 8, num_heads: int = 8, window_size: int = 16,
+                 embed_dim: int = 128, pe: bool = True, depths: int = 8, num_heads: int = 8,
+                 window_size: int = 16,
                  drop_rate: float = 0.1, ff_ratio: float = 2.0, attn_impl: str = "auto",
                  compute_dtype: str = "float32", generator: torch.Generator | None = None):
         super().__init__()
@@ -159,7 +161,8 @@ class WGATE(Splittable):
         cdt = DTYPES[compute_dtype]
         band = make_band(window_adj(window_size=window_size))
         self.register_buffer("B", fourier_matrix(embed_dim, kp_dim, generator))
-        self.pos_encoder = PositionalEncoding(embed_dim, temporal_dim, drop_rate)
+        self.pos_encoder = PositionalEncoding(embed_dim, temporal_dim, drop_rate) if pe \
+            else None
         self.layers = nn.ModuleList([
             WPartAttentionBlock(embed_dim, num_heads, window_size, band, drop=drop_rate,
                                 ff_ratio=ff_ratio, compute_dtype=cdt, attn_impl=attn_impl,
@@ -169,11 +172,11 @@ class WGATE(Splittable):
         self.head = Dense(embed_dim, num_classes, torch.float32, generator)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-        x = self.pos_encoder(fourier_embed(x.float(), self.B), generator)
+        x = encode_positions(self.pos_encoder, fourier_embed(x.float(), self.B), generator)
         for block in self.layers:
             x = block(x, generator)
         x = layer_norm(self.norm, x)
-        return self.head(token_mean(x))
+        return self.head(frame_mean(x, (1, 2), replicated_grad=True))
 
 
 def wgate_from_dataset(dataset_params: dict, input_dim: int, **overrides) -> WGATE:

@@ -20,8 +20,14 @@ has no send/recv for them. Every Function names its backward:
   for both ends, whose output every rank uses, so every rank takes part in
   the backward's collective (a halo that a rank dropped would leave its
   gradient's all_gather out on that rank alone).
+- ``gather_along``: the ranks' tensors joined along a dim, and in the
+  backward this rank's slice of the gradient, summed over the ranks first
+  (``replicated=False``: keys and values that each rank's own queries read)
+  or as it is (``replicated=True``: every rank holds the same downstream
+  gradient, as after a pool that every rank computes whole).
 
-``gather_rows`` concatenates a tensor over a group, with no gradient.
+``gather_rows`` concatenates a tensor over a group, with no gradient;
+``gather`` gives every rank's tensor, with no gradient.
 """
 
 from __future__ import annotations
@@ -117,6 +123,20 @@ class _HaloExtend(torch.autograd.Function):
         return own, None, None
 
 
+class _GatherAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, replicated):
+        ctx.group, ctx.dim, ctx.replicated, ctx.width = group, dim, replicated, x.shape[dim]
+        return torch.cat(_gathered(x, group), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.replicated:
+            g = _reduced(g, ctx.group)
+        r = dist.get_rank(ctx.group)
+        return g.narrow(ctx.dim, r * ctx.width, ctx.width).contiguous(), None, None, None
+
+
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:
     return _CopyTo.apply(x, group)
 
@@ -141,11 +161,23 @@ def halo_extend(x: torch.Tensor, group, width: int) -> torch.Tensor:
     return _HaloExtend.apply(x, group, width)
 
 
+def gather_along(x: torch.Tensor, group, dim: int, replicated: bool = False) -> torch.Tensor:
+    """``x`` of every rank of ``group`` joined along ``dim`` in rank order;
+    the gradient of this rank's slice is summed over the ranks
+    (``replicated=False``) or taken as it is (``replicated=True``)."""
+    return _GatherAlong.apply(x, group, dim, replicated)
+
+
+def gather(x: torch.Tensor, group) -> list[torch.Tensor]:
+    """``x`` of every rank of ``group``, in rank order (no gradient)."""
+    with torch.no_grad():
+        return _gathered(x.detach(), group)
+
+
 def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` of every rank of ``group``, concatenated along dim 0 in rank
     order (no gradient)."""
-    with torch.no_grad():
-        return torch.cat(_gathered(x.detach(), group))
+    return torch.cat(gather(x, group))
 
 
 def reduce_sum(x: torch.Tensor, group) -> torch.Tensor:

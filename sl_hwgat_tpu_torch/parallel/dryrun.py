@@ -37,6 +37,8 @@ def _entry(rank, fn, world, init_method, backend, device, args):
 
     if device == "cpu":
         torch.set_num_threads(1)
+    elif device == "cuda":  # a card a rank
+        device = f"cuda:{rank}"
     dist_lib.initialize(backend, init_method, world, rank, device=device)
     try:
         fn(rank, world, *args)
@@ -46,10 +48,10 @@ def _entry(rank, fn, world, init_method, backend, device, args):
 
 def spawn(fn, world_size: int, *args, backend: str = "gloo", device: str = "cpu") -> None:
     """Run ``fn(rank, world_size, *args)`` in ``world_size`` spawned ranks
-    joined into one process group (``backend``; ``device`` "cpu" or a CUDA
-    device the ranks share). Raises the first rank's exception, or
-    ``TimeoutError`` (after ending every rank) when they outlast
-    ``JOIN_TIMEOUT`` seconds."""
+    joined into one process group (``backend``; ``device`` "cpu", a CUDA
+    device the ranks share, or "cuda": rank r on ``cuda:r``). Raises the
+    first rank's exception, or ``TimeoutError`` (after ending every rank)
+    when they outlast ``JOIN_TIMEOUT`` seconds."""
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory(prefix="sl_hwgat_rdv_") as tmp:
@@ -110,6 +112,9 @@ def step_worker(rank: int, world: int, job: dict) -> None:
 
     device = torch.device(job["device"])
     dtype = getattr(torch, job.get("dtype", "float32"))
+    # f32 convolutions and GEMMs on the CUDA cores, as in the single-process
+    # steps the jobs are held to (cuDNN's TF32 is on by default)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     mesh = mesh_lib.make_mesh(job["mesh"], device.type)
     model = build_model(job["model"], job["dataset"], job.get("input_dim", 2), device=device,
                         **job.get("overrides", {}))

@@ -5,10 +5,12 @@
   of a rank is its rows' valid-weighted loss sum over the global valid
   count, so the gradients summed over the ranks are the global batch's,
   however the padding falls. STGCN's and DecoupledGCN's BatchNorm take
-  their statistics over the global batch (``global_batch_norm``).
+  their statistics over the global batch, over dp and sp
+  (``global_batch_norm``).
 - **sp**: each rank takes its frames of every clip; the models' sp hooks
   (the shifted roll, the positional encoding's offset, the pool, the
-  banded models' halo) make a rank's work its share of the clip's.
+  banded models' halo, the GCNs' temporal halo and frame means, the
+  Transformer's gathered keys) make a rank's work its share of the clip's.
 - **tp** (HWGATE, HGATE, the Transformer): Megatron over heads and the
   FFN. ``TP_RULES`` name the state_dict entries a tp rank holds a slice
   of; ``shard_model`` keeps only that slice in each parameter.
@@ -180,7 +182,10 @@ def global_batch_norm(bn, x: torch.Tensor, group) -> torch.Tensor:
 
 def _use_global_statistics(model, layout: mesh_lib.Layout) -> None:
     """Make every BatchNorm of ``model`` take train-mode statistics over
-    the dp ranks while ``layout`` is active (eval mode is unchanged)."""
+    the global batch while a layout that splits the batch or the frames is
+    active: over the ranks of the gradient group (dp × sp when the frames
+    are split, else dp; the tp ranks repeat each other). Eval mode is
+    unchanged."""
     cls = torch.nn.modules.batchnorm._BatchNorm
     for bn in model.modules():
         if isinstance(bn, cls) and not hasattr(bn, "_local_forward"):
@@ -188,8 +193,8 @@ def _use_global_statistics(model, layout: mesh_lib.Layout) -> None:
 
             def forward(self, x):
                 active = mesh_lib.active()
-                if self.training and active is not None and active.dp > 1:
-                    return global_batch_norm(self, x, active.group("dp"))
+                if self.training and active is not None and (active.dp > 1 or active.sp > 1):
+                    return global_batch_norm(self, x, active.grad_group)
                 return self._local_forward(x)
 
             bn.forward = types.MethodType(forward, bn)
@@ -228,7 +233,9 @@ def make_sharded_steps(model, optimizer, mesh, *, criterion_type: str = "smooth_
     ranks, whose replicated activations must stay equal (the FFN's hidden
     units, split over tp, take their columns of a full-width mask); the
     prune scalars come from a generator that every rank seeds alike, one a
-    pruning MSA module, drawn before the forward.
+    pruning MSA module, drawn before the forward. A model with
+    ``global_draws`` (the GCNs) gets that shared generator, seeded as the
+    unsharded step's, and draws every mask at the global batch's shape.
     """
     from sl_hwgat_tpu_torch.train.loop import step_seed
     from sl_hwgat_tpu_torch.train.losses import CRITERIA, per_sample
@@ -256,7 +263,7 @@ def make_sharded_steps(model, optimizer, mesh, *, criterion_type: str = "smooth_
         shared.manual_seed(step_seed(seed, epoch, step, micro))
         layout.prune_scalars = {m: torch.rand((1,), generator=shared, device=device)
                                 for m in pruning}
-        return local
+        return shared if model.global_draws else local
 
     def reduce_gradients():
         grads, owners = [], []

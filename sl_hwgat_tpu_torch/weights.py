@@ -214,7 +214,8 @@ def params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
 def state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
     """JAX variables of any registry model (numpy leaves) → the port's
     state_dict: ``params_from_jax`` plus the buffers (HWGATE, HGATE, WGATE,
-    GATE: ``B`` and ``pos_encoder.pe``; Transformer: ``pos_encoder.pe``) or
+    GATE: ``B`` and ``pos_encoder.pe``, the latter absent from a model built
+    with ``pe=False``; Transformer: ``pos_encoder.pe``) or
     the BatchNorm running statistics (STGCN, DecoupledGCN: ``batch_stats``'
     mean and var, ``num_batches_tracked`` 0)."""
     params = variables["params"]
@@ -228,11 +229,10 @@ def state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
         sd["pos_encoder.pe"] = np.asarray(variables["buffers"]["pe"])[None]
         return _tensors(sd)
     buffers = variables["buffers"]
-    sd = {
-        "B": torch.tensor(np.asarray(buffers["fourier"]["B"], dtype=np.float32)),
-        "pos_encoder.pe": torch.tensor(
-            np.asarray(buffers["pos_encoder"]["pe"], dtype=np.float32)[None, :, None, :]),
-    }
+    sd = {"B": torch.tensor(np.asarray(buffers["fourier"]["B"], dtype=np.float32))}
+    if "pos_encoder" in buffers:
+        sd["pos_encoder.pe"] = torch.tensor(
+            np.asarray(buffers["pos_encoder"]["pe"], dtype=np.float32)[None, :, None, :])
     sd.update(params_from_jax(variables["params"]))
     return sd
 

@@ -17,7 +17,9 @@
   round trip is bit for bit, and resume and ``Predictor.from_checkpoint``
   read the directory;
 - a mesh that does not divide, or a model without the asked-for path, is
-  refused at setup, and HGATE's and the Transformer's splits are accepted;
+  refused at setup (the GCNs also at frame counts off their stride-2
+  blocks' grid or below their temporal halo), and HGATE's, the
+  Transformer's and the GCNs' splits are accepted;
 - ``TP_RULES`` give each model's names the kind its layers need, from its
   own rules only; the Transformer's shard → merge is bit for bit; its
   attention dropout over split heads is the full-width draw;
@@ -257,7 +259,10 @@ def test_sharded_checkpoint_reads_into_a_live_model(tmp_path):
 
 
 @pytest.mark.parametrize("name, sp, tp, frames, match", [
-    ("STGCN", 2, 1, None, "no sp path"),
+    ("STGCN", 1, 2, None, "no tp path"),
+    ("STGCN", 2, 1, 36, "stride-2 blocks' grid"),
+    ("DecoupledGCN", 4, 1, 48, "fewer than the halo"),
+    ("DecoupledGCN", 1, 2, None, "no tp path"),
     ("WGATE", 1, 2, None, "no tp path"),
     ("HWGATE", 1, 4, None, "heads do not split"),
     ("HWGATE", 2, 1, 12, "temporal patch"),
@@ -266,7 +271,7 @@ def test_sharded_checkpoint_reads_into_a_live_model(tmp_path):
     ("HGATE", 2, 1, 12, "temporal patch"),
     ("Transformer", 1, 4, None, "3 heads do not split"),
     ("Transformer", 1, 3, None, "FFN of 64 does not split"),
-    ("Transformer", 2, 1, None, "no sp path"),
+    ("Transformer", 4, 1, 18, "do not split over sp"),
 ])
 def test_meshes_that_do_not_divide_are_refused(name, sp, tp, frames, match):
     overrides = {"HWGATE": dict(SMALL, num_heads=(2, 2)), "WGATE": dict(embed_dim=32, depths=1,
@@ -302,12 +307,15 @@ def test_dropout_shards_are_the_full_width_draw_and_keep_the_rate():
 
 @pytest.mark.parametrize("name, sp, tp, frames", [
     ("HGATE", 2, 2, 16), ("HGATE", 4, 1, 16), ("Transformer", 1, 2, 16),
+    ("Transformer", 2, 2, 32), ("STGCN", 2, 1, 32), ("STGCN", 4, 1, 192),
+    ("DecoupledGCN", 4, 1, 64),
 ])
 def test_meshes_that_divide_are_accepted(name, sp, tp, frames):
     overrides = {"HGATE": dict(SMALL, num_heads=(2, 4)),
                  "Transformer": dict(d_model=32, nhead=2, dim_feedforward=64,
                                      num_encoder_layers=1)}
-    build_model(name, DS, 2, device="cpu", **overrides[name]).check_split(sp, tp, frames)
+    build_model(name, DS, 2, device="cpu", **overrides.get(name, {})).check_split(sp, tp,
+                                                                                  frames)
 
 
 # the state_dict names a tp rank holds a slice of, by the last two parts of

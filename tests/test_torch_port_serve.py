@@ -186,6 +186,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference_package():
                  "ops.sparse_attention", "ops.library", "data.clipstore", "data.meta_generators",
                  "data.preprocess", "parallel", "parallel.mesh", "parallel.comm",
                  "parallel.sharding", "parallel.kernel_sharding", "parallel.edge_partition",
-                 "parallel.dryrun", "train.dist"):
+                 "parallel.dryrun", "train.dist", "bench.scaling", "data.pose_extract",
+                 "data.pose", "data.pose.mediapipe_backend", "data.pose.dwpose",
+                 "data.pose.rtmwpose"):
         assert f"sl_hwgat_tpu_torch.{name}" in seen["modules"]
     assert seen["reference"] == [] and seen["jax"] == []
