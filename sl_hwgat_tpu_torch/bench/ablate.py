@@ -2,7 +2,7 @@
 
     python -m sl_hwgat_tpu_torch.bench.ablate [wide|banded|softmax|window32|banded_fwd|
                                                window32_fwd|tile|fused|layout|fused_bwd|
-                                               relayout|wrappers] [--parent DIR]
+                                               relayout|wrappers|hybrid] [--parent DIR]
 
 Builds variants of a kernel's sources that each leave one phase out, under
 ``build/ablate/<variant>/``, and prints one JSON line of the card's times
@@ -37,9 +37,10 @@ holds (``BANDED_DESIGNS``), so the same command ablates the kernel of an
 older checkout.
 
 ``softmax``: K7's forward (``csrc/masked_softmax_fwd.cu``) at HWGATE's
-(12288 × 32 × 32) and HGATE's (3072 × 58 × 58) f32 scores, single mask, no
-pruning, P in f32 and bf16, beside ``torch.softmax`` over the same masked
-scores (timed only):
+(12288 × 32 × 32) and HGATE's (3072 × 58 × 58) scores, single mask, no
+pruning: f32 scores with P in f32 and bf16, and bf16 scores with bf16 P
+(the parent's build only where it takes bf16 scores), beside
+``torch.softmax`` over the same masked scores in their type (timed only):
 
 - ``full``: the kernel as it is;
 - ``no_softmax``: P is the raw scores (the loads, mask lookups and stores
@@ -114,6 +115,14 @@ it), at small calls whose kernels take a few µs (64 units of 32 tokens × dh
 64; 64 units of 32 × 32 scores; 8 planes of 4 frames × 29 joints × dh 16):
 the host's µs a call over 500 back-to-back calls, in turns (12 samples
 each), with ``bit_equal``.
+
+``hybrid`` (needs ``--parent``): the kernel bench's ``hybrid``,
+``hybrid_bf16``, ``hybrid_bwd`` and ``hybrid_bwd_bf16`` entries (the two
+products around K7, forward and gradient) as ``bench.kernel`` builds them
+in this checkout and in the parent's, in turns, as ``fused`` times its
+entries; then, this checkout only (``this_checkout``), the ``hybrid_bf16``
+call with f32 and with bf16 scores and its two products on f32 against
+bf16 operands, card ms in turns.
 
 ``layout``: the layout kernel (``csrc/window_attention_layout.cu``) on one
 bench entry of each instantiation and ``tlay_fused_bf16``, each variant
@@ -445,12 +454,13 @@ def device_ms(call) -> float:
     return profiling.device_seconds(call, calls=20) * 1e3
 
 
-def in_turns(calls: dict, rounds: int = 2) -> dict:
-    """{name: [device ms, ...]} of the calls timed in turns: a, b, b, a, ..."""
+def in_turns(calls: dict, rounds: int = 2, timer=device_ms) -> dict:
+    """{name: [ms, ...]} of the calls timed in turns by ``timer`` (default
+    ``device_ms``, of a C entry): a, b, b, a, ..."""
     names, times = list(calls), {n: [] for n in calls}
     for i in range(rounds):
         for n in (names if i % 2 == 0 else names[::-1]):
-            times[n].append(device_ms(calls[n]))
+            times[n].append(timer(calls[n]))
     return times
 
 
@@ -565,6 +575,10 @@ def run_banded(parent) -> dict:
     return out
 
 
+# K7's forward entry before it took the scores' type (f32 scores only)
+SOFTMAX_F32_SCORES_ARGTYPES = ["p"] * 5 + ["ll"] + ["i"] * 7 + ["ll", "p"]
+
+
 def run_softmax(parent) -> dict:
     builds = {name: (_build.CSRC_DIR, edits) for name, edits in SOFTMAX_VARIANTS.items()}
     if parent is not None:
@@ -573,28 +587,39 @@ def run_softmax(parent) -> dict:
             for name, (csrc, edits) in builds.items()}
     if not wait(jobs):
         return {}
-    fns = {name: entry(name, ha.KERNEL, ha._ARGTYPES[ha.KERNEL]) for name in builds}
+    # whether a build's entry takes the scores' type before P's
+    typed = {name: "int s_dtype" in (Path(csrc) / SOFTMAX_FWD).read_text()
+             for name, (csrc, _) in builds.items()}
+    fns = {name: entry(name, ha.KERNEL, ha._ARGTYPES[ha.KERNEL] if typed[name]
+                       else SOFTMAX_F32_SCORES_ARGTYPES) for name in builds}
     rng = np.random.default_rng(0)
     times, pairs, equal = {}, {}, {}
     for model, (units, n) in SOFTMAX_SHAPES.items():
         adj = windowed_block_adj(2)[0] if model == "HWGATE" else hgate_block_adj()
         stack = 4 if model == "HWGATE" else 2
         masks = wa.device_masks(adj, None, "cuda", wide=True)
-        s = torch.from_numpy(rng.normal(size=(units, n, n)).astype(np.float32)).cuda()
-        masked = masked_scores(s, unit_allowed(adj, None, None, units, stack, s.device),
-                               zero_quirk=True, prune_u=None)
-        for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
-            case = f"{model}/{str(dtype).split('.')[1]}"
-            outs = {name: [torch.empty(s.shape, dtype=dtype, device="cuda")] for name in fns}
+        s32 = torch.from_numpy(rng.normal(size=(units, n, n)).astype(np.float32)).cuda()
+        # f32 scores with P in f32 and bf16; bf16 scores with bf16 P (the
+        # PALLAS_HYBRID_S_BF16 path; this checkout's builds only)
+        for s, dtype in ((s32, torch.float32), (s32, torch.bfloat16),
+                         (s32.to(torch.bfloat16), torch.bfloat16)):
+            s_code, code = int(s.dtype == torch.bfloat16), int(dtype == torch.bfloat16)
+            case = f"{model}/{str(dtype).split('.')[1]}" + ("/bf16_scores" if s_code else "")
+            masked = masked_scores(s.float(), unit_allowed(adj, None, None, units, stack,
+                                                           s.device),
+                                   zero_quirk=True, prune_u=None).to(s.dtype)
+            names = [name for name in fns if typed[name] or not s_code]
+            outs = {name: [torch.empty(s.shape, dtype=dtype, device="cuda")] for name in names}
             stream = torch.cuda.current_stream().cuda_stream
-            calls = {name: (lambda fn=fn, p=outs[name][0]: fn(
-                s.data_ptr(), p.data_ptr(), masks.data_ptr(), None, None, units, n, code, 1, 0,
-                stack, 0, 0, 0, stream)) for name, fn in fns.items()}
+            calls = {name: (lambda fn=fns[name], p=outs[name][0], typed=typed[name]: fn(
+                s.data_ptr(), p.data_ptr(), masks.data_ptr(), None, None, units, n,
+                *((s_code,) if typed else ()), code, 1, 0, stack, 0, 0, 0, stream))
+                for name in names}
             for name in SOFTMAX_VARIANTS:
                 times[f"{name}/{case}"] = device_ms(calls[name])
             times[f"torch.softmax/{case}"] = profiling.device_seconds(
                 lambda: torch.softmax(masked, -1), calls=20) * 1e3
-            if parent is not None:
+            if "parent" in calls:
                 pairs[case], equal[case] = paired(calls, outs)
     out = {"device_ms": times, "scores": {m: [u, n, n] for m, (u, n) in SOFTMAX_SHAPES.items()}}
     if parent is not None:
@@ -835,7 +860,8 @@ def entries_in_turns(parent, impls, parent_sources, own_sources) -> dict:
     built.start()
     _build.build(own_sources)
     built.join()
-    pbuild.load("relayout")  # fails here, not in a timed call, if the parent's build did
+    for src in parent_sources:  # fails here, not in a timed call, if a parent's build did
+        pbuild.load(src)
     times, events, equal, counts = {}, {}, {}, {}
     with torch.no_grad():
         for impl in impls:
@@ -933,6 +959,56 @@ def run_fused_bwd(parent) -> dict:
                             ("window_attention_fwd", "window_attention_bwd",
                              "window_attention_layout", "relayout"),
                             (wa.KERNEL_LAYOUT, wa.KERNEL_LAYOUT_BWD))
+
+
+HYBRID_ENTRIES = ("hybrid", "hybrid_bf16", "hybrid_bwd", "hybrid_bwd_bf16")
+
+
+def run_hybrid(parent) -> dict:
+    """The kernel bench's hybrid entries (forward and gradient, f32 and
+    bf16: the two products around K7), this checkout's against the
+    parent's, in turns, as ``run_fused`` times the forward layout entries."""
+    if parent is None:
+        raise SystemExit("bench.ablate hybrid: --parent is required")
+    sources = (ha.KERNEL, ha.KERNEL_BWD)
+    return {**entries_in_turns(parent, HYBRID_ENTRIES, sources, sources),
+            "this_checkout": hybrid_parts()}
+
+
+def hybrid_parts() -> dict:
+    """This checkout's hybrid attention at the bench's ``hybrid_bf16`` call
+    (bf16 q, k, v of 12288 units × 32 tokens × dh 64, single mask, stack 4)
+    with f32 and with bf16 scores, forward and forward + backward, and each
+    of its products alone on f32 against bf16 operands
+    (``aten::bmm.dtype``), card ms in turns."""
+    from sl_hwgat_tpu_torch.bench import kernel as bench
+
+    def timer(call):
+        return profiling.device_seconds(call, calls=20) * 1e3
+
+    bf16 = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(WINDOW32_UNITS, bench.N, bench.DH, generator=g, device="cuda")
+               .to(bf16) for _ in range(3))
+    do = torch.randn(q.shape, generator=g, device="cuda")
+    adj, kw = bench.window_adj(), dict(scale=bench.SCALE, stack=bench.STACK)
+    scores = {"f32_scores": torch.float32, "bf16_scores": bf16}
+    out = {}
+    with torch.no_grad():
+        out["attention_fwd"] = in_turns({n: (lambda d=d: ha.hybrid_window_attention(
+            q, k, v, adj, scores_dtype=d, **kw)) for n, d in scores.items()}, timer=timer)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    out["attention_fwd_bwd"] = in_turns({n: (lambda d=d: torch.autograd.grad(
+        ha.hybrid_window_attention(*leaves, adj, scores_dtype=d, **kw), leaves, do))
+        for n, d in scores.items()}, timer=timer)
+    scaled = q * torch.tensor(bench.SCALE, dtype=bf16)
+    p = torch.softmax(torch.bmm(scaled, k.transpose(1, 2), out_dtype=torch.float32), -1)
+    for name, (a, b) in {"scores": (scaled, k.transpose(1, 2)), "pv": (p.to(bf16), v)}.items():
+        out[f"product_{name}"] = in_turns({
+            "f32_operands": lambda a=a, b=b: torch.bmm(a.float(), b.float()),
+            "bf16_operands": lambda a=a, b=b: torch.bmm(a, b, out_dtype=torch.float32)},
+            timer=timer)
+    return out
 
 
 # relayout's cases on the bench path: (input shape, permutation, dtype)
@@ -1061,7 +1137,7 @@ def main(argv=None) -> int:
     parser.add_argument("kernel", nargs="?", default="wide",
                         choices=("wide", "banded", "softmax", "window32", "banded_fwd",
                                  "window32_fwd", "tile", "fused", "layout", "fused_bwd",
-                                 "relayout", "wrappers"))
+                                 "relayout", "wrappers", "hybrid"))
     parser.add_argument("--parent", type=Path, default=None,
                         help="another checkout whose kernel is timed in turns with this one")
     args = parser.parse_args(argv)
@@ -1069,7 +1145,8 @@ def main(argv=None) -> int:
            "window32": run_window32, "banded_fwd": run_banded_fwd,
            "window32_fwd": run_window32_fwd, "tile": run_tile,
            "fused": run_fused, "layout": run_layout, "fused_bwd": run_fused_bwd,
-           "relayout": run_relayout, "wrappers": run_wrappers}[args.kernel](args.parent)
+           "relayout": run_relayout, "wrappers": run_wrappers,
+           "hybrid": run_hybrid}[args.kernel](args.parent)
     if not out:
         return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

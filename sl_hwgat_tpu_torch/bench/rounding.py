@@ -29,6 +29,13 @@ JSON line with, per draw and mask:
   side's A and from the boundary to the float64 A, and which side rounds
   as the float64 A does; the flips under a violating dV entry in full.
 
+``dv_float64`` and ``dv_bound_ratio`` anchor the dv check on float64
+instead of on the other side: each side's bf16 dV against dV computed in
+float64 from the float64 A, at 4e-3 + 1e-2·|dv64| plus one bf16 ulp of
+T(A) times |dO| summed over the rows (the most a rounding of T(A) either
+way can move dv). ``chip_smoke.py`` holds K2-32, the backward layout kernel
+and the plain version to it on the draws of ``draw``.
+
 It needs a card and ``nvcc``, as ``chip_smoke.py`` does.
 """
 
@@ -43,10 +50,42 @@ import torch
 BAR = dict(atol=4e-3, rtol=1e-2)
 
 
-def _ulp32(x: torch.Tensor) -> torch.Tensor:
-    """One f32 ulp at |x| (float64)."""
+def _ulp(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """One ulp at |x| (float64) of a type with ``bits`` stored significand
+    bits (the smallest normal's at 0)."""
     x = x.abs().clamp_min(2.0**-126)
-    return torch.exp2(torch.floor(torch.log2(x)) - 23)
+    return torch.exp2(torch.floor(torch.log2(x)) - bits)
+
+
+def draw(units: int, seed: int, v_scale: float = 1.0, do_seed: int | None = None,
+         n: int = 32, dh: int = 64):
+    """bf16 (q, k, v, dO) of (units, n, dh) on the card: q, k, v (v times
+    ``v_scale``) unit normal from one generator seeded ``seed``, and dO from
+    the same generator, or from one seeded ``do_seed``. Phase 18's manner:
+    ``draw(units, seed)``; phase 4's inputs: ``draw(units, 0, 0.2, 2)``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(units, n, dh, generator=g, device="cuda") for _ in range(3))
+    if do_seed is not None:
+        g = torch.Generator(device="cuda").manual_seed(do_seed)
+    do = torch.randn(units, n, dh, generator=g, device="cuda")
+    bf16 = torch.bfloat16
+    return q.to(bf16), k.to(bf16), (v * v_scale).to(bf16), do.to(bf16)
+
+
+def dv_float64(q, k, do, adj, kw) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dv64, slack) of (U, N, dh) units: dV = Aᵀ·dO in float64 from the
+    float64 A under the plain version's mask decisions (``plain_a``), and
+    per entry Σᵢ ulp_bf16(A64ᵢⱼ)·|dOᵢ|, one bf16 ulp of T(A) per term."""
+    a64 = plain_a(q, k, adj, kw)
+    d = do.double()
+    return torch.bmm(a64.transpose(1, 2), d), torch.bmm(_ulp(a64, 7).transpose(1, 2), d.abs())
+
+
+def dv_bound_ratio(dv, dv64, slack) -> float:
+    """The worst |dv − dv64| / (4e-3 + 1e-2·|dv64| + slack) over the
+    entries: at most 1 where dv meets the float64-anchored bound."""
+    bound = BAR["atol"] + BAR["rtol"] * dv64.abs() + slack
+    return ((dv.double() - dv64).abs() / bound).max().item()
 
 
 def plain_a(q, k, adj, kw, dtype=torch.float64):
@@ -104,7 +143,7 @@ def analyse(q, k, v, do, adj, kw, detail: int = 12) -> dict:
     a_64 = plain_a(q, k, adj, kw)
     t_p = a_p.to(torch.bfloat16).double()
     consistent = int((a_k.float().to(torch.bfloat16).double() != t_k).sum())
-    ulp = _ulp32(a_64)
+    ulp = _ulp(a_64, 23)
     out = {"violations": len(bad),
            "worst_excess": max(0.0, excess.max().item()),
            "kernel_f32_rounds_to_kernel_bf16_T_mismatches": consistent,
@@ -158,7 +197,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     from sl_hwgat_tpu_torch.bench import kernel as bench
 
-    units, n, dh, bf16 = args.units, bench.N, bench.DH, torch.bfloat16
+    units = args.units
     adj = bench.window_adj()
     tail = bench.dual_tail(adj)
     masks = {"single": {},
@@ -167,17 +206,9 @@ def main(argv=None) -> int:
              "sel": dict(tail_adj=tail, units_per_group=32, groups=3,
                          sel=(torch.arange(units // 4, device="cuda") % 3 == 1).int())}
 
-    def draw(seed, v_scale, do_seed):
-        g = torch.Generator(device="cuda").manual_seed(seed)
-        q, k, v = (torch.randn(units, n, dh, generator=g, device="cuda") for _ in range(3))
-        if do_seed is not None:
-            g = torch.Generator(device="cuda").manual_seed(do_seed)
-        do = torch.randn(units, n, dh, generator=g, device="cuda")
-        return q.to(bf16), k.to(bf16), (v * v_scale).to(bf16), do.to(bf16)
-
-    draws = {"phase4": draw(0, 0.2, 2)}
-    draws.update({f"phase18_seed{seed}": draw(seed, 1.0, None) for seed in args.seeds})
-    result = {"units": units, "tokens": n, "head_dim": dh, "bar": BAR, "draws": {}}
+    draws = {"phase4": draw(units, 0, 0.2, 2)}
+    draws.update({f"phase18_seed{seed}": draw(units, seed) for seed in args.seeds})
+    result = {"units": units, "tokens": bench.N, "head_dim": bench.DH, "bar": BAR, "draws": {}}
     for name, (q, k, v, do) in draws.items():
         result["draws"][name] = {
             mask: analyse(q, k, v, do, adj, dict(scale=bench.SCALE, stack=bench.STACK, **kw))

@@ -3,13 +3,16 @@ the FDMSE-ISL geometry on the card, as one JSON line.
 
     python -m sl_hwgat_tpu_torch.bench.step {f32|bf16} [batch] [--model NAME]
         [--step train|eval] [--attn-impl IMPL] [--remat] [--drop RATE]
-        [--no-prune] [--stream-dtype float32|bfloat16] [--repeats 5]
-        [--device cuda|cpu]
+        [--no-prune] [--stream-dtype float32|bfloat16] [--hybrid-scores-bf16]
+        [--repeats 5] [--device cuda|cpu]
 
 Counterpart of ``bench_train_step.py``: its ``SL_HWGAT_*`` variables are
-flags here, and ``--remat``, ``--no-prune`` and ``--stream-dtype`` are
-dropped for models other than HWGATE and HGATE, as the JAX script drops
-them. Its TPU knobs (the PRNG, the stream layout, the compile cache) have no
+flags here, and so is ``PALLAS_HYBRID_S_BF16=1``, which the JAX hybrid op
+reads (``--hybrid-scores-bf16``: the hybrid path's scores in bf16 under
+bf16 attention); ``--remat``, ``--no-prune``, ``--stream-dtype`` and
+``--hybrid-scores-bf16`` are dropped for models other than HWGATE and
+HGATE, as the JAX script drops the first three and the variable reaches no
+other model. Its TPU knobs (the PRNG, the stream layout, the compile cache) have no
 counterpart. STGCN and DecoupledGCN have no ``compute_dtype``: ``bf16`` is
 refused for them. Clips of 192 frames × ``MODEL_NUM_KPS`` joints × 2, 2002
 classes, random weights and data from seed 0, AdamW at lr 5e-4; TF32 is off,
@@ -60,7 +63,7 @@ def card_name() -> str:
 
 def model_overrides(model: str, dtype: str, attn_impl: str | None = None,
                     remat: bool = False, drop: float | None = None, no_prune: bool = False,
-                    stream_dtype: str | None = None) -> dict:
+                    stream_dtype: str | None = None, hybrid_scores_bf16: bool = False) -> dict:
     """The constructor overrides of the flags (``bench_train_step.py:44-66``)."""
     if dtype not in ("f32", "bf16"):
         raise SystemExit(f"bench.step: dtype must be f32 or bf16, not {dtype!r}")
@@ -78,8 +81,10 @@ def model_overrides(model: str, dtype: str, attn_impl: str | None = None,
         overrides["prune_attn"] = False
     if stream_dtype:
         overrides["stream_dtype"] = stream_dtype
+    if hybrid_scores_bf16:
+        overrides["hybrid_scores_dtype"] = "bfloat16"
     if model not in WINDOWED:
-        for key in ("remat", "prune_attn", "stream_dtype"):
+        for key in ("remat", "prune_attn", "stream_dtype", "hybrid_scores_dtype"):
             overrides.pop(key, None)
     return overrides
 
@@ -101,7 +106,7 @@ def measure(model: str = "HWGATE", dtype: str = "bf16", batch: int = 16, step: s
     if step not in STEPS:
         raise SystemExit(f"bench.step: --step must be train or eval, not {step!r}")
     bench_flags = {k: flags.pop(k) for k in ("attn_impl", "remat", "drop", "no_prune",
-                                            "stream_dtype") if k in flags}
+                                            "stream_dtype", "hybrid_scores_bf16") if k in flags}
     overrides = {**model_overrides(model, dtype, **bench_flags), **flags}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -163,12 +168,14 @@ def main(argv=None) -> int:
     ap.add_argument("--drop", type=float, default=None)
     ap.add_argument("--no-prune", action="store_true")
     ap.add_argument("--stream-dtype", default=None, choices=("float32", "bfloat16"))
+    ap.add_argument("--hybrid-scores-bf16", action="store_true")
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     line = measure(args.model, args.dtype, args.batch, args.step, args.repeats, args.device,
                    attn_impl=args.attn_impl, remat=args.remat, drop=args.drop,
-                   no_prune=args.no_prune, stream_dtype=args.stream_dtype)
+                   no_prune=args.no_prune, stream_dtype=args.stream_dtype,
+                   hybrid_scores_bf16=args.hybrid_scores_bf16)
     print(json.dumps(line), flush=True)
     return 0
 

@@ -16,11 +16,15 @@ and ignored (the port draws its dropout masks and prune scalars from a
 ``torch.Generator`` seeded per step); ``--ckpt-backend orbax`` writes the
 sharded checkpoint directories of ``train/checkpoint.py`` (the flag keeps
 the JAX package's name), which resume, transfer and test read back.
+``PALLAS_HYBRID_S_BF16=1`` in the environment stores the hybrid path's
+scores in bf16 (HWGATE and HGATE under ``--attn-impl hybrid`` and bf16
+attention), as it does for ``main.py``.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 
@@ -207,6 +211,11 @@ def main(argv=None):
         cfg.overrides = dict(cfg.overrides, attn_impl=args.attn_impl)
     if args.remat and cfg.model_type in ("HWGATE", "HGATE"):
         cfg.overrides = dict(cfg.overrides, remat=True)
+    # the variable the JAX hybrid op reads at trace time
+    # (`sl_hwgat_tpu/ops/hybrid_attention.py:172-179`), read once here: bf16
+    # scores on the hybrid path under bf16 attention
+    if os.environ.get("PALLAS_HYBRID_S_BF16") == "1" and cfg.model_type in ("HWGATE", "HGATE"):
+        cfg.overrides = dict(cfg.overrides, hybrid_scores_dtype="bfloat16")
     print(cfg.dataset)
     print("Model Name:-", cfg.save_model_path)
     print("Running Mode:-", cfg.mode)

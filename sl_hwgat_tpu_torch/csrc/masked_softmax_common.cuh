@@ -8,9 +8,10 @@
 // window-attention kernels (window_attention_common.cuh, whose type helpers
 // and mask-plane choice this header uses).
 //
-// Layout: per-unit scores (U, n, n), f32, n <= 64. A row is held by a group
-// of kLanes lanes of a warp (8 for n <= 32, 16 for n <= 64), four columns a
-// lane, so a warp takes 32 / kLanes rows at once. Which four, by n alone
+// Layout: per-unit scores (U, n, n), f32 or bf16 (upcast to f32 on load),
+// n <= 64. A row is held by a group of kLanes lanes of a warp (8 for n <= 32,
+// 16 for n <= 64), four columns a lane, so a warp takes 32 / kLanes rows at
+// once. Which four, by n alone
 // (so both kernels agree whatever their pointers): for n a multiple of 4,
 // lane l of the group holds 4l .. 4l + 3 (16 contiguous bytes of f32, one
 // load); for other even n (HGATE's 58), the pairs 2l, 2l + 1

@@ -4,7 +4,9 @@
 // masking of pallas_attention.py::_masked_attn_matrix) in the hybrid window
 // attention: two batched GEMMs (torch.bmm) around this pass.
 //
-// Per row of the f32 scores S (U, n, n), n <= 64 (HWGATE 32, HGATE 58):
+// Per row of the scores S (U, n, n) in TS (f32, or bf16 under the JAX
+// package's PALLAS_HYBRID_S_BF16 path), n <= 64 (HWGATE 32, HGATE 58), each
+// score upcast to f32 on load:
 //   prune (optional):  P0 = softmax_j(S); S[P0 > u] = 0, u read from device
 //                      memory (no host sync)
 //   S[!adj | (zero_quirk & S == 0)] = -1e4
@@ -18,9 +20,10 @@
 // per-unit (U, n, n) scores give the same P and skip the stacking's wasted
 // entries (3/4 of HWGATE's tile, 1/2 plus the padding of HGATE's).
 //
-// Bound on an H100 SXM: bytes. A call reads S (4 bytes) and writes P (4 or
-// 2 bytes) once per entry: 100.7 / 75.5 MB at HWGATE's 12288 x 32 x 32,
-// 30 / 23 us at 3.35 TB/s. The design before this one (a warp per row, one
+// Bound on an H100 SXM: bytes. A call reads S (4 or 2 bytes) and writes P
+// (4 or 2 bytes) once per entry: 100.7 / 75.5 / 50.3 MB at HWGATE's 12288 x
+// 32 x 32 (f32 S and P / f32 S, bf16 P / bf16 S and P), 30 / 23 / 15 us at
+// 3.35 TB/s. The design before this one (a warp per row, one
 // column a lane) ran the row's reductions, exps and divisions with 32 lanes
 // for 32 (or 58) entries and issued about as many instructions as the bytes
 // allowed time for (0.082 ms at HWGATE's shape, 0.056 at HGATE's, on an
@@ -41,9 +44,9 @@ namespace {
 
 using namespace msoft;
 
-template <typename TP, int kLanes, int kMap>
+template <typename TS, typename TP, int kLanes, int kMap>
 __global__ void __launch_bounds__(kThreads)
-masked_softmax_fwd_kernel(const float* __restrict__ s, TP* __restrict__ p,
+masked_softmax_fwd_kernel(const TS* __restrict__ s, TP* __restrict__ p,
                           const unsigned long long* __restrict__ masks,
                           const int* __restrict__ sel, const float* __restrict__ prune_u,
                           long long units, int n, int zero_quirk, int dual, int stack,
@@ -64,56 +67,63 @@ masked_softmax_fwd_kernel(const float* __restrict__ s, TP* __restrict__ p,
 }
 
 struct Args {
-  const float* s; void* p; const unsigned long long* masks; const int* sel;
+  const void* s; void* p; const unsigned long long* masks; const int* sel;
   const float* prune_u; long long units; int n; int zero_quirk; int dual; int stack;
   int per_group; int groups; long long unit_offset; cudaStream_t stream;
 };
 
-template <typename TP, int kLanes, int kMap>
+template <typename TS, typename TP, int kLanes, int kMap>
 cudaError_t launch(const Args& a) {
   const int upb = units_per_block(a.n);
   const long long blocks = (a.units + upb - 1) / upb;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const int vec = reinterpret_cast<uintptr_t>(a.s) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(a.p) % 16 == 0;
-  masked_softmax_fwd_kernel<TP, kLanes, kMap><<<static_cast<unsigned>(blocks), kThreads, 0,
-                                                a.stream>>>(
-      a.s, static_cast<TP*>(a.p), a.masks, a.sel, a.prune_u, a.units, a.n, a.zero_quirk, a.dual,
+  masked_softmax_fwd_kernel<TS, TP, kLanes, kMap><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                                    a.stream>>>(
+      static_cast<const TS*>(a.s), static_cast<TP*>(a.p), a.masks, a.sel, a.prune_u, a.units, a.n, a.zero_quirk, a.dual,
       a.stack, a.per_group, a.groups, a.unit_offset, vec);
   return cudaGetLastError();
 }
 
-template <typename TP, int kLanes>
+template <typename TS, typename TP, int kLanes>
 cudaError_t launch_map(const Args& a) {
   const int map = column_map(a.n);
-  return map == kQuads ? launch<TP, kLanes, kQuads>(a)
-         : map == kPairs ? launch<TP, kLanes, kPairs>(a)
-                         : launch<TP, kLanes, kSingles>(a);
+  return map == kQuads ? launch<TS, TP, kLanes, kQuads>(a)
+         : map == kPairs ? launch<TS, TP, kLanes, kPairs>(a)
+                         : launch<TS, TP, kLanes, kSingles>(a);
 }
 
-template <typename TP>
+template <typename TS, typename TP>
 cudaError_t launch_lanes(const Args& a) {
-  return a.n <= 32 ? launch_map<TP, 8>(a) : launch_map<TP, 16>(a);
+  return a.n <= 32 ? launch_map<TS, TP, 8>(a) : launch_map<TS, TP, 16>(a);
+}
+
+template <typename TS>
+cudaError_t launch_types(const Args& a, int p_dtype) {
+  if (p_dtype == 0) return launch_lanes<TS, float>(a);
+  if (p_dtype == 1) return launch_lanes<TS, __nv_bfloat16>(a);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// s: (units, n, n) f32 scores; p: the same shape in p_dtype (0 = float32,
-// 1 = bfloat16); masks: (2, n) 64-bit row masks. Returns a cudaError_t
-// (0 = launched).
+// s: (units, n, n) scores in s_dtype; p: the same shape in p_dtype (each
+// 0 = float32, 1 = bfloat16); masks: (2, n) 64-bit row masks. Returns a
+// cudaError_t (0 = launched).
 extern "C" int masked_softmax_fwd(const void* s, void* p, const void* masks, const void* sel,
-                                  const void* prune_u, long long units, int n, int p_dtype,
-                                  int zero_quirk, int dual, int stack, int per_group, int groups,
-                                  long long unit_offset, void* stream) {
+                                  const void* prune_u, long long units, int n, int s_dtype,
+                                  int p_dtype, int zero_quirk, int dual, int stack, int per_group,
+                                  int groups, long long unit_offset, void* stream) {
   if (units <= 0 || n < 1 || n > 64 || stack <= 0 ||
       (dual && sel == nullptr && (per_group <= 0 || groups <= 0)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{static_cast<const float*>(s), p, static_cast<const unsigned long long*>(masks),
+  const Args a{s, p, static_cast<const unsigned long long*>(masks),
                static_cast<const int*>(sel), static_cast<const float*>(prune_u), units, n,
                zero_quirk, dual, stack, per_group, groups, unit_offset,
                static_cast<cudaStream_t>(stream)};
-  if (p_dtype == 0) return static_cast<int>(launch_lanes<float>(a));
-  if (p_dtype == 1) return static_cast<int>(launch_lanes<__nv_bfloat16>(a));
+  if (s_dtype == 0) return static_cast<int>(launch_types<float>(a, p_dtype));
+  if (s_dtype == 1) return static_cast<int>(launch_types<__nv_bfloat16>(a, p_dtype));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -72,7 +72,7 @@ class GraphAttentionBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, num_kps: int, temporal_patch: int,
                  shift_size: int, adj: np.ndarray, *, drop: float = 0.0, ff_ratio: float = 2.0,
                  attn_impl: str = "auto", attn_dtype: str = "float32",
-                 compute_dtype: torch.dtype = torch.float32,
+                 compute_dtype: torch.dtype = torch.float32, hybrid_scores_dtype: str = "float32",
                  generator: torch.Generator | None = None):
         super().__init__()
         self.temporal_patch = temporal_patch
@@ -83,7 +83,8 @@ class GraphAttentionBlock(nn.Module):
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.attn = WindowedMSA(dim, num_heads, adj, tail_adj=tail_adj, proj_drop=drop,
                                 prune=False, attn_impl=attn_impl, attn_dtype=attn_dtype,
-                                compute_dtype=compute_dtype, generator=generator)
+                                compute_dtype=compute_dtype,
+                                hybrid_scores_dtype=hybrid_scores_dtype, generator=generator)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.ff = FeedForward(dim, int(dim * ff_ratio), drop, compute_dtype, generator)
 
@@ -113,8 +114,10 @@ class HGATE(WindowedHierarchy):
     (`model_params.py:405-420`). ``compute_dtype``: 'float32' or 'bfloat16'
     (projections, attention and FFN); ``attn_dtype``: 'bfloat16' for bf16
     attention under f32 projections; ``remat``: recompute each block in the
-    backward pass. In train mode, dropout masks come from the generator
-    passed to ``forward``."""
+    backward pass; ``hybrid_scores_dtype``: 'bfloat16' stores the hybrid
+    path's scores in bf16 under bf16 attention (``PALLAS_HYBRID_S_BF16=1``
+    in the JAX package). In train mode, dropout masks come from the
+    generator passed to ``forward``."""
 
     def __init__(self, kp_dim: int = 2, num_kps: int = 29, temporal_dim: int = 192,
                  num_classes: int = 2002, embed_dim: int = 128, pe: bool = True,
@@ -122,7 +125,8 @@ class HGATE(WindowedHierarchy):
                  depths: Sequence[int] = (2, 2, 4), num_heads: Sequence[int] = (2, 4, 8),
                  drop_rate: float = 0.1, ff_ratio: float = 2.0, attn_impl: str = "auto",
                  attn_dtype: str = "float32", compute_dtype: str = "float32",
-                 remat: bool = False, generator: torch.Generator | None = None):
+                 remat: bool = False, hybrid_scores_dtype: str = "float32",
+                 generator: torch.Generator | None = None):
         super().__init__()
         cdt = DTYPES[compute_dtype]
         self.remat = remat
@@ -140,7 +144,8 @@ class HGATE(WindowedHierarchy):
                     dim, num_heads[i], num_kps, temporal_patch,
                     0 if j % 2 == 0 else temporal_patch // 2, adj,
                     drop=drop_rate, ff_ratio=ff_ratio, attn_impl=attn_impl,
-                    attn_dtype=attn_dtype, compute_dtype=cdt, generator=generator)
+                    attn_dtype=attn_dtype, compute_dtype=cdt,
+                    hybrid_scores_dtype=hybrid_scores_dtype, generator=generator)
                 for j in range(depth)]))
         last = int(embed_dim * 2 ** (len(depths) - 1))
         self.norm = nn.LayerNorm(last, eps=LN_EPS)

@@ -12,7 +12,9 @@ PyTorch counterpart of ``sl_hwgat_tpu/models/hwgate.py`` on the token-major
   (the fused CUDA kernels on a card), "hybrid" runs
   ``hybrid_window_attention`` (batched GEMMs around the masked-softmax
   kernels), whose f32 output is cast to the compute dtype before ``proj`` as
-  the JAX model does;
+  the JAX model does; ``hybrid_scores_dtype="bfloat16"`` stores that path's
+  scores in bf16 when the attention runs in bf16 (the JAX package's
+  ``PALLAS_HYBRID_S_BF16=1``);
 - ``attn_dtype="bfloat16"`` (implied by bf16 compute) casts q, k and v to
   bf16 for the attention, which then stores bf16; the output is cast to the
   compute dtype before ``proj``;
@@ -89,6 +91,12 @@ def check_attn_impl(attn_impl: str) -> str:
     return attn_impl
 
 
+def check_scores_dtype(name: str) -> str:
+    if name not in DTYPES:
+        raise ValueError(f"hybrid_scores_dtype={name!r}: one of {tuple(DTYPES)}")
+    return name
+
+
 def _supertile_stack(tokens: int) -> tuple[int, int | None]:
     """(stack, pad_tokens) so that stack·pad ≈ 128 rows (the JAX kernel's
     supertile; the CUDA kernel works per unit, the plain version stacks)."""
@@ -148,6 +156,7 @@ class WindowedMSA(nn.Module):
                  tail_adj: np.ndarray | None = None, proj_drop: float = 0.0,
                  prune: bool = True, attn_impl: str = "auto",
                  attn_dtype: str = "float32", compute_dtype: torch.dtype = torch.float32,
+                 hybrid_scores_dtype: str = "float32",
                  generator: torch.Generator | None = None):
         super().__init__()
         self.num_heads = num_heads
@@ -158,6 +167,8 @@ class WindowedMSA(nn.Module):
         # the attention's input and store type (`models/hwgate.py:125`)
         bf16 = DTYPES[attn_dtype] == torch.bfloat16 or compute_dtype == torch.bfloat16
         self.attn_dtype = torch.bfloat16 if bf16 else torch.float32
+        # the hybrid path's score type (bf16 only under bf16 attention)
+        self.scores_dtype = DTYPES[check_scores_dtype(hybrid_scores_dtype)]
         # One fused (d, 3d) projection with output rows [q | k | v], as the
         # reference stores it.
         self.qkv = Dense(dim, 3 * dim, compute_dtype, generator)
@@ -197,7 +208,8 @@ class WindowedMSA(nn.Module):
                            groups=temporal_groups, sel=sel)
         kw = dict(scale=dh**-0.5, stack=stack, pad_tokens=pad, prune_u=prune_u, **tail_kw)
         if self.attn_impl == "hybrid":
-            out = hybrid_window_attention(q, k, v, self.adj, **kw)
+            out = hybrid_window_attention(q, k, v, self.adj, scores_dtype=self.scores_dtype,
+                                          **kw)
         else:
             out = window_attention(q, k, v, self.adj, out_dtype=adt, **kw)
         out = out.to(cdt).reshape(g, h, n, dh).permute(0, 2, 1, 3).reshape(g, n, h * dh)
@@ -239,7 +251,7 @@ class PartAttentionBlock(nn.Module):
                  shift_size: int, adj: np.ndarray, *, drop: float = 0.0,
                  ff_ratio: float = 2.0, prune: bool = True, attn_impl: str = "auto",
                  attn_dtype: str = "float32", compute_dtype: torch.dtype = torch.float32,
-                 stream_dtype: torch.dtype = torch.float32,
+                 stream_dtype: torch.dtype = torch.float32, hybrid_scores_dtype: str = "float32",
                  generator: torch.Generator | None = None):
         super().__init__()
         self.window_size = window_size
@@ -252,7 +264,8 @@ class PartAttentionBlock(nn.Module):
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.attn = WindowedMSA(dim, num_heads, adj, tail_adj=tail_adj, proj_drop=drop,
                                 prune=prune, attn_impl=attn_impl, attn_dtype=attn_dtype,
-                                compute_dtype=compute_dtype, generator=generator)
+                                compute_dtype=compute_dtype,
+                                hybrid_scores_dtype=hybrid_scores_dtype, generator=generator)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.ff = FeedForward(dim, int(dim * ff_ratio), drop, compute_dtype, generator)
 
@@ -294,7 +307,9 @@ class HWGATE(WindowedHierarchy):
     ("auto", "pallas", "stacked" or "hybrid"); ``remat``: recompute each
     block in the backward pass; ``pe=False`` leaves out the positional
     encoding (and its dropout). All are the JAX model's options of the same
-    names.
+    names. ``hybrid_scores_dtype``: 'bfloat16' stores the hybrid path's
+    scores in bf16 under bf16 attention, what the JAX package's
+    ``PALLAS_HYBRID_S_BF16=1`` does; no effect on the fused path.
     """
 
     def __init__(self, kp_dim: int = 2, temporal_dim: int = 192,
@@ -305,6 +320,7 @@ class HWGATE(WindowedHierarchy):
                  prune_attn: bool = True, attn_impl: str = "auto",
                  attn_dtype: str = "float32", compute_dtype: str = "float32",
                  stream_dtype: str = "auto", remat: bool = False,
+                 hybrid_scores_dtype: str = "float32",
                  generator: torch.Generator | None = None):
         super().__init__()
         cdt = DTYPES[compute_dtype]
@@ -327,7 +343,8 @@ class HWGATE(WindowedHierarchy):
                     0 if j % 2 == 0 else temporal_patch // 2, adj,
                     drop=drop_rate, ff_ratio=ff_ratio, prune=prune_attn,
                     attn_impl=attn_impl, attn_dtype=attn_dtype, compute_dtype=cdt,
-                    stream_dtype=self.stream_dtype, generator=generator)
+                    stream_dtype=self.stream_dtype, hybrid_scores_dtype=hybrid_scores_dtype,
+                    generator=generator)
                 for j in range(depth)]))
         last = int(embed_dim * 2 ** (len(depths) - 1))
         self.norm = nn.LayerNorm(last, eps=LN_EPS)

@@ -152,14 +152,15 @@ def unit_allowed(adj, tail_adj, sel, units: int, stack: int, device) -> torch.Te
 def unit_masked_softmax(s, adj, *, stack: int = 4, zero_quirk: bool = True, prune_u=None,
                         tail_adj=None, sel=None,
                         p_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """P = softmax of the masked (U, N, N) f32 scores ``s``, one N-token unit
-    each, stored as ``p_dtype``: the per-unit form of the JAX package's
-    ``_masked_softmax`` (`sl_hwgat_tpu/ops/hybrid_attention.py:46-58`), whose
-    (T, S·Np, S·Np) supertiles hold these blocks on their diagonal and exact
-    zeros elsewhere. ``sel``: (U/stack,) ints, 1 where a supertile of
-    ``stack`` units attends under ``tail_adj``."""
+    """P = softmax of the masked (U, N, N) scores ``s`` (f32, or bf16
+    upcast to f32 first), one N-token unit each, stored as ``p_dtype``: the
+    per-unit form of the JAX package's ``_masked_softmax``
+    (`sl_hwgat_tpu/ops/hybrid_attention.py:46-58`), whose (T, S·Np, S·Np)
+    supertiles hold these blocks on their diagonal and exact zeros
+    elsewhere. ``sel``: (U/stack,) ints, 1 where a supertile of ``stack``
+    units attends under ``tail_adj``."""
     allowed = unit_allowed(adj, tail_adj, sel, s.shape[0], stack, s.device)
-    sm = masked_scores(s, allowed, zero_quirk=zero_quirk, prune_u=prune_u)
+    sm = masked_scores(s.float(), allowed, zero_quirk=zero_quirk, prune_u=prune_u)
     return _softmax(sm).to(p_dtype)
 
 
@@ -169,13 +170,15 @@ def unit_masked_softmax_bwd(s, dp, adj, *, stack: int = 4, zero_quirk: bool = Tr
     as `sl_hwgat_tpu/ops/hybrid_attention.py:61-75` computes it: A is
     recomputed in f32, dS = A∘(dP − rowsum(dP∘A)), kept only where the
     masked score still equals the raw one (the prune mask is not
-    differentiated). f32, like the scores."""
+    differentiated). Computed in f32 (bf16 scores upcast first, and
+    compared upcast), returned in the scores' type."""
     allowed = unit_allowed(adj, tail_adj, sel, s.shape[0], stack, s.device)
-    sm = masked_scores(s, allowed, zero_quirk=zero_quirk, prune_u=prune_u)
+    raw = s.float()
+    sm = masked_scores(raw, allowed, zero_quirk=zero_quirk, prune_u=prune_u)
     a = _softmax(sm)
     dpf = dp.float()
     ds = a * (dpf - (dpf * a).sum(dim=-1, keepdim=True))
-    return ds * (sm == s)
+    return (ds * (sm == raw)).to(s.dtype)
 
 
 def stacked_window_attention(q, k, v, adj, *, scale: float, stack: int = 4,

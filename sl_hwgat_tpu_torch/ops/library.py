@@ -102,7 +102,7 @@ def window_attention(q, k, v, adj, *, scale, stack, pad_tokens, zero_quirk, prun
 def masked_softmax_op(s: torch.Tensor, masks: torch.Tensor, sel: Optional[torch.Tensor],
                       prune_u: Optional[torch.Tensor], zero_quirk: bool, mode: list[int],
                       p_dtype: torch.dtype) -> torch.Tensor:
-    """K7's forward on (U, N, N) f32 scores. CPU: the plain version."""
+    """K7's forward on (U, N, N) f32 or bf16 scores. CPU: the plain version."""
     adj, kw = _plain_mask_kw(masks, s.shape[1], mode)
     return hybrid_mod.plain_masked_softmax(s, adj, zero_quirk=zero_quirk, prune_u=prune_u,
                                            sel=sel, p_dtype=p_dtype, **kw)
