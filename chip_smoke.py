@@ -370,7 +370,8 @@ def wide_ptxas(report: dict) -> dict:
 # backward, then K2 at 32 tokens and K8's forward, then K1 at 32 tokens and
 # the tile products, then the fused probes (the layout kernel) and
 # softmax_only (softmax_probe), then the gradient entries (the backward
-# layout kernel) and relayout's transpose; their sources and what the
+# layout kernel) and relayout's transpose, then K7's forward again with its
+# backward (spans staged by bulk copies); their sources and what the
 # kernels line says of their design. The build phase fails if any of their
 # instantiations spills.
 REDESIGNED = {
@@ -396,14 +397,31 @@ REDESIGNED = {
         "a depth step), S chunks transposed through shared memory, O in 8 x C/16 register "
         "tiles; every sum over its index ascending from 0"),
     "masked_softmax_fwd": (
-        "a row per 8 lanes (16 for n > 32), four columns a lane by a map n alone fixes "
-        "(4l..4l+3 for n % 4 == 0; pairs 2l, 2l+1 and 2l+2L, 2l+2L+1 for other even n, "
-        "HGATE's 58-float rows being only 8-byte aligned; l + Lc for odd n), so a warp works "
-        "4 (2) rows at once and a lane moves 16 (8) bytes an access; reductions over the "
-        "lane's columns, then 3 (4) xor-shuffle steps; P = exp times one reciprocal of the "
-        "sum; a block of 8 warps takes 128/n whole units and looks up each unit's mask plane "
-        "once. The row routine (masked_softmax_common.cuh) is K7's backward's too, which "
-        "recomputes A through it"),
+        "every score and P type: a grid of the resident blocks, each walking spans of rows "
+        "(whole passes of its 8 warps, about 24 KB of scores and P: 192 rows at 32 tokens, "
+        "96 at 58, with bf16 S and P) "
+        "through two input stages in shared memory, each span's scores brought by one 1-D "
+        "bulk copy (cp.async.bulk, issued by one thread, completion on an mbarrier), the "
+        "next span's in flight under this one's rows, which write P into one of two output "
+        "stages stored back by one bulk copy (whole 32-byte sectors); the threads store the "
+        "entries of a span's first and last 16-byte chunk where another span shares it "
+        "(33-token units, a tensor off a 16-byte boundary), loads take the chunks whole; "
+        "the row masks staged in shared memory; HWGATE's 32 and HGATE's 58 tokens compiled "
+        "as constants, the rows of whole aligned spans without a guard on each row. Rows: a "
+        "row per 8 lanes (16 for n > 32), four columns a lane by a map n alone fixes (quads for n % 4 == 0, pairs for "
+        "HGATE's 58, l + Lc for odd n), reductions over the lane's columns then 3 (4) xor "
+        "shuffles, P = exp times one reciprocal of the sum, through the row routine "
+        "(masked_softmax_common.cuh) K7's backward recomputes A with, so P is the earlier "
+        "design's bit for bit"),
+    "masked_softmax_bwd": (
+        "the forward's design (masked_softmax_common.cuh) but for f32 scores with f32 dP: "
+        "staged_spans, a span of S and of dP (about 24 KB with dS: 128 rows at 32 tokens, 64 "
+        "at 58, with bf16 S and dP) "
+        "brought by two bulk copies on one mbarrier, dS = A o (dP - rowsum(dP o A)) o pass "
+        "in f32 with A from the shared row routine, into an output stage stored back by one "
+        "bulk copy; f32 scores with f32 dP the direct design (a block of 128/n units, each "
+        "lane's columns read and written in device memory); dS bit for bit the earlier "
+        "design's"),
     "banded_attention_bwd": (
         "a block of ceil((128/V + 2)·V / 32) warps owns 128/V frames of a plane: q, dO of its "
         "frames ±1 and k, v of its frames ±2 staged in q's type by cp.async, 16-byte chunks "
@@ -498,7 +516,9 @@ TILE_BLOCKS = {"matmul_only": (128, 64, 64, 0), "sn256": (256, 64, 64, 0),
 
 def redesigned_blocks() -> dict:
     """{source: {case: ...}}: one block of each REDESIGNED kernel at the main
-    paths' shapes, as its launcher sizes it: K7's units and threads, K8's
+    paths' shapes, as its launcher sizes it: K7's rows a span (f32 scores:
+    a block) and dynamic shared memory by score and P (dP) type (256
+    threads a block), K8's
     dynamic shared memory and threads (under each model's band and the
     non-diagonal one), K1's and K2's at 32 tokens by head dim and type, the
     tile products' by case and input type, the layout kernel's by type and
@@ -518,7 +538,8 @@ def redesigned_blocks() -> dict:
             raise AssertionError(f"{fn.__name__}{args}: refused")
         return dict(zip(names, (first.value, second.value)))
 
-    softmax = _build.load("masked_softmax_fwd").masked_softmax_fwd_block
+    softmax = {src: getattr(_build.load(src), f"{src}_block")
+               for src in ("masked_softmax_fwd", "masked_softmax_bwd")}
     window = _build.load("window_attention_bwd").window_attention_bwd_block
     window_fwd = _build.load("window_attention_fwd").window_attention_fwd_block
     tiles = _build.load("tile_matmul").tile_matmul_block
@@ -526,9 +547,13 @@ def redesigned_blocks() -> dict:
     softmax_probe = _build.load("softmax_probe").softmax_probe_block
     layout_bwd = _build.load("window_attention_layout_bwd").window_attention_layout_bwd_block
     relayout = _build.load("relayout").relayout_block
-    out = {"masked_softmax_fwd": {
-               m: block(softmax, ("units", "threads"), n)
-               for m, (_, n, _) in WINDOW_SHAPE.items()},
+    out = {src: {f"{m}/s_{sn}/{'p' if src.endswith('fwd') else 'dp'}_{on}":
+                 block(fn, ("span_rows", "dynamic_smem_bytes"), n, sc, oc)
+                 for m, (_, n, _) in WINDOW_SHAPE.items()
+                 for sc, sn in enumerate(("float32", "bfloat16"))
+                 for oc, on in enumerate(("float32", "bfloat16"))}
+           for src, fn in softmax.items()}
+    out.update({
            "window_attention_bwd": {
                f"dh{dh}/{name}": block(window, ("dynamic_smem_bytes", "threads"), dh, code)
                for dh in (32, 64) for code, name in enumerate(("float32", "bfloat16"))},
@@ -551,7 +576,7 @@ def redesigned_blocks() -> dict:
                                              0b1111111)
                for code, name in enumerate(("float32", "bfloat16"))},
            "relayout": {f"{width}-byte": block(relayout, ("threads", "warp_tile_elements"), width)
-                        for width in (2, 4)}}
+                        for width in (2, 4)}})
     for src in ("banded_attention_fwd", "banded_attention_bwd"):
         fn = getattr(_build.load(src), f"{src}_block")
         out[src] = {}
@@ -2200,7 +2225,10 @@ def phase_masked_softmax_bf16_scores():
 # frame count that is not a multiple of the frames per block, and GATE's 29
 # joints in one-frame clips; K7 at a ragged unit count (stack 1) under the
 # dual mask through a seeded `sel`, with pruning, at HGATE's 58 tokens and
-# at 33 (odd: rows and units not 16-byte aligned); K1 and K2 at 32-token
+# at 33 (odd: rows and units not 16-byte aligned), on f32 and on bf16 scores
+# (bf16 ones also one entry off a 16-byte boundary: every span of the
+# staged kernels then has a head, the 33-token ones a tail too, and the
+# ragged last span at 37 units); K1 and K2 at 32-token
 # units with head dim 32, which no model's main path takes.
 EDGE_BANDED = {"full_band": (64, 37, 32), "one_frame": (128, 1, 29)}  # planes, frames, joints
 EDGE_UNITS, EDGE_TOKENS = 37, (58, 33)
@@ -2271,10 +2299,16 @@ def phase_edge_cases():
         dp = torch.randn(EDGE_UNITS, n, n, generator=g, device="cuda") * 0.2
         kw = dict(stack=1, tail_adj=tail, units_per_group=1, groups=2, sel=sel,
                   prune_u=torch.full((1,), 0.3, device="cuda"))
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype, scores in ((torch.float32, "f32"), (torch.bfloat16, "f32"),
+                              (torch.bfloat16, "bf16"), (torch.bfloat16, "bf16_offset")):
             name = dtype_name(dtype)
-            case = f"{EDGE_UNITS}x{n}/{name}"
+            case = f"{EDGE_UNITS}x{n}/{name}" + ("" if scores == "f32" else f"/{scores}_scores")
             s = scores_of(q.to(dtype), k.to(dtype), HEAD_DIM**-0.5)
+            if scores != "f32":
+                s = s.to(dtype)
+            if scores == "bf16_offset":  # one entry off a 16-byte boundary
+                s = torch.empty(s.numel() + 1, dtype=dtype, device="cuda")[1:].view(
+                    s.shape).copy_(s)
             got = masked_softmax(s, adj, p_dtype=dtype, **kw)
             want = plain_masked_softmax(s, adj, p_dtype=dtype, **kw)
             torch.cuda.synchronize()
@@ -2286,11 +2320,12 @@ def phase_edge_cases():
             want = plain_masked_softmax_bwd(s, dp.to(dtype), adj, **kw)
             torch.cuda.synchronize()
             tol = BWD_TOL[name]
-            diff = (got - want).abs()
+            diff = (got.float() - want.float()).abs()
             errors["softmax_bwd"][case] = diff.max().item()
-            if not (diff - tol["atol"] - tol["rtol"] * want.abs()).max().item() <= 0:
+            if got.dtype != s.dtype or not (diff - tol["atol"] - tol["rtol"] * want.float().abs()
+                                            ).max().item() <= 0:
                 raise AssertionError(f"masked softmax backward vs plain {case}: max abs err "
-                                     f"{errors['softmax_bwd'][case]} over {tol}")
+                                     f"{errors['softmax_bwd'][case]} over {tol} ({got.dtype})")
     adj, tail = masks()
     g = torch.Generator(device="cuda").manual_seed(SEED + 8)
     base = [torch.randn(*EDGE_WINDOW, generator=g, device="cuda") for _ in range(4)]
@@ -2317,7 +2352,8 @@ def phase_edge_cases():
                 plain_window_attention_bwd(q, k, v, do, adj, **kw), dtype)
     emit("edge_cases", banded={k: [*v, BANDED_DH] for k, v in EDGE_BANDED.items()},
          masked_softmax={"units": EDGE_UNITS, "tokens": list(EDGE_TOKENS), "stack": 1,
-                         "dual_mask": "sel", "prune_u": 0.3},
+                         "dual_mask": "sel", "prune_u": 0.3,
+                         "scores": ["f32", "bf16", "bf16 one entry off 16 bytes"]},
          window_attention={"shape": list(EDGE_WINDOW), "stack": 4, "prune_u": 0.3},
          tolerance={"fwd": TOL, "bwd": BWD_TOL}, max_abs_err=errors,
          banded_bwd_repeats_bit_for_bit=True)
@@ -5265,6 +5301,9 @@ def main() -> int:
     sbwd["bf16_scores_replaces"] = ("sl_hwgat_tpu/ops/hybrid_attention.py:61 under "
                                     ":172-179, dS in bf16 (:144)")
     sbwd["bf16_scores_launches"] = bf16_scores_launches["masked_softmax_bwd"]
+    sbwd.update(design=REDESIGNED[hybrid_attention.KERNEL_BWD],
+                ptxas=redesigned.get(hybrid_attention.KERNEL_BWD),
+                block=blocks[hybrid_attention.KERNEL_BWD])
     stream, relay, mm = probes.KERNELS
     new = [probe_entry(stream, STREAM_REPLACES, bench_launches[stream],
                        probe_timings[stream], "copy_bf16", probe_errors[stream]),

@@ -36,15 +36,47 @@ The variants follow the source's design, told by a line only that design
 holds (``BANDED_DESIGNS``), so the same command ablates the kernel of an
 older checkout.
 
-``softmax``: K7's forward (``csrc/masked_softmax_fwd.cu``) at HWGATE's
-(12288 × 32 × 32) and HGATE's (3072 × 58 × 58) scores, single mask, no
-pruning: f32 scores with P in f32 and bf16, and bf16 scores with bf16 P
-(the parent's build only where it takes bf16 scores), beside
-``torch.softmax`` over the same masked scores in their type (timed only):
+``softmax``: K7's forward and backward (``csrc/masked_softmax_{fwd,bwd}.cu``)
+at HWGATE's (12288 × 32 × 32) and HGATE's (3072 × 58 × 58) scores, single
+mask, no pruning, scores f32 and bf16 each with P (forward) or dP
+(backward) f32 and bf16 (the parent's build only where it takes bf16
+scores), beside ``torch.softmax`` over the same masked scores in their
+type and its backward (``torch.autograd.grad`` of its output, dP in the
+scores' type; timed only). The variants follow the source's design
+(``SOFTMAX_DESIGNS``); of the staged design (``staged``: each block's spans
+of rows staged in shared memory by bulk copies, the output span stored
+back by one; the backward on f32 scores and dP keeps the direct kernel,
+each lane reading and writing its rows in device memory):
 
-- ``full``: the kernel as it is;
-- ``no_softmax``: P is the raw scores (the loads, mask lookups and stores
-  alone).
+- ``full``: the kernels as they are;
+- ``no_softmax``: P is the raw scores, dS the row sum's terms (the loads,
+  mask lookups, the backward's row sum and the stores alone);
+- ``guarded``: every span through the row loop with a guard on each row
+  (otherwise only spans of a partial pass, or of unaligned rows);
+- ``no_kN``: every n as an argument (no instantiations for HWGATE's 32
+  and HGATE's 58 tokens);
+- ``staged_f32_bwd``: the backward on f32 scores and dP staged too;
+- ``stages_3``: three input stages instead of two;
+- ``bounds_1``: the instantiations of 16 lanes a row (n > 32) free of the
+  registers of 4 blocks an SM (ptxas then spills some);
+- ``no_rows``: the staging alone (no row is computed);
+- ``no_copies``: the rows alone (no bulk copy in or out);
+- ``stage_16k``, ``stage_32k``: stages of about 16 or 32 KB of input and
+  output instead of 24.
+
+With ``--parent``, ``no_kN`` and ``staged_f32_bwd`` (whose outputs are the
+kernels' own) are timed in turns with the parent and ``full`` and held bit
+for bit against the parent's. The parent's sources may be of the direct
+design (an earlier K7: each lane reads and writes its rows in device
+memory), told by its forward's row loop, with ``full`` only.
+
+The JSON line also gives ptxas's registers and spills of every build and
+the blocks of 256 threads an SM holds by those registers. With
+``--parent``, ``bit_equal_cases`` holds this checkout's P and dS against
+the parent's bit for bit, through both checkouts' wrappers, beyond the
+timed calls (``softmax_cases``: the dual mask by phase and by ``sel`` with
+pruning at both shapes, 37 units of 58 and of 33 tokens, and those scores
+one entry off a 16-byte boundary; every score and P / dP type).
 
 ``window32``: K2 for HWGATE's 32-token units (``csrc/window_attention_bwd.cu``)
 at its batch-16 call (12288 units × 32 tokens × dh 64, no pruning), f32 and
@@ -238,15 +270,77 @@ BANDED_DESIGNS = (
             "B.scale;\n", "      const float s = 1e-3f * e;\n")]},
     }),
 )
-SOFTMAX_FWD = "masked_softmax_fwd.cu"
-SOFTMAX_VARIANTS = {
-    "full": {},
-    # P = the raw scores: loads, mask lookups and stores without the softmax
-    "no_softmax": {SOFTMAX_FWD: [(
-        "    masked_softmax_row<kLanes, kMap>(x, B.l, n, B.allowed(masks, plane, r), prune_u, "
-        "zero_quirk,\n                                     a);\n",
-        "    for (int c = 0; c < kPer; ++c) a[c] = x[c] + (B.allowed(masks, plane, r) & 1);\n")]},
-}
+SOFTMAX_FWD, SOFTMAX_BWD = "masked_softmax_fwd.cu", "masked_softmax_bwd.cu"
+SOFTMAX_COMMON = "masked_softmax_common.cuh"
+
+
+# HWGATE's 32 and HGATE's 58 tokens launched by instantiations of their own,
+# in both K7 sources
+_SOFTMAX_KN = ("  if (a.n == 32) return launch<TS, TP, 8, kQuads, 32>(a);\n"
+               "  if (a.n == 58) return launch<TS, TP, 16, kPairs, 58>(a);\n", "")
+
+# (design, a line only its masked_softmax_fwd.cu holds, its variants; a
+# variant edits both sources, the forward's and the backward's). The staged
+# backward keeps the direct kernel for f32 scores and dP, so the staged
+# design is told first.
+SOFTMAX_DESIGNS = (
+    # bf16 scores: each block's spans of rows staged in shared memory by
+    # bulk copies, P or dS stored back by one
+    ("staged", "              load_cols<kLanes, kMap, false>(ss + r * n, R.l, n, kWhole || vec, x);"
+               "\n", {
+        "full": {},
+        "no_softmax": {
+            SOFTMAX_FWD: [(
+                "            masked_softmax_row<kLanes, kMap>(x, R.l, n, allowed, prune_u, "
+                "zero_quirk, a);\n",
+                "            for (int c = 0; c < kPer; ++c) a[c] = x[c] + (allowed & 1);\n")],
+            SOFTMAX_BWD: [(
+                "            const unsigned pass =\n"
+                "                masked_softmax_row<kLanes, kMap>(x, R.l, n, allowed, prune_u, "
+                "zero_quirk, a);\n",
+                "            for (int c = 0; c < kPer; ++c) a[c] = x[c] + (allowed & 1);\n"
+                "            const unsigned pass = 0xfu;\n")]},
+        # the rows of every span through the guarded loop
+        "guarded": {src: [("        if (vec && rows % R.kStep == 0) ", "        if (false) ")]
+                    for src in (SOFTMAX_FWD, SOFTMAX_BWD)},
+        # every n as an argument (no instantiation for 32 or 58 tokens)
+        "no_kN": {src: [_SOFTMAX_KN] for src in (SOFTMAX_FWD, SOFTMAX_BWD)},
+        # the backward on f32 scores and dP staged too (not the direct kernel)
+        "staged_f32_bwd": {SOFTMAX_BWD: [(
+            "  if constexpr (std::is_same<TS, float>::value && std::is_same<TP, float>::value)\n"
+            "    return launch_direct<TS, TP, kLanes, kMap>(a);\n"
+            "  else return launch_staged<TS, TP, kLanes, kMap, kN>(a);\n",
+            "  return launch_staged<TS, TP, kLanes, kMap, kN>(a);\n")]},
+        # three input stages (two spans' copies in flight besides this one)
+        "stages_3": {SOFTMAX_COMMON: [("constexpr int kInStages = 2;",
+                                       "constexpr int kInStages = 3;")]},
+        # ptxas free of the registers of 4 blocks an SM at 16 lanes a row
+        # (it then spills some instantiations)
+        "bounds_1": {SOFTMAX_COMMON: [("constexpr int kMinBlocks = 4;",
+                                       "constexpr int kMinBlocks = 1;")]},
+        # the staging alone: no rows (the output stage stored as it is)
+        "no_rows": {SOFTMAX_COMMON: [("    rows(s0, s1, so, count, first);\n", "")]},
+        # the rows alone: no bulk copy in or out (the stages as they are)
+        "no_copies": {SOFTMAX_COMMON: [
+            ("    barrier_expect(full + st, p0.bulk + p1.bulk);\n",
+             "    barrier_expect(full + st, 0u);\n"),
+            ("    load_part(buf, in0 + e0, p0, full + st);\n"
+             "    if (in1 != nullptr) load_part(buf + L.in1_offset, in1 + e0, p1, full + st);\n",
+             ""),
+            ("      if (po.bulk > 0u) {\n", "      if (po.bulk > 0u && e0 < 0) {\n")]},
+        # stages of two thirds and four thirds the bytes
+        **{f"stage_{kb}k": {SOFTMAX_COMMON: [("constexpr int kStageBytes = 24576;",
+                                              f"constexpr int kStageBytes = {kb * 1024};")]}
+           for kb in (16, 32)},
+    }),
+    # rows read and written in device memory by each lane (an earlier K7)
+    ("direct",
+     "    if (r < B.rows()) load_cols<kLanes, kMap>(s + B.offset(r), B.l, n, vec, x);\n",
+     {"full": {}}),
+)
+# Variants whose output is the kernels' own: timed in turns with the parent
+# and ``full`` and held bit for bit against the parent's
+SOFTMAX_EXACT = ("no_kN", "staged_f32_bwd")
 WINDOW_BWD, WINDOW_COMMON = "window_attention_bwd.cu", "window_attention_common.cuh"
 BWD_UNIT = "window_attention_bwd_unit.cuh"
 # (design, a line only the 32-token K2 of that design holds, its variants)
@@ -575,55 +669,167 @@ def run_banded(parent) -> dict:
     return out
 
 
-# K7's forward entry before it took the scores' type (f32 scores only)
-SOFTMAX_F32_SCORES_ARGTYPES = ["p"] * 5 + ["ll"] + ["i"] * 7 + ["ll", "p"]
+# K7's entries before they took the scores' type (f32 scores only)
+SOFTMAX_F32_SCORES_ARGTYPES = {ha.KERNEL: ["p"] * 5 + ["ll"] + ["i"] * 7 + ["ll", "p"],
+                               ha.KERNEL_BWD: ["p"] * 6 + ["ll"] + ["i"] * 7 + ["ll", "p"]}
+SOFTMAX_TYPES = (torch.float32, torch.bfloat16)
+
+
+def occupancy(ptxas: list) -> list:
+    """Blocks of 256 threads an SM can hold by each kernel's registers in
+    ``ptxas`` lines (in order; 64 Ki registers an SM, allocated 8 a thread
+    at a time, at most 8 such blocks)."""
+    regs = [int(ln.split("Used ")[1].split()[0]) for ln in ptxas if "Used " in ln]
+    return [min(8, 65536 // (256 * (-(-r // 8) * 8))) for r in regs]
+
+
+def softmax_cases(device="cuda"):
+    """(case, scores f32, adj, kwargs) of K7 beyond the timed single-mask
+    calls: both models' shapes under the dual mask by the temporal-group
+    phase and by ``sel``, with pruning; 37 units of 58 and of 33 tokens at
+    stack 1 (ragged spans; 33: no span 16-byte aligned in bf16), and those
+    scores as a view one entry into its storage (no tensor 16-byte
+    aligned). Scores at twice unit scale, one entry in 7 exactly 0 (the
+    zero quirk)."""
+    from sl_hwgat_tpu_torch.models.hwgate import shift_tail_mask
+
+    g = torch.Generator(device=device).manual_seed(0)
+
+    def scores(units, n):
+        s = torch.randn(units, n, n, generator=g, device=device) * 2.0
+        return s.masked_fill(torch.rand(s.shape, generator=g, device=device) < 1 / 7, 0.0)
+
+    prune = torch.full((1,), 0.3, device=device)
+    for model, (units, n) in SOFTMAX_SHAPES.items():
+        adj = windowed_block_adj(2)[0] if model == "HWGATE" else hgate_block_adj()
+        tail = adj * shift_tail_mask(16 if model == "HWGATE" else 29, 2, 1)
+        stack = 4 if model == "HWGATE" else 2
+        s = scores(units, n)
+        sel = (torch.rand(units // stack, generator=g, device=device) < 0.5).int()
+        yield f"{model}/dual_phase/prune", s, adj, dict(
+            stack=stack, tail_adj=tail, units_per_group=8 if model == "HWGATE" else 2,
+            groups=96, prune_u=prune)
+        yield f"{model}/dual_sel/prune", s, adj, dict(
+            stack=stack, tail_adj=tail, units_per_group=stack, groups=2, sel=sel, prune_u=prune)
+    for n in (58, 33):
+        rng = np.random.default_rng(n)
+        a = rng.random((n, n)) < 3.0 / n
+        adj = (a | a.T | np.eye(n, dtype=bool)).astype(np.float32)
+        tail = adj * (rng.random((n, n)) < 0.5)
+        np.fill_diagonal(tail, 1.0)
+        s = scores(37, n)
+        sel = (torch.rand(37, generator=g, device=device) < 0.5).int()
+        kw = dict(stack=1, tail_adj=tail, units_per_group=1, groups=2, sel=sel, prune_u=prune)
+        yield f"37x{n}/dual_sel/prune", s, adj, kw
+        view = torch.empty(s.numel() + 1, device=device)[1:].view(s.shape)
+        view.copy_(s)
+        yield f"37x{n}/offset_view/dual_sel/prune", view, adj, kw
+
+
+def softmax_equal_cases(parent) -> dict:
+    """{case: whether this checkout's K7 gives the parent's P and dS bit for
+    bit} at ``softmax_cases``, through each checkout's wrappers (the
+    parent's imported beside these), scores and P / dP in f32 and bf16."""
+    ph, pbuild = parent_modules(Path(parent), names=("ops.hybrid_attention", "ops._build"))
+    pbuild.build((ha.KERNEL, ha.KERNEL_BWD))
+    _build.build((ha.KERNEL, ha.KERNEL_BWD))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    equal = {}
+    with torch.no_grad():
+        for case, s32, adj, kw in softmax_cases():
+            dp32 = torch.randn(s32.shape, generator=g, device="cuda") * 0.2
+            for st in SOFTMAX_TYPES:
+                # a view one entry in stays a view one entry in, in either type
+                s = s32 if st == torch.float32 else s32.to(st)
+                if s32.storage_offset() and st != torch.float32:
+                    s = torch.empty(s32.numel() + 1, dtype=st, device="cuda")[1:].view(
+                        s32.shape).copy_(s32)
+                sname = str(st).split(".")[1]
+                for ot in SOFTMAX_TYPES:
+                    oname = str(ot).split(".")[1]
+                    dp = dp32.to(ot)
+                    equal[f"{case}/fwd/s_{sname}/p_{oname}"] = torch.equal(
+                        ha.masked_softmax(s, adj, p_dtype=ot, **kw),
+                        ph.masked_softmax(s, adj, p_dtype=ot, **kw))
+                    equal[f"{case}/bwd/s_{sname}/dp_{oname}"] = torch.equal(
+                        ha.masked_softmax_bwd(s, dp, adj, **kw),
+                        ph.masked_softmax_bwd(s, dp, adj, **kw))
+    return equal
 
 
 def run_softmax(parent) -> dict:
-    builds = {name: (_build.CSRC_DIR, edits) for name, edits in SOFTMAX_VARIANTS.items()}
+    design, variants = design_of(_build.CSRC_DIR, SOFTMAX_FWD, SOFTMAX_DESIGNS)
+    builds = {name: (_build.CSRC_DIR, edits) for name, edits in variants.items()}
     if parent is not None:
         builds["parent"] = (Path(parent) / "sl_hwgat_tpu_torch" / "csrc", {})
-    jobs = {name: build_variant(name, edits, (ha.KERNEL,), csrc)
+    jobs = {name: build_variant(name, edits, (ha.KERNEL, ha.KERNEL_BWD), csrc)
             for name, (csrc, edits) in builds.items()}
-    if not wait(jobs):
+    ptxas = wait(jobs)
+    if ptxas is None:
         return {}
-    # whether a build's entry takes the scores' type before P's
+    # whether a build's entries take the scores' type
     typed = {name: "int s_dtype" in (Path(csrc) / SOFTMAX_FWD).read_text()
              for name, (csrc, _) in builds.items()}
-    fns = {name: entry(name, ha.KERNEL, ha._ARGTYPES[ha.KERNEL] if typed[name]
-                       else SOFTMAX_F32_SCORES_ARGTYPES) for name in builds}
+    fns = {name: {src: entry(name, src, ha._ARGTYPES[src] if typed[name]
+                             else SOFTMAX_F32_SCORES_ARGTYPES[src])
+                  for src in (ha.KERNEL, ha.KERNEL_BWD)} for name in builds}
     rng = np.random.default_rng(0)
+    stream = torch.cuda.current_stream().cuda_stream
     times, pairs, equal = {}, {}, {}
     for model, (units, n) in SOFTMAX_SHAPES.items():
         adj = windowed_block_adj(2)[0] if model == "HWGATE" else hgate_block_adj()
         stack = 4 if model == "HWGATE" else 2
         masks = wa.device_masks(adj, None, "cuda", wide=True)
         s32 = torch.from_numpy(rng.normal(size=(units, n, n)).astype(np.float32)).cuda()
-        # f32 scores with P in f32 and bf16; bf16 scores with bf16 P (the
-        # PALLAS_HYBRID_S_BF16 path; this checkout's builds only)
-        for s, dtype in ((s32, torch.float32), (s32, torch.bfloat16),
-                         (s32.to(torch.bfloat16), torch.bfloat16)):
-            s_code, code = int(s.dtype == torch.bfloat16), int(dtype == torch.bfloat16)
-            case = f"{model}/{str(dtype).split('.')[1]}" + ("/bf16_scores" if s_code else "")
-            masked = masked_scores(s.float(), unit_allowed(adj, None, None, units, stack,
-                                                           s.device),
-                                   zero_quirk=True, prune_u=None).to(s.dtype)
+        dp32 = torch.from_numpy(rng.normal(size=(units, n, n)).astype(np.float32) * 0.2).cuda()
+        allowed = unit_allowed(adj, None, None, units, stack, s32.device)
+        for st in SOFTMAX_TYPES:
+            s = s32.to(st)
+            s_code = int(st == torch.bfloat16)
+            sname = str(st).split(".")[1]
             names = [name for name in fns if typed[name] or not s_code]
-            outs = {name: [torch.empty(s.shape, dtype=dtype, device="cuda")] for name in names}
-            stream = torch.cuda.current_stream().cuda_stream
-            calls = {name: (lambda fn=fns[name], p=outs[name][0], typed=typed[name]: fn(
-                s.data_ptr(), p.data_ptr(), masks.data_ptr(), None, None, units, n,
-                *((s_code,) if typed else ()), code, 1, 0, stack, 0, 0, 0, stream))
-                for name in names}
-            for name in SOFTMAX_VARIANTS:
-                times[f"{name}/{case}"] = device_ms(calls[name])
-            times[f"torch.softmax/{case}"] = profiling.device_seconds(
+            masked = masked_scores(s32, allowed, zero_quirk=True, prune_u=None).to(st)
+            leaf = masked.detach().requires_grad_()
+            p_lib = torch.softmax(leaf, -1)
+            dp_lib = dp32.to(st)
+            times[f"torch.softmax/{model}/fwd/s_{sname}"] = profiling.device_seconds(
                 lambda: torch.softmax(masked, -1), calls=20) * 1e3
-            if "parent" in calls:
-                pairs[case], equal[case] = paired(calls, outs)
-    out = {"device_ms": times, "scores": {m: [u, n, n] for m, (u, n) in SOFTMAX_SHAPES.items()}}
+            times[f"torch.softmax/{model}/bwd/s_{sname}"] = profiling.device_seconds(
+                lambda: torch.autograd.grad(p_lib, leaf, dp_lib, retain_graph=True),
+                calls=20) * 1e3
+            for ot in SOFTMAX_TYPES:  # P's type (forward), dP's type (backward)
+                code = int(ot == torch.bfloat16)
+                oname = str(ot).split(".")[1]
+                dp = dp32.to(ot)
+                outs = {name: {"fwd": [torch.empty(s.shape, dtype=ot, device="cuda")],
+                               "bwd": [torch.empty_like(s)]} for name in names}
+                mode = (1, 0, stack, 0, 0, 0, stream)  # zero quirk, single mask
+                for kind in ("fwd", "bwd"):
+                    case = f"{model}/{kind}/s_{sname}/{'p' if kind == 'fwd' else 'dp'}_{oname}"
+                    calls = {}
+                    for name in names:
+                        fn, out = fns[name][ha.KERNEL if kind == "fwd" else ha.KERNEL_BWD], \
+                            outs[name][kind][0]
+                        types = ((s_code,) if typed[name] else ()) + (code,)
+                        ins = (s.data_ptr(),) if kind == "fwd" else (s.data_ptr(), dp.data_ptr())
+                        calls[name] = (lambda fn=fn, ins=ins, o=out.data_ptr(), types=types: fn(
+                            *ins, o, masks.data_ptr(), None, None, units, n, *types, *mode))
+                    for name in variants:
+                        times[f"{name}/{case}"] = device_ms(calls[name])
+                    if "parent" in calls:
+                        pairs[case], equal[case] = paired(
+                            calls, {name: outs[name][kind] for name in calls},
+                            ("parent", "full", *(v for v in SOFTMAX_EXACT if v in variants)))
+            del s, masked, leaf, p_lib, dp_lib
+    out = {"design": design, "device_ms": times, "ptxas": ptxas,
+           "blocks_per_sm_by_registers": {name: occupancy(lines) for name, lines in ptxas.items()},
+           "scores": {m: [u, n, n] for m, (u, n) in SOFTMAX_SHAPES.items()},
+           "note": "torch.softmax: over the masked scores in their type; bwd: "
+                   "torch.autograd.grad of its output, dP in the scores' type"}
     if parent is not None:
-        out.update(paired_device_ms=pairs, bit_equal=equal)
+        out.update(parent_design=design_of(builds["parent"][0], SOFTMAX_FWD, SOFTMAX_DESIGNS)[0],
+                   paired_device_ms=pairs, bit_equal=equal,
+                   bit_equal_cases=softmax_equal_cases(parent))
     return out
 
 
@@ -645,14 +851,15 @@ def variant_builds(csrc_designs, parent, fname: str, src: str) -> dict:
             for name, d, _ in builds}, ptxas
 
 
-def paired(calls: dict, outs: dict) -> tuple[dict, bool]:
-    """(parent and full timed in turns, whether their outputs are equal bit
-    for bit after one more call each)."""
-    times = in_turns({"parent": calls["parent"], "full": calls["full"]})
-    calls["parent"]()
-    calls["full"]()
+def paired(calls: dict, outs: dict, names=("parent", "full")) -> tuple[dict, bool]:
+    """(``names``, the parent first, timed in turns, whether their outputs
+    equal the parent's bit for bit after one more call each)."""
+    times = in_turns({n: calls[n] for n in names})
+    for n in names:
+        calls[n]()
     torch.cuda.synchronize()
-    return times, all(torch.equal(a, b) for a, b in zip(outs["parent"], outs["full"]))
+    return times, all(torch.equal(a, b) for n in names[1:]
+                      for a, b in zip(outs["parent"], outs[n]))
 
 
 def run_window32(parent) -> dict:

@@ -336,14 +336,27 @@ def test_unknown_attn_impl_raises(build):
     assert build("hybrid") is not None and build("stacked") is not None
 
 
-def test_ablation_variants_apply_to_the_masked_softmax_source():
+@pytest.mark.parametrize("source", ["masked_softmax_fwd.cu", "masked_softmax_bwd.cu"])
+def test_ablation_variants_apply_to_the_masked_softmax_source(source, monkeypatch):
+    """bench.ablate softmax's variants of the sources' design apply to this
+    checkout, once each, the no_softmax twin edits the forward and the
+    backward alike, and the cases it holds against the parent are built
+    (dual masks with pruning, ragged spans, an offset view)."""
     from sl_hwgat_tpu_torch.bench import ablate
     from sl_hwgat_tpu_torch.ops import _build
 
-    assert set(ablate.SOFTMAX_VARIANTS) == {"full", "no_softmax"}
-    for edits in ablate.SOFTMAX_VARIANTS.values():
-        for fname, replacements in edits.items():
+    design, variants = ablate.design_of(_build.CSRC_DIR, ablate.SOFTMAX_FWD,
+                                        ablate.SOFTMAX_DESIGNS)
+    assert design == "staged"
+    assert {"full", "no_softmax", "no_copies"} <= set(variants)
+    assert source in variants["no_softmax"]
+    for edits in variants.values():
+        for fname in {source, ablate.SOFTMAX_COMMON} & set(edits):
             text = (_build.CSRC_DIR / fname).read_text()
-            for old, _ in replacements:
+            for old, _ in edits[fname]:
                 assert text.count(old) == 1, (fname, old)
+    monkeypatch.setattr(ablate, "SOFTMAX_SHAPES", {"HWGATE": (16, 32), "HGATE": (4, 58)})
+    cases = list(ablate.softmax_cases("cpu"))
+    assert len(cases) == 8
+    assert any(s.storage_offset() == 1 for _, s, _, _ in cases)
     assert ablate.main(["softmax"]) == 1  # no card here

@@ -55,10 +55,10 @@ def test_the_banded_forward_takes_the_bands_edge_count_before_the_scale():
 
 # The block helpers that chip_smoke.py reads (``redesigned_blocks``): how
 # many int arguments it passes before the two int* outputs.
-BLOCK_INPUTS = {"masked_softmax_fwd": 1, "window_attention_bwd": 2, "window_attention_fwd": 2,
-                "banded_attention_fwd": 3, "banded_attention_bwd": 3, "tile_matmul": 5,
-                "window_attention_layout": 2, "softmax_probe": 0, "window_attention_layout_bwd": 2,
-                "relayout": 1}
+BLOCK_INPUTS = {"masked_softmax_fwd": 3, "masked_softmax_bwd": 3, "window_attention_bwd": 2,
+                "window_attention_fwd": 2, "banded_attention_fwd": 3, "banded_attention_bwd": 3,
+                "tile_matmul": 5, "window_attention_layout": 2, "softmax_probe": 0,
+                "window_attention_layout_bwd": 2, "relayout": 1}
 
 
 def block_signature(name: str) -> list[str]:
